@@ -1,0 +1,22 @@
+"""claxon_tpu_torch: the PyTorch + CUDA port of claxon_tpu's decode path.
+
+The host layers (stream and metadata parsing, the C++ boundary walk, the
+error model) are shared with ``claxon_tpu`` and imported as they are; the
+device side is rewritten for an NVIDIA Hopper card:
+
+* ``ops`` -- each device kernel's wrapper beside its plain PyTorch form:
+  K1 synthesis, K2 stream Rice decode and K4 range CRC-16 as hand-written
+  CUDA (``csrc/``, built with nvcc at first use), K3 epilogue as torch ops;
+* ``pipeline_bits`` -- numpy bucket planning and the per-bucket steps;
+* ``pipeline`` -- the public calls and the device-resident result.
+
+This package never imports JAX. Output is bit-identical to ``claxon_tpu``
+and to the C++ scalar decoder.
+"""
+
+from .pipeline import (DecodedStream, DeviceDecoded, decode_stream,
+                       decode_streams, decode_streams_device,
+                       decode_streams_pipelined)
+
+__all__ = ["decode_stream", "decode_streams", "decode_streams_device",
+           "decode_streams_pipelined", "DeviceDecoded", "DecodedStream"]

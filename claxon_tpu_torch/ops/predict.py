@@ -1,0 +1,85 @@
+"""K1: batched prediction synthesis (counterpart of ``claxon_tpu.ops.
+predict`` and the Pallas kernel ``claxon_tpu.ops.pallas_synth``).
+
+One recurrence reconstructs every FLAC subframe type, one (frame,
+channel) per lane:
+
+* LPC (orders 1-32): ``out[t] = x[t] + ((sum_k C[k] * out[t-32+k]) >>
+  shift)`` with an exact int64 sum (|c| < 2^15 and 32 int32 taps stay
+  below 2^51), an arithmetic shift and a wrapping int32 add;
+* FIXED (orders 0-4): the same with Pascal coefficients and shift 0;
+* CONSTANT / VERBATIM: order 0, zero coefficients, x passes through.
+
+Warm-up samples in ``x[:, :order]`` pass through, and ``t >= length``
+gives 0. The TPU's 8/16-bit limb arithmetic (``claxon_tpu.ops.i64``) is
+not carried over: PyTorch and CUDA have int64.
+"""
+
+import torch
+
+from . import _build
+from ._checks import on_cpu, require_cuda_int32
+
+__all__ = ["synthesize", "synthesize_plain", "ORDER_MAX"]
+
+ORDER_MAX = 32
+
+
+def synthesize_plain(x, coefs, shifts, orders, lengths):
+    """The plain PyTorch form: a loop over time on (L,) vectors.
+
+    Args:
+      x:       (L, T) int32, warm-up samples at t < order, residuals after.
+      coefs:   (L, 32) int32, |c| < 2^15, column 31 the newest tap.
+      shifts:  (L,) int32 QLP shift in [0, 31].
+      orders:  (L,) int32 predictor order.
+      lengths: (L,) int32 valid length; ``t >= length`` gives 0.
+
+    Returns:
+      (L, T) int32 decoded samples.
+    """
+    L, T = x.shape
+    dev = x.device
+    c = coefs.to(torch.int64)
+    sh = shifts.to(torch.int64)
+    buf = torch.zeros((L, T + ORDER_MAX), dtype=torch.int64, device=dev)
+    x64 = x.to(torch.int64)
+    for t in range(T):
+        acc = (c * buf[:, t:t + ORDER_MAX]).sum(dim=1)
+        # int64 -> int32 keeps the low 32 bits: the wrapping add.
+        val = (x64[:, t] + (acc >> sh)).to(torch.int32).to(torch.int64)
+        val = torch.where(t >= orders, val, x64[:, t])
+        val = torch.where(t < lengths, val, 0)
+        buf[:, t + ORDER_MAX] = val
+    return buf[:, ORDER_MAX:].to(torch.int32)
+
+
+def synthesize(x, coefs, shifts, orders, lengths=None):
+    """K1 wrapper: the plain form for CPU tensors; for CUDA tensors the
+    hand-written kernel (``csrc/synth.cu``), or an exception. Same
+    arguments as :func:`synthesize_plain`; ``lengths`` defaults to T."""
+    if lengths is None:
+        lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                             device=x.device)
+    if on_cpu(x, coefs, shifts, orders, lengths):
+        return synthesize_plain(x, coefs, shifts, orders, lengths)
+    dev = require_cuda_int32("synthesize", x=x, coefs=coefs, shifts=shifts,
+                             orders=orders, lengths=lengths)
+    L, T = x.shape
+    if coefs.shape != (L, ORDER_MAX) or any(
+            v.shape != (L,) for v in (shifts, orders, lengths)):
+        raise ValueError("synthesize: expected coefs (L, 32) and (L,) "
+                         "shifts/orders/lengths for x of shape "
+                         f"{tuple(x.shape)}")
+    lib = _build.load()
+    out = torch.empty_like(x)
+    _build.check(lib.cxk_synthesize(
+        x.data_ptr(), coefs.data_ptr(), shifts.data_ptr(), orders.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), L, T,
+        _build.stream_handle(dev)), "cxk_synthesize")
+    synthesize.launches += 1
+    return out
+
+
+#: kernel launches through the wrapper (CUDA tensors only).
+synthesize.launches = 0

@@ -1,0 +1,252 @@
+"""Batched decode pipeline of the port: the library's public entry points
+(counterpart of ``claxon_tpu.pipeline``, host-walk bits path).
+
+``decode_streams_device`` walks every stream once on the host with the
+shared C++ core (frame CRC-16 checks deferred to the device), plans the
+batch into fixed (L, T) buckets (``pipeline_bits``), and runs the
+hand-written kernels on ``device``. The result, :class:`DeviceDecoded`,
+keeps the decoded PCM on the device bucket by bucket; ``to_host()``
+scatters it into per-stream interleaved PCM.
+
+Every call takes an explicit ``device`` (default ``"cuda"``): nothing
+probes for a GPU, and CPU tensors take the kernels' plain PyTorch forms.
+Only the host-walk segmentation is ported; the C++ core is required.
+"""
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+import torch
+
+__all__ = ["decode_stream", "decode_streams", "decode_streams_device",
+           "decode_streams_pipelined", "extract_streams_bits",
+           "DeviceDecoded", "DecodedStream", "bucket_shape"]
+
+# Time-axis bucket sizes: the common FLAC block sizes plus power-of-two
+# fill-ins, so a stream with one block size makes one bucket shape.
+_T_BUCKETS = (64, 192, 256, 576, 1024, 1152, 2048, 2304, 4096, 4608,
+              8192, 16384, 32768, 65535)
+_L_QUANTUM = 128  # lane-axis padding quantum (kept from the JAX package)
+
+
+def bucket_shape(n_lanes, block_size, lane_quantum=_L_QUANTUM):
+    """The padded (L, T) shape for a group of subframes."""
+    if block_size > _T_BUCKETS[-1]:
+        from claxon_tpu.error import fmt_err
+        fmt_err("invalid block size, exceeds 65535")
+    for t in _T_BUCKETS:
+        if block_size <= t:
+            break
+    l = ((n_lanes + lane_quantum - 1) // lane_quantum) * lane_quantum
+    return max(l, lane_quantum), t
+
+
+@dataclass
+class DecodedStream:
+    """Decoded PCM plus stream metadata."""
+    streaminfo: object
+    #: (total_samples, channels) int32, channels interleaved on axis 1.
+    pcm: np.ndarray
+    #: first inter-channel sample number of each frame
+    frame_times: List[int]
+    #: block size of each frame
+    frame_sizes: List[int]
+
+
+@dataclass
+class _BucketDispatch:
+    """One bucket's decoded PCM on the device (and its host copy)."""
+    n_ch: int
+    out_full: torch.Tensor      # (L, T) int32 on the device
+    host: torch.Tensor = None   # (L, T) int32 host copy once fetched
+
+
+class DeviceDecoded:
+    """Decoded PCM resident on the device, bucket-major.
+
+    ``device_buckets()`` hands a consumer the (L, T) int32 buckets where
+    they lie, and ``lane_plans()`` says which stream, frame and channel
+    each lane holds. Frame CRC-16 verification runs on the device, and its
+    verdict surfaces only through ``verify_crc()``, which ``sync()`` and
+    ``to_host()`` call: a consumer reading buckets directly calls
+    ``sync()`` before trusting them.
+    """
+
+    def __init__(self, results, dispatches, plans, pcms):
+        self.results = results
+        self.dispatches = dispatches
+        self._plans = plans
+        self._pcms = pcms
+        #: ((F,) int32 device CRCs, n valid), "failed" once a mismatch
+        #: was seen (it latches), or None when nothing is left to check.
+        self.crc_check = None
+        self._crc_host = None
+        self._fetched = None   # CUDA event after the host copies, or True
+
+    def sync(self):
+        """Wait for every bucket's kernels, then surface a frame CRC
+        mismatch (see verify_crc)."""
+        for dev in {d.out_full.device for d in self.dispatches
+                    if d.out_full.is_cuda}:
+            torch.cuda.synchronize(dev)
+        self.verify_crc()
+        return self
+
+    def verify_crc(self):
+        """Raise FormatError "frame CRC mismatch" if the device verifier
+        flagged a frame. A mismatch latches: every later verify_crc(),
+        sync() or to_host() on this batch raises again."""
+        from claxon_tpu.error import fmt_err
+
+        if self.crc_check is None:
+            return
+        if self.crc_check == "failed":
+            fmt_err("frame CRC mismatch")
+        vals, n = self.crc_check
+        if self._crc_host is not None:
+            self._wait_fetched()
+            host = self._crc_host
+        else:
+            host = vals.cpu()
+        if bool(host[:n].any()):
+            self.crc_check = "failed"
+            fmt_err("frame CRC mismatch")
+        self.crc_check = None
+
+    def start_fetch(self):
+        """Start the device-to-host copies of every bucket (into pinned
+        memory, without waiting), so they overlap host work done before
+        ``to_host()``. Idempotent."""
+        if self._fetched is not None:
+            return self
+        cuda = None
+        for d in self.dispatches:
+            if d.out_full.is_cuda:
+                d.host = torch.empty(d.out_full.shape, dtype=torch.int32,
+                                     pin_memory=True)
+                d.host.copy_(d.out_full, non_blocking=True)
+                cuda = d.out_full.device
+            else:
+                d.host = d.out_full
+        if isinstance(self.crc_check, tuple):
+            vals = self.crc_check[0]
+            if vals.is_cuda:
+                self._crc_host = torch.empty(vals.shape, dtype=vals.dtype,
+                                             pin_memory=True)
+                self._crc_host.copy_(vals, non_blocking=True)
+                cuda = vals.device
+            else:
+                self._crc_host = vals
+        if cuda is None:
+            self._fetched = True
+        else:
+            self._fetched = torch.cuda.Event()
+            self._fetched.record(torch.cuda.current_stream(cuda))
+        return self
+
+    def _wait_fetched(self):
+        """Block until the copies start_fetch() queued have landed."""
+        if self._fetched is not True:
+            self._fetched.synchronize()
+
+    def device_buckets(self):
+        """[([], n_ch, (L, T) int32 device tensor), ...]; the lane layout
+        of each bucket is in ``lane_plans()``."""
+        return [([], d.n_ch, d.out_full) for d in self.dispatches]
+
+    def lane_plans(self):
+        """Per bucket (parallel to ``device_buckets()``), a list of runs
+        ``(stream_index, out_sample_offset, n_frames, block_size,
+        n_channels, first_lane)``; a run occupies lanes ``[first_lane,
+        first_lane + n_frames * n_channels)``, frame-major, channel-minor."""
+        return [list(p) for p in self._plans]
+
+    def to_host(self):
+        """Per-stream DecodedStreams with their PCM filled in."""
+        self.start_fetch()._wait_fetched()
+        for d, plan in zip(self.dispatches, self._plans):
+            out = d.host.numpy()
+            for si_idx, out0, nf, bs, n_ch, lane0 in plan:
+                pcm = self._pcms[si_idx]
+                # One strided copy per (run, channel): frames of a run are
+                # stream-consecutive, so their output rows are too.
+                for ci in range(n_ch):
+                    pcm[out0:out0 + nf * bs, ci] = \
+                        out[lane0 + ci:lane0 + nf * n_ch:n_ch,
+                            :bs].reshape(-1)
+        self.verify_crc()
+        return self.results
+
+
+def _native():
+    from claxon_tpu import native
+
+    if not native.available():
+        raise RuntimeError(
+            "claxon_tpu_torch needs the C++ host core (claxon_tpu.native); "
+            "build it with python -m claxon_tpu.native.build")
+    return native
+
+
+def extract_streams_bits(datas, native):
+    """Walk every stream of a batch with the C++ core: frame boundaries,
+    descriptors and chunk bases, the frame CRC-16 checks deferred to the
+    device. Returns [(streaminfo, BitsBatch), ...]."""
+    from .pipeline_bits import MAX_BATCH_BYTES
+
+    total = sum(len(d) for d in datas)
+    if total >= MAX_BATCH_BYTES:
+        raise ValueError(
+            f"claxon_tpu_torch: a batch of {total} bytes reaches the "
+            f"{MAX_BATCH_BYTES}-byte limit of int32 chunk bit positions; "
+            "decode it in smaller batches")
+    return [native.extract_stream_bits(d, emit_slots=False, defer_crc=True)
+            for d in datas]
+
+
+def decode_streams_device(datas, lane_quantum=_L_QUANTUM, segmentation=None,
+                          device="cuda") -> DeviceDecoded:
+    """Decode many FLAC streams (bytes) into PCM buckets on ``device``.
+
+    ``segmentation`` None or ``"host"`` is the host-walk bits path, the
+    only one ported; other values raise NotImplementedError."""
+    if segmentation not in (None, "host"):
+        raise NotImplementedError(
+            f"claxon_tpu_torch: segmentation={segmentation!r} is not "
+            "ported; use None or 'host'")
+    from .pipeline_bits import decode_raw_bits_device
+
+    braws = extract_streams_bits(datas, _native())
+    return decode_raw_bits_device(braws, lane_quantum, device=device)
+
+
+def decode_streams(datas, lane_quantum=_L_QUANTUM,
+                   device="cuda") -> List[DecodedStream]:
+    """Decode many FLAC streams in one batch; PCM on the host."""
+    return decode_streams_device(datas, lane_quantum,
+                                 device=device).to_host()
+
+
+def decode_stream(data, device="cuda") -> DecodedStream:
+    """Decode one whole FLAC stream (bytes)."""
+    return decode_streams([data], device=device)[0]
+
+
+def decode_streams_pipelined(datas, batch_streams=8, depth=2,
+                             lane_quantum=_L_QUANTUM,
+                             device="cuda") -> List[DecodedStream]:
+    """Decode a large corpus as overlapping batches: batch n+1 is walked
+    on the host and its kernels queued while batch n's PCM copies back.
+    ``depth`` bounds the batches in flight. Results are in input order."""
+    results = []
+    in_flight = []
+    for i in range(0, len(datas), batch_streams):
+        dd = decode_streams_device(datas[i:i + batch_streams], lane_quantum,
+                                   device=device)
+        in_flight.append(dd.start_fetch())
+        if len(in_flight) > depth:
+            results.extend(in_flight.pop(0).to_host())
+    for dd in in_flight:
+        results.extend(dd.to_host())
+    return results

@@ -1,0 +1,455 @@
+"""Bits-path device pipeline of the port: residual bits in, PCM out
+(counterpart of ``claxon_tpu.pipeline_bits``, stream mode).
+
+The C++ boundary walk (``claxon_tpu.native.extract_stream_bits``, shared
+with the JAX package) ships each stream's frame-section bytes and per-lane
+descriptors. :func:`plan_raw_bits` turns them, in numpy alone, into the
+device uploads: one stream of big-endian int32 words for the batch, one
+packed int32 ``mb`` array per (T, nch) bucket (the ``_MB_FIXED`` layout
+below), the fallback-frame buckets, and the frame CRC ranges ``se``. It
+produces the same bytes as the JAX package's planner, which a test holds
+it to. :func:`decode_raw_bits_device` uploads them and runs, per bucket,
+K2 -> K1 -> K3 (:func:`stream_step`), then K1 -> K3 for fallback frames,
+then K4 once per batch over every deferred frame CRC.
+
+Not carried over: delta entropy mode, host CRC verification
+(``CLAXON_TPU_HOST_CRC``), the mesh, and int16 transfer packing.
+"""
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from claxon_tpu.error import fmt_err
+
+from .ops.crc import crc16_ranges
+from .ops.entropy import decode_residual_bits_stream
+from .ops.epilogue import apply_epilogue
+from .ops.predict import ORDER_MAX, synthesize
+
+__all__ = ["plan_raw_bits", "decode_raw_bits_device", "stream_step",
+           "unpack_mb", "inputs_from_numpy"]
+
+# Partition-count classes: buckets quantize their maximum partition count.
+_P_CLASSES = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _p_class(n):
+    for p in _P_CLASSES:
+        if n <= p:
+            return p
+    return _P_CLASSES[-1]
+
+
+#: Packed per-lane upload layout (int32 words; int16 halfword pairs are
+#: little-endian, low half first):
+#:   word 0:            order | shift<<6 | wasted<<12 | pbits<<17
+#:                      | flags<<20 | pair_mode<<23
+#:   word 1:            ps (samples per partition)
+#:   word 2:            length (block size)
+#:   word 3:            base0 (absolute bit position of chunk 0)
+#:   words 4:36:        warm-up samples
+#:   words 36:52:       QLP coefficients, int16 pairs
+#:   words 52:52+BD:    chunk-base deltas, int16 pairs, BD = ceil((NC-1)/2)
+#:   words 52+BD..+KP:  per-partition Rice parameters, int16 pairs,
+#:                      KP = ceil(P/2)
+_MB_FIXED = 52
+
+
+def _mb_width(nc, p):
+    """Packed mb width in int32 words."""
+    return _MB_FIXED + (nc - 1 + 1) // 2 + (p + 1) // 2
+
+
+#: chunk bases are int32 bit positions into the batch's stream upload, so
+#: a batch stays below this many bytes (checked in extract_streams_bits).
+MAX_BATCH_BYTES = 1 << 27
+
+#: stream upload quantum (words) above the power-of-two classes.
+_STREAM_QUANTUM = 1 << 16
+
+
+def _pad_stream_words(total_w):
+    """Padded word count of a batch's stream upload: power-of-two classes
+    from 4096 words up to ``_STREAM_QUANTUM``, multiples of it above."""
+    q = 1 << 12
+    while q < _STREAM_QUANTUM:
+        if total_w <= q:
+            return q
+        q *= 2
+    return -(-max(total_w, 1) // _STREAM_QUANTUM) * _STREAM_QUANTUM
+
+
+def _host_verify_deferred(bb, before_idx):
+    """Re-verify deferred frame CRCs preceding frame ``before_idx`` on the
+    host (cold path: runs only when another error is about to surface, so
+    that an earlier CRC mismatch wins, as in sequential decode)."""
+    from claxon_tpu import native
+
+    bf = bb.bframes[:before_idx]
+    payload = memoryview(bb.payload)
+    for f in bf[(bf["flags"] & 2) != 0]:
+        b0, b1 = int(f["byte0"]), int(f["byte1"])
+        stored = (payload[b1 - 2] << 8) | payload[b1 - 1]
+        if native.crc16_bytes(payload[b0:b1 - 2]) != stored:
+            fmt_err("frame CRC mismatch")
+
+
+def _excl_cumsum(v):
+    """Exclusive cumsum with the same length as ``v``."""
+    return np.cumsum(v) - v
+
+
+def _group_runs(g_si, g_bs, g_lane0, n_ch):
+    """Split a bucket group (frames in stream order) into runs of
+    consecutive frames of one stream and one block size, whose spans in
+    every flat array are contiguous. Returns (starts, ends)."""
+    n = len(g_si)
+    if n == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    brk = np.flatnonzero((g_si[1:] != g_si[:-1])
+                         | (g_bs[1:] != g_bs[:-1])
+                         | (g_lane0[1:] != g_lane0[:-1] + n_ch)) + 1
+    starts = np.concatenate([[0], brk])
+    ends = np.concatenate([brk, [n]])
+    return starts, ends
+
+
+def _scatter_ks(ks, lane, nl, nparts, src, ko):
+    """Lane j's Rice parameters src[ko+cum[j] : +nparts[j]] go to columns
+    [0, nparts[j]) of ks row lane + j."""
+    npr = nparts.astype(np.int64)
+    tot = int(npr.sum())
+    if not tot:
+        return
+    rows = np.repeat(np.arange(nl) + lane, npr)
+    cols = np.arange(tot) - np.repeat(_excl_cumsum(npr), npr)
+    ks[rows, cols] = src[ko:ko + tot]
+
+
+@dataclass
+class BitsBucket:
+    """One stream-mode bucket: its packed upload and static shape."""
+    n_ch: int
+    n_parts_max: int   # P
+    sa: int            # words gathered per chunk
+    nc: int            # chunks per lane
+    mb: np.ndarray     # (L, _mb_width(NC, P)) int32
+    plan: list
+
+
+@dataclass
+class SampleBucket:
+    """One fallback-frame bucket: host-decoded residuals for K1 + K3."""
+    n_ch: int
+    x: np.ndarray          # (L, T) int32
+    coefs: np.ndarray      # (L, 32) int32
+    shifts: np.ndarray     # (L,)
+    orders: np.ndarray     # (L,)
+    wasted: np.ndarray     # (L,)
+    pair_modes: np.ndarray  # (L//2,)
+    lengths: np.ndarray    # (L,)
+    plan: list
+
+
+@dataclass
+class BitsPlan:
+    """Everything a batch uploads, and where its PCM goes."""
+    results: list          # DecodedStream per input stream
+    pcms: list             # their (total, channels) int32 arrays
+    stream: np.ndarray     # (W,) int32 big-endian frame-section words
+    bits: list             # BitsBucket, in dispatch order
+    samples: list          # SampleBucket, dispatched after the bits ones
+    se: np.ndarray = None  # (2, F) int32 CRC ranges (starts, ends) or None
+    n_crc: int = 0         # valid ranges in se
+
+
+def plan_raw_bits(braws, lane_quantum):
+    """Plan a batch of [(streaminfo, BitsBatch), ...] (extracted with
+    ``emit_slots=False``), in numpy alone. Raises the reference's
+    ``FormatError`` for a frame whose channel count disagrees with
+    STREAMINFO, after re-checking the CRCs of the frames before it."""
+    from .pipeline import DecodedStream, _T_BUCKETS, bucket_shape
+
+    t_buckets = np.asarray(_T_BUCKETS, dtype=np.int64)
+
+    # One shared upload of every stream's frame-section words (big-endian
+    # bit order, int32), chunk bases rebased into it.
+    sizes = [len(b.payload) for _si, b in braws]
+    wcs = [(s + 3) // 4 for s in sizes]
+    buf = np.zeros(_pad_stream_words(sum(wcs)) * 4, dtype=np.uint8)
+    stream_bit_off = []
+    off = 0
+    for (_si, b), s, wc in zip(braws, sizes, wcs):
+        buf[off:off + s] = np.frombuffer(b.payload, dtype=np.uint8)
+        stream_bit_off.append(off * 8)
+        off += wc * 4
+    stream = buf.view(">i4").astype(np.int32)
+
+    results, pcms = [], []
+    bit_groups, smp_groups = {}, {}
+    crc_starts, crc_ends = [], []
+    for si_idx, (si, bb) in enumerate(braws):
+        bf = bb.bframes
+        bad_ch = bf["channels"] != si.channels
+        if bad_ch.any():
+            # An earlier frame's deferred CRC mismatch wins over this
+            # later-frame error (sequential decode would hit it first).
+            _host_verify_deferred(bb, int(np.argmax(bad_ch)))
+            fmt_err("frame channel count does not match streaminfo")
+        deferred = (bf["flags"] & 2) != 0
+        if deferred.any():
+            off = stream_bit_off[si_idx] // 8
+            crc_starts.append(bf["byte0"][deferred].astype(np.int64) + off)
+            crc_ends.append(bf["byte1"][deferred].astype(np.int64) + off)
+        bs_v = bf["block_size"].astype(np.int64)
+        nch_v = bf["channels"].astype(np.int64)
+        nc_v = (bs_v + 31) // 32
+        sa_v = bf["s_class"].astype(np.int64) + 1
+        fb_v = (bf["flags"] & 1) != 0
+        out0_v = np.concatenate([[0], np.cumsum(bs_v)[:-1]])
+        lane0_v = np.concatenate([[0], np.cumsum(nch_v)[:-1]])
+
+        # Per-lane flat-buffer offsets: fallback lanes consume samples,
+        # bits lanes consume chunk bases; every lane consumes ks.
+        lane_fb = np.repeat(fb_v, nch_v)
+        x_sz = np.where(lane_fb, np.repeat(bs_v, nch_v), 0)
+        b_sz = np.where(lane_fb, 0, np.repeat(nc_v, nch_v))
+        k_sz = bb.bsubs["n_parts"].astype(np.int64)
+        x_off = _excl_cumsum(x_sz)
+        b_off = _excl_cumsum(b_sz)
+        k_off = _excl_cumsum(k_sz)
+
+        pcm = np.zeros((int(bs_v.sum()), si.channels), dtype=np.int32)
+        pcms.append(pcm)
+        results.append(DecodedStream(
+            streaminfo=si, pcm=pcm,
+            frame_times=bf["time"].tolist(),
+            frame_sizes=bf["block_size"].tolist()))
+        if len(bf) == 0:
+            continue
+
+        # One composite key per frame: (fallback, T bucket, channels).
+        tb_idx = np.searchsorted(t_buckets, bs_v)
+        np_max = np.maximum.reduceat(k_sz, lane0_v)
+        key_v = (fb_v.astype(np.int64) << 48) | (tb_idx << 40) \
+            | (nch_v << 20)
+        for kv in np.unique(key_v):
+            idx = np.flatnonzero(key_v == kv)
+            i0 = idx[0]
+            chunk = {
+                "si": np.full(len(idx), si_idx, dtype=np.int64),
+                "bs": bs_v[idx], "lane0": lane0_v[idx],
+                "out0": out0_v[idx], "nc": nc_v[idx],
+                "mode": bf["mode"][idx].astype(np.int64),
+                "sa": sa_v[idx],
+                "x0": x_off[lane0_v[idx]], "k0": k_off[lane0_v[idx]],
+                "b0": b_off[lane0_v[idx]], "np_max": np_max[idx],
+            }
+            gkey = (int(t_buckets[tb_idx[i0]]), int(nch_v[i0]))
+            (smp_groups if fb_v[i0] else bit_groups) \
+                .setdefault(gkey, []).append(chunk)
+
+    bits = []
+    for (t_bucket, n_ch), chunks in bit_groups.items():
+        g = {f: np.concatenate([c[f] for c in chunks])
+             for f in ("si", "bs", "lane0", "out0", "nc", "mode", "sa",
+                       "k0", "b0", "np_max")}
+        L, T = bucket_shape(len(g["si"]) * n_ch, t_bucket, lane_quantum)
+        NC = (T + 31) // 32
+        P = _p_class(int(g["np_max"].max()))
+        SA = int(g["sa"].max())
+        BD = (NC - 1 + 1) // 2
+        mb = np.zeros((L, _mb_width(NC, P)), dtype=np.int32)
+        mb16 = mb.view(np.int16)  # (L, 2C) little-endian halfwords
+
+        lane = 0
+        plan = []
+        starts, ends = _group_runs(g["si"], g["bs"], g["lane0"], n_ch)
+        for st, en in zip(starts, ends):
+            si = int(g["si"][st])
+            bb = braws[si][1]
+            nl = int(en - st) * n_ch
+            bs, nc = int(g["bs"][st]), int(g["nc"][st])
+            sub0 = int(g["lane0"][st])
+            plan.append((si, int(g["out0"][st]), int(en - st), bs, n_ch,
+                         lane))
+            subs = bb.bsubs[sub0:sub0 + nl]
+            b0 = int(g["b0"][st])
+            bas = bb.bases[b0:b0 + nl * nc].reshape(nl, nc)
+            a = (subs["order"].astype(np.int32)
+                 | (subs["shift"].astype(np.int32) << 6)
+                 | (subs["wasted"].astype(np.int32) << 12)
+                 | (subs["pbits"].astype(np.int32) << 17)
+                 | (subs["flags"].astype(np.int32) << 20))
+            if n_ch == 2:
+                a |= np.repeat(g["mode"][st:en], 2).astype(np.int32) << 23
+            m = mb[lane:lane + nl]
+            m[:, 0] = a
+            m[:, 1] = subs["ps"]
+            m[:, 2] = bs
+            m[:, 3] = bas[:, 0] + stream_bit_off[si]
+            m[:, 4:36] = subs["warm"]
+            c = subs["coefs"].astype(np.int32)
+            m[:, 36:52] = (c[:, 0::2] & 0xFFFF) | (c[:, 1::2] << 16)
+            if nc > 1:
+                # A 32-sample chunk spans < 2^13 bits (codes <= 64 bits
+                # each), so the deltas always fit int16.
+                mb16[lane:lane + nl,
+                     2 * _MB_FIXED:2 * _MB_FIXED + nc - 1] = \
+                    np.diff(bas.astype(np.int64), axis=1)
+            _scatter_ks(mb16[:, 2 * (_MB_FIXED + BD):], lane, nl,
+                        subs["n_parts"], bb.ks, int(g["k0"][st]))
+            lane += nl
+        bits.append(BitsBucket(n_ch, P, SA, NC, mb, plan))
+
+    # Fallback frames: the walker decoded their residuals on the host.
+    samples = []
+    for (t_bucket, n_ch), chunks in smp_groups.items():
+        g = {f: np.concatenate([c[f] for c in chunks])
+             for f in ("si", "bs", "lane0", "out0", "mode", "x0")}
+        L, T = bucket_shape(len(g["si"]) * n_ch, t_bucket, lane_quantum)
+        sb = SampleBucket(
+            n_ch, np.zeros((L, T), dtype=np.int32),
+            np.zeros((L, ORDER_MAX), dtype=np.int32),
+            np.zeros(L, dtype=np.int32), np.zeros(L, dtype=np.int32),
+            np.zeros(L, dtype=np.int32), np.zeros(L // 2, dtype=np.int32),
+            np.zeros(L, dtype=np.int32), [])
+        lane = 0
+        starts, ends = _group_runs(g["si"], g["bs"], g["lane0"], n_ch)
+        for st, en in zip(starts, ends):
+            si = int(g["si"][st])
+            bb = braws[si][1]
+            nf = int(en - st)
+            nl = nf * n_ch
+            bs = int(g["bs"][st])
+            sub0 = int(g["lane0"][st])
+            sb.plan.append((si, int(g["out0"][st]), nf, bs, n_ch, lane))
+            x0 = int(g["x0"][st])
+            sb.x[lane:lane + nl, :bs] = \
+                bb.samples[x0:x0 + nl * bs].reshape(nl, bs)
+            subs = bb.bsubs[sub0:sub0 + nl]
+            sb.orders[lane:lane + nl] = subs["order"]
+            sb.shifts[lane:lane + nl] = subs["shift"]
+            sb.wasted[lane:lane + nl] = subs["wasted"]
+            sb.coefs[lane:lane + nl] = subs["coefs"]
+            sb.lengths[lane:lane + nl] = bs
+            if n_ch == 2:
+                sb.pair_modes[lane // 2:lane // 2 + nf] = g["mode"][st:en]
+            lane += nl
+        samples.append(sb)
+
+    bp = BitsPlan(results, pcms, stream, bits, samples)
+    if crc_starts:
+        # One CRC dispatch per batch; F pads to a power of two (>= 8) with
+        # empty ranges, whose CRC is 0.
+        starts = np.concatenate(crc_starts).astype(np.int32)
+        ends = np.concatenate(crc_ends).astype(np.int32)
+        n = len(starts)
+        fq = 8
+        while fq < n:
+            fq *= 2
+        bp.se = np.stack([np.pad(starts, (0, fq - n)),
+                          np.pad(ends, (0, fq - n))])
+        bp.n_crc = n
+    return bp
+
+
+def _to_device(a, device):
+    """A contiguous int32 tensor on ``device`` holding numpy array ``a``."""
+    a = np.ascontiguousarray(a, dtype=np.int32)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def inputs_from_numpy(stream, mb=None, se=None, device="cuda"):
+    """The port's tensors for exactly the arrays the JAX package's
+    ``_stream_program(stream, mb)`` and ``_crc_program(stream, se)``
+    receive: int32, contiguous, on ``device``. ``mb``/``se`` may be None.
+    Returns (stream, mb, se)."""
+    return tuple(None if a is None else _to_device(a, device)
+                 for a in (stream, mb, se))
+
+
+def _unpack_i16(words, n):
+    """(L, W) int32 halfword pairs -> (L, n) int32, sign-extended."""
+    lo = (words << 16) >> 16
+    hi = words >> 16
+    L = words.shape[0]
+    return torch.stack([lo, hi], dim=-1).reshape(L, -1)[:, :n].contiguous()
+
+
+def unpack_mb(mb, n_parts_max, nc):
+    """Unpack a bucket's (L, C) mb upload (``_MB_FIXED`` layout) into the
+    per-lane tensors K2, K1 and K3 take, all contiguous int32."""
+    L = mb.shape[0]
+    bd = (nc - 1 + 1) // 2
+    kp = (n_parts_max + 1) // 2
+    a = mb[:, 0]
+    base0 = mb[:, 3]
+    if nc > 1:
+        deltas = _unpack_i16(mb[:, _MB_FIXED:_MB_FIXED + bd], nc - 1)
+        bases = base0[:, None] + torch.cat(
+            [torch.zeros((L, 1), dtype=torch.int32, device=mb.device),
+             torch.cumsum(deltas, dim=1, dtype=torch.int32)], dim=1)
+    else:
+        bases = base0[:, None]
+    return {
+        "orders": (a & 63).contiguous(),
+        "shifts": ((a >> 6) & 63).contiguous(),
+        "wasted": ((a >> 12) & 31).contiguous(),
+        "pbits": ((a >> 17) & 7).contiguous(),
+        "flags": ((a >> 20) & 7).contiguous(),
+        # The channel-assignment mode rides both lanes of a pair.
+        "pair_modes": ((a >> 23) & 7).reshape(L // 2, 2)[:, 0].contiguous(),
+        "ps": mb[:, 1].contiguous(),
+        "lengths": mb[:, 2].contiguous(),
+        "bases": bases.contiguous(),
+        "warm": mb[:, 4:36].contiguous(),
+        "coefs": _unpack_i16(mb[:, 36:52], ORDER_MAX),
+        "ks": _unpack_i16(mb[:, _MB_FIXED + bd:_MB_FIXED + bd + kp],
+                          n_parts_max),
+    }
+
+
+def stream_step(stream, mb, n_parts_max, sa, nc):
+    """One stream-mode bucket, stream (W,) + mb (L, C) -> (L, NC*32) int32
+    PCM: the mb unpack, then K2 entropy decode -> K1 synthesis -> K3
+    epilogue."""
+    u = unpack_mb(mb, n_parts_max, nc)
+    x = decode_residual_bits_stream(
+        stream, u["bases"], u["ks"], u["ps"], u["orders"], u["pbits"],
+        u["flags"], u["warm"], u["lengths"], n_parts_max=n_parts_max, sa=sa)
+    out = synthesize(x, u["coefs"], u["shifts"], u["orders"], u["lengths"])
+    return apply_epilogue(out, u["wasted"], u["pair_modes"])
+
+
+def decode_raw_bits_device(braws, lane_quantum, device="cuda"):
+    """Decode [(streaminfo, BitsBatch), ...] into a DeviceDecoded whose
+    buckets live on ``device``."""
+    from .pipeline import DeviceDecoded, _BucketDispatch
+
+    bp = plan_raw_bits(braws, lane_quantum)
+    stream_t, _, se_t = inputs_from_numpy(bp.stream, None, bp.se, device)
+    dispatches, plans = [], []
+    for b in bp.bits:
+        out = stream_step(stream_t, _to_device(b.mb, device),
+                          b.n_parts_max, b.sa, b.nc)
+        dispatches.append(_BucketDispatch(b.n_ch, out))
+        plans.append(b.plan)
+    for s in bp.samples:
+        x, coefs, shifts, orders, wasted, pair_modes, lengths = (
+            _to_device(a, device) for a in (
+                s.x, s.coefs, s.shifts, s.orders, s.wasted, s.pair_modes,
+                s.lengths))
+        out = apply_epilogue(synthesize(x, coefs, shifts, orders, lengths),
+                             wasted, pair_modes)
+        dispatches.append(_BucketDispatch(s.n_ch, out))
+        plans.append(s.plan)
+    dd = DeviceDecoded(bp.results, dispatches, plans, bp.pcms)
+    if bp.se is not None:
+        dd.crc_check = (crc16_ranges(stream_t, se_t[0].contiguous(),
+                                     se_t[1].contiguous()), bp.n_crc)
+    return dd

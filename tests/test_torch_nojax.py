@@ -1,0 +1,54 @@
+"""The port runs where JAX is not installed (as on the machine with the
+card): in a fresh interpreter whose imports of ``jax``/``jaxlib`` fail,
+``claxon_tpu_torch`` and ``chip_smoke`` import, and a small stream
+decodes on the CPU bit-exactly."""
+
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from claxon_tpu import native
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_SCRIPT = textwrap.dedent("""
+    import sys
+
+    class _NoJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError("jax is blocked in this interpreter")
+            return None
+
+    sys.meta_path.insert(0, _NoJax())
+    sys.path.insert(0, sys.argv[1])
+
+    import numpy as np
+
+    import chip_smoke
+    import claxon_tpu_torch as ct
+    from claxon_tpu import native
+    from claxon_tpu.testing import encode_flac, synth_music
+
+    pcm = synth_music(3000, channels=2, bps=16, seed=5)
+    data = encode_flac(pcm, 44100, 16, block_size=1152)
+    dec = ct.decode_stream(data, device="cpu")
+    assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
+    assert np.array_equal(dec.pcm, pcm)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib"))
+    assert not loaded, loaded
+    print("NOJAX-OK")
+""")
+
+
+@pytest.mark.skipif(not native.available(), reason="native core not built")
+def test_port_imports_and_decodes_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT, str(REPO)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NOJAX-OK" in proc.stdout

@@ -1,0 +1,252 @@
+"""The port's device operators (claxon_tpu_torch.ops) against the JAX
+package's, on the CPU: the same numpy inputs, made from seeds, go through
+both, and every output must be equal (tolerance 0: all values are
+integers). On the CPU each wrapper takes its plain PyTorch form; the CUDA
+kernels are held to those forms on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from claxon_tpu import native
+from claxon_tpu.crc import crc16
+from claxon_tpu.ops.crc import crc16_ranges_device
+from claxon_tpu.ops.entropy import (decode_residual_bits_stream,
+                                    decode_residual_bits_stream_reference)
+from claxon_tpu.ops.epilogue import apply_epilogue
+from claxon_tpu.ops.pallas_synth import synthesize_pallas
+from claxon_tpu.ops.predict import synthesize, synthesize_reference
+from claxon_tpu.testing import encode_flac, synth_music
+
+from claxon_tpu_torch.ops import crc as tcrc
+from claxon_tpu_torch.ops import entropy as tentropy
+from claxon_tpu_torch.ops import epilogue as tepilogue
+from claxon_tpu_torch.ops import predict as tpredict
+
+ORDER_MAX = 32
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# Golden vectors of tests/test_ops.py (the reference's own test cases):
+# (coefs oldest-first, x = warm-up ++ residuals, shift, expected output).
+_GOLDEN = [
+    ([-75, 166, 121, -269, -75, -399, 1042],
+     [-796, -547, -285, -32, 199, 443, 670, -2, -23, 14, 6, 3, -4, 12, -2,
+      10], 9,
+     [-796, -547, -285, -32, 199, 443, 670, 875, 1046, 1208, 1343, 1454,
+      1541, 1616, 1663, 1701]),
+    ([119, -255, 555, -836, 879, -1199, 1757],
+     [-21363, -21951, -22649, -24364, -27297, -26870, -30017, 3157], 10,
+     [-21363, -21951, -22649, -24364, -27297, -26870, -30017, -29718]),
+    ([709, -2589, 4600, -4612, 1350, 4220, -9743, 12671, -12129, 8586,
+      -3775, -645, 3904, -5543, 4373, 182, -6873, 13265, -15417, 11550],
+     [213238, 210830, 234493, 209515, 235139, 201836, 208151, 186277,
+      157720, 148176, 115037, 104836, 60794, 54523, 412, 17943, -6025,
+      -3713, 8373, 11764, 30094], 12, None),  # last output 33931
+    ([1, -3, 3],
+     [-729, -722, -667, -19, -16, 17, -23, -7, 16, -16, -5, 3, -8, -13, -15,
+      -1], 0,
+     [-729, -722, -667, -583, -486, -359, -225, -91, 59, 209, 354, 497, 630,
+      740, 812, 845]),
+    ([-1, 2], [21877, 27482, -6513], 0, [21877, 27482, 26574]),
+    ([], [5, -3, 100, -(1 << 30)], 0, [5, -3, 100, -(1 << 30)]),
+]
+
+
+def _synth_batch():
+    """One (L, T) batch: the golden lanes, then random lanes at the
+    edges -- order 32, shift 15, |c| = 2^15 - 1, samples over the whole
+    int32 range (so the add wraps) -- with random valid lengths."""
+    rng = np.random.default_rng(11)
+    L, T = 32, 64
+    x = np.zeros((L, T), np.int32)
+    coefs = np.zeros((L, ORDER_MAX), np.int32)
+    shifts = np.zeros(L, np.int32)
+    orders = np.zeros(L, np.int32)
+    lengths = np.full(L, T, np.int32)
+    for l, (c, xs, sh, _want) in enumerate(_GOLDEN):
+        x[l, :len(xs)] = xs
+        if c:
+            coefs[l, ORDER_MAX - len(c):] = c
+        shifts[l], orders[l], lengths[l] = sh, len(c), len(xs)
+    n = len(_GOLDEN)
+    r = L - n
+    x[n:] = rng.integers(-(1 << 31), 1 << 31, (r, T), dtype=np.int64)
+    orders[n:] = rng.integers(0, ORDER_MAX + 1, r)
+    orders[n:n + 8] = ORDER_MAX
+    shifts[n:] = rng.integers(0, 16, r)
+    shifts[n:n + 4] = 15
+    lengths[n:] = rng.integers(T // 2, T + 1, r)
+    lim = (1 << 15) - 1
+    for l in range(n, L):
+        o = int(orders[l])
+        if o:
+            coefs[l, ORDER_MAX - o:] = rng.integers(-lim, lim + 1, o)
+    coefs[n:n + 2, :] = np.where(rng.integers(0, 2, (2, ORDER_MAX)) == 1,
+                                 lim, -lim)
+    return x, coefs, shifts, orders, lengths
+
+
+def test_synthesize_matches_jax_pallas_reference_and_golden():
+    x, coefs, shifts, orders, lengths = _synth_batch()
+    got = tpredict.synthesize(_t(x), _t(coefs), _t(shifts), _t(orders),
+                              _t(lengths)).numpy()
+    args = [jnp.asarray(a) for a in (x, coefs, shifts, orders, lengths)]
+    assert np.array_equal(got, np.asarray(synthesize(*args)))
+    # The Pallas kernel runs in interpret mode off the TPU.
+    assert np.array_equal(got, np.asarray(synthesize_pallas(*args,
+                                                            chunk=64)))
+    ref = synthesize_reference(x, coefs, shifts, orders)
+    t = np.arange(x.shape[1])[None, :]
+    assert np.array_equal(np.where(t < lengths[:, None], ref, 0), got)
+    for l, (_c, xs, _sh, want) in enumerate(_GOLDEN):
+        out = got[l, :len(xs)].tolist()
+        assert out == want if want is not None else out[-1] == 33931
+
+
+def test_synthesize_wrapper_refuses_non_cpu_tensors():
+    """For a tensor that is not on the CPU the wrapper launches its kernel
+    or raises; it never falls back to the plain form."""
+    meta = [torch.empty(s, dtype=torch.int32, device="meta")
+            for s in ((4, 8), (4, ORDER_MAX), (4,), (4,), (4,))]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tpredict.synthesize(*meta)
+    assert tpredict.synthesize.launches == 0
+    with pytest.raises(ValueError, match="several devices"):
+        tpredict.synthesize(torch.zeros((4, 8), dtype=torch.int32),
+                            *meta[1:])
+
+
+def test_epilogue_matches_jax_all_modes():
+    rng = np.random.default_rng(12)
+    L, T = 16, 32
+    samples = rng.integers(-(1 << 31), 1 << 31, (L, T), dtype=np.int64) \
+        .astype(np.int32)
+    samples[:L // 2] >>= rng.integers(0, 20, (L // 2, 1)).astype(np.int32)
+    samples[0, :4] = [np.iinfo(np.int32).max, np.iinfo(np.int32).min, -1, 1]
+    samples[1, :4] = [np.iinfo(np.int32).max, 1, np.iinfo(np.int32).min, -1]
+    wasted = rng.integers(0, 8, L).astype(np.int32)
+    wasted[2] = 31
+    pair_modes = np.tile(np.arange(4, dtype=np.int32), L // 8)
+    got = tepilogue.apply_epilogue(_t(samples), _t(wasted),
+                                   _t(pair_modes)).numpy()
+    want = np.asarray(apply_epilogue(jnp.asarray(samples),
+                                     jnp.asarray(wasted),
+                                     jnp.asarray(pair_modes)))
+    assert np.array_equal(got, want)
+
+
+def test_epilogue_golden():
+    # tests/test_ops.py's golden triples (reference `src/frame.rs`).
+    samples = np.array([[-2, -14, 12, -6], [7, 38, 142, 238],
+                        [2, 5, 83, 113], [7, 38, 142, 238],
+                        [7, 38, 142, 238], [-5, -33, -59, -125],
+                        [1, -2, 3, -4], [0, 0, 0, 0]], np.int32)
+    wasted = np.array([0, 0, 0, 0, 0, 0, 4, 0], np.int32)
+    out = tepilogue.apply_epilogue(_t(samples), _t(wasted),
+                                   _t(np.array([3, 1, 2, 0], np.int32)))
+    assert out.tolist() == [[2, 5, 83, 113], [-5, -33, -59, -125],
+                            [2, 5, 83, 113], [-5, -33, -59, -125],
+                            [2, 5, 83, 113], [-5, -33, -59, -125],
+                            [16, -32, 48, -64], [0, 0, 0, 0]]
+
+
+def _captured_bucket():
+    """A real stream-mode bucket from the port's planner: streams with
+    eight partitions, verbatim subframes and constant subframes, all at
+    block size 1024 stereo, so they share one (T, nch) bucket."""
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import plan_raw_bits, unpack_mb
+
+    pcm = synth_music(2048, channels=2, bps=16, seed=3)
+    const = np.zeros_like(pcm)
+    const[:, 0] = 77
+    datas = [encode_flac(pcm, 44100, 16, block_size=1024, partition_order=3),
+             encode_flac(pcm, 44100, 16, block_size=1024,
+                         force_subframe="verbatim"),
+             encode_flac(const, 44100, 16, block_size=1024)]
+    bp = plan_raw_bits(extract_streams_bits(datas, native), 128)
+    assert len(bp.bits) == 1 and not bp.samples
+    b = bp.bits[0]
+    u = {k: v.numpy() for k, v in
+         unpack_mb(_t(b.mb), b.n_parts_max, b.nc).items()}
+    flags = u["flags"][u["lengths"] > 0]
+    assert (flags & 1).any() and (flags & 2).any()
+    assert b.n_parts_max == 8
+    return bp.stream, u, b.n_parts_max, b.sa
+
+
+def test_entropy_matches_jax_and_reference_on_captured_bucket():
+    stream, u, P, SA = _captured_bucket()
+    args = (stream, u["bases"], u["ks"], u["ps"], u["orders"], u["pbits"],
+            u["flags"], u["warm"], u["lengths"])
+    got = tentropy.decode_residual_bits_stream(
+        *(_t(a) for a in args), n_parts_max=P, sa=SA).numpy()
+    want = np.asarray(decode_residual_bits_stream(
+        *(jnp.asarray(a) for a in args), n_parts_max=P, sa=SA))
+    assert np.array_equal(got, want)
+    ref = decode_residual_bits_stream_reference(*args, n_parts_max=P)
+    assert np.array_equal(got, ref)
+
+
+def test_entropy_matches_jax_on_garbage():
+    """Fuzzed inputs -- bases past either end of the stream, Rice
+    parameters outside [0, 32], garbage partition sizes and orders --
+    must give the JAX program's exact output (the same index clamps and
+    the same shift-by->=32 results), never a fault."""
+    rng = np.random.default_rng(13)
+    L, NC, P, SA, W = 8, 2, 4, 5, 64
+    stream = rng.integers(-(1 << 31), 1 << 31, W, dtype=np.int64) \
+        .astype(np.int32)
+    stream[::7] = 0  # long zero runs: empty 64-bit windows
+    bases = rng.integers(-4096, 32 * W + 4096, (L, NC)).astype(np.int32)
+    ks = rng.integers(-40, 40, (L, P)).astype(np.int32)
+    ps = rng.integers(-3, 40, L).astype(np.int32)
+    orders = rng.integers(0, 40, L).astype(np.int32)
+    pbits = rng.integers(0, 8, L).astype(np.int32)
+    flags = rng.integers(0, 8, L).astype(np.int32)
+    warm = rng.integers(-1000, 1000, (L, 32)).astype(np.int32)
+    lengths = rng.integers(0, NC * 32 + 8, L).astype(np.int32)
+    args = (stream, bases, ks, ps, orders, pbits, flags, warm, lengths)
+    got = tentropy.decode_residual_bits_stream(
+        *(_t(a) for a in args), n_parts_max=P, sa=SA).numpy()
+    want = np.asarray(decode_residual_bits_stream(
+        *(jnp.asarray(a) for a in args), n_parts_max=P, sa=SA))
+    assert np.array_equal(got, want)
+
+
+def test_crc16_ranges_matches_jax_and_host():
+    rng = np.random.default_rng(22)
+    raw = rng.integers(0, 256, 5003, dtype=np.uint8).tobytes()
+    buf = np.frombuffer(raw + bytes((-len(raw)) % 4), np.uint8)
+    stream = buf.view(">i4").astype(np.int32)
+    cases = [(0, 0), (5, 5), (0, 1), (0, 64), (1, 60), (2, 63), (3, 9),
+             (7, 70), (13, 77), (100, 101), (5002, 5003), (4950, 5003)]
+    cases += [(a, a + int(rng.integers(0, 80)))
+              for a in rng.integers(0, 4900, 20)]
+    starts = np.array([a for a, _ in cases], np.int32)
+    ends = np.array([b for _, b in cases], np.int32)
+    got = tcrc.crc16_ranges(_t(stream), _t(starts), _t(ends)).numpy()
+    want = np.asarray(crc16_ranges_device(jnp.asarray(stream),
+                                          jnp.asarray(starts),
+                                          jnp.asarray(ends)))
+    assert np.array_equal(got, want)
+    host = [native.crc16_bytes(raw[a:b]) if native.available()
+            else crc16(raw[a:b]) for a, b in cases]
+    assert got.tolist() == host
+
+
+def test_crc16_ranges_clamps_to_the_upload():
+    stream = np.frombuffer(bytes(range(16)), np.uint8).view(">i4") \
+        .astype(np.int32)
+    starts = np.array([-5, 10, 14, 20], np.int32)
+    ends = np.array([3, 99, 12, 30], np.int32)
+    got = tcrc.crc16_ranges(_t(stream), _t(starts), _t(ends)).tolist()
+    assert got == [crc16(bytes(range(3))), crc16(bytes(range(10, 16))),
+                   0, 0]

@@ -1,0 +1,277 @@
+"""The port's decode path (claxon_tpu_torch.pipeline, device="cpu")
+against the JAX package and the C++ scalar decoder: byte-identical
+bucket uploads from the two planners, bit-identical PCM, and the same
+errors with the same wording. Tolerance 0 throughout."""
+
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+
+import claxon_tpu.pipeline as jpipe
+import claxon_tpu.pipeline_bits as jpb
+from claxon_tpu import native
+from claxon_tpu.error import Error, FormatError
+from claxon_tpu.testing import encode_flac, synth_music
+
+import claxon_tpu_torch as ct
+import claxon_tpu_torch.pipeline_bits as tpb
+from claxon_tpu_torch.pipeline import extract_streams_bits
+from util import pcm_md5
+
+pytestmark = pytest.mark.skipif(not native.available(),
+                                reason="native core not built")
+
+GENERATED = pathlib.Path(__file__).resolve().parents[1] / "testsamples" / \
+    "generated"
+
+
+def _generated():
+    return [p.read_bytes() for p in sorted(GENERATED.glob("*.flac"))]
+
+
+def _configs():
+    """A few encoder configs beyond the committed corpus: a high partition
+    order, a block size that is not a multiple of 32, verbatim frames."""
+    pcm = synth_music(5000, channels=2, bps=16, seed=31)
+    return [encode_flac(pcm, 44100, 16, block_size=1152, partition_order=5),
+            encode_flac(pcm, 44100, 16, block_size=1000),
+            encode_flac(pcm[:2500], 44100, 16, force_subframe="verbatim",
+                        block_size=1152)]
+
+
+def _fallback_stream():
+    """Partition order 7 exceeds the device decoder's cap of 64
+    partitions: the walker decodes these frames on the host."""
+    pcm = synth_music(16384, channels=2, bps=16, seed=44)
+    return encode_flac(pcm, 44100, 16, block_size=16384, max_lpc_order=4,
+                       partition_order=7)
+
+
+def _capture_jax_uploads(monkeypatch, datas, lane_quantum):
+    """Run the JAX package's planner on ``datas`` and capture the arrays
+    its device programs receive, without compiling or running them."""
+    monkeypatch.delenv("CLAXON_TPU_ENTROPY", raising=False)
+    monkeypatch.delenv("CLAXON_TPU_HOST_CRC", raising=False)
+    got = {"bits": [], "samples": [], "crc": []}
+
+    def result(out_packed, L, T):
+        out = np.zeros((L, T), np.int32)
+        return (out, np.zeros((), np.int32), (out,)) if out_packed \
+            else (out, (out,))
+
+    def stream_program(P, SA, NC, out_packed, **_kw):
+        def run(stream, mb):
+            got["bits"].append((P, SA, NC, np.asarray(stream),
+                                np.asarray(mb)))
+            return result(out_packed, mb.shape[0], NC * 32)
+        return run
+
+    def decode_program(in_packed, out_packed, chunked=True):
+        def run(x, *rest):
+            x = np.asarray(x)
+            if in_packed:  # int16 pairs -> int32
+                x = x.view(np.int16).astype(np.int32)
+            got["samples"].append((x,) + tuple(np.asarray(a) for a in rest))
+            return result(out_packed, *x.shape)
+        return run
+
+    def crc_program(mesh=None):
+        def run(stream, se):
+            got["crc"].append((np.asarray(stream), np.asarray(se)))
+            return np.zeros(se.shape[1], np.int32)
+        return run
+
+    monkeypatch.setattr(jpb, "_stream_program", stream_program)
+    monkeypatch.setattr(jpb, "_crc_program", crc_program)
+    monkeypatch.setattr(jpipe, "_decode_program", decode_program)
+    braws, mode = jpipe.extract_streams_bits(datas, native)
+    assert mode == "stream"
+    dd = jpb.decode_raw_bits_device(braws, lane_quantum, mode)
+    return got, dd.lane_plans()
+
+
+@pytest.mark.parametrize("lane_quantum", [128, 32])
+def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum):
+    """The port's numpy planner builds exactly the uploads the JAX
+    package's programs receive: stream words, packed mb per bucket (same
+    order, same static P/SA/NC), fallback buckets, and CRC ranges se."""
+    datas = _generated() + _configs() + [_fallback_stream()]
+    jax_up, jax_plans = _capture_jax_uploads(monkeypatch, datas,
+                                             lane_quantum)
+    bp = tpb.plan_raw_bits(extract_streams_bits(datas, native),
+                           lane_quantum)
+
+    assert len(bp.bits) == len(jax_up["bits"]) > 1
+    for b, (P, SA, NC, stream, mb) in zip(bp.bits, jax_up["bits"]):
+        assert (b.n_parts_max, b.sa, b.nc) == (P, SA, NC)
+        assert np.array_equal(bp.stream, stream)
+        assert b.mb.dtype == mb.dtype and np.array_equal(b.mb, mb)
+    assert len(bp.samples) == len(jax_up["samples"]) == 1
+    for s, (x, coefs, shifts, orders, wasted, pair_modes, lengths) in zip(
+            bp.samples, jax_up["samples"]):
+        for mine, theirs in ((s.x, x), (s.coefs, coefs), (s.shifts, shifts),
+                             (s.orders, orders), (s.wasted, wasted),
+                             (s.pair_modes, pair_modes),
+                             (s.lengths, lengths)):
+            assert np.array_equal(mine, theirs)
+    [(stream, se)] = jax_up["crc"]
+    assert np.array_equal(bp.stream, stream)
+    assert bp.se.dtype == se.dtype and np.array_equal(bp.se, se)
+    assert [b.plan for b in bp.bits] + [s.plan for s in bp.samples] == \
+        jax_plans
+
+    # inputs_from_numpy turns the captured arrays into the port's tensors.
+    P, SA, NC, stream, mb = jax_up["bits"][0]
+    s_t, mb_t, se_t = tpb.inputs_from_numpy(stream, mb, se, device="cpu")
+    assert s_t.dtype == mb_t.dtype == se_t.dtype == torch.int32
+    assert np.array_equal(mb_t.numpy(), mb)
+
+
+def _assert_oracle(datas, results):
+    assert len(results) == len(datas)
+    for data, dec in zip(datas, results):
+        si, pcm = native.decode_stream_scalar(data)
+        assert np.array_equal(dec.pcm, pcm)
+        if si.md5sum != b"\x00" * 16:
+            assert pcm_md5(dec.pcm, si.bits_per_sample) == si.md5sum
+
+
+def test_slice_matches_jax_and_oracle():
+    datas = _generated() + _configs()
+    port = ct.decode_streams(datas, device="cpu")
+    _assert_oracle(datas, port)
+    ref = jpipe.decode_streams_device(datas, segmentation="host").to_host()
+    for a, b in zip(port, ref):
+        assert np.array_equal(a.pcm, b.pcm)
+        assert a.frame_times == b.frame_times
+        assert a.frame_sizes == b.frame_sizes
+        assert a.streaminfo == b.streaminfo
+
+
+def test_device_resident_api():
+    datas = _configs()[:2]
+    dd = ct.decode_streams_device(datas, device="cpu")
+    assert dd.sync() is dd
+    buckets = dd.device_buckets()
+    plans = dd.lane_plans()
+    assert len(buckets) == len(plans) > 0
+    for (_idx, n_ch, out), plan in zip(buckets, plans):
+        assert out.dtype == torch.int32 and n_ch == 2
+        for si, out0, nf, bs, nch, lane0 in plan:
+            pcm = native.decode_stream_scalar(datas[si])[1]
+            # Lane lane0 + f*nch + c holds frame f, channel c of the run.
+            assert np.array_equal(out[lane0 + 1, :bs].numpy(),
+                                  pcm[out0:out0 + bs, 1])
+    _assert_oracle(datas, dd.start_fetch().to_host())
+
+
+def test_single_stream_and_pipelined():
+    datas = _configs()
+    _assert_oracle(datas[:1], [ct.decode_stream(datas[0], device="cpu")])
+    _assert_oracle(datas, ct.decode_streams_pipelined(
+        datas, batch_streams=2, depth=1, device="cpu"))
+
+
+def test_fallback_many_partitions():
+    data = _fallback_stream()
+    _si, bb = native.extract_stream_bits(data)
+    assert np.any(bb.bframes["flags"] & 1), "expected fallback frames"
+    _assert_oracle([data], ct.decode_streams([data], device="cpu"))
+
+
+def _first_frame_span(data):
+    """(abs_byte0, abs_byte1) of frame 0, via a host-verified walk."""
+    from claxon_tpu.native.binding import _read_metadata
+
+    _si, bb = native.extract_stream_bits(data, emit_slots=False)
+    _si, pos = _read_metadata(data)
+    f0 = bb.bframes[0]
+    return pos + int(f0["byte0"]), pos + int(f0["byte1"])
+
+
+def _corrupt_crc(data):
+    _b0, b1 = _first_frame_span(data)
+    bad = bytearray(data)
+    bad[b1 - 1] ^= 0xFF  # stored CRC byte: the frame still parses
+    return bytes(bad)
+
+
+def test_device_crc_flags_corrupt_frame():
+    data = encode_flac(synth_music(1024 * 3, channels=2, bps=16, seed=77),
+                       44100, 16, block_size=1024)
+    bad = _corrupt_crc(data)
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        ct.decode_streams_device([bad], device="cpu").to_host()
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        ct.decode_streams_device([bad], device="cpu").sync()
+    _assert_oracle([data], ct.decode_streams([data], device="cpu"))
+
+
+def test_device_crc_failure_latches():
+    data = encode_flac(synth_music(1024 * 2, channels=2, bps=16, seed=81),
+                       44100, 16, block_size=1024)
+    dd = ct.decode_streams_device([_corrupt_crc(data)], device="cpu")
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.verify_crc()
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.to_host()
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.sync()
+
+
+def test_deferred_crc_precedes_later_walk_error():
+    """A CRC-corrupt frame before a malformed one surfaces "frame CRC
+    mismatch", as the sequential reference would, in both packages."""
+    data = encode_flac(synth_music(1024 * 3, channels=1, bps=16, seed=79),
+                       44100, 16, block_size=1024)
+    _b0, b1 = _first_frame_span(data)
+    bad = bytearray(data[:b1 + 7])  # truncated mid-frame 1: a walk error
+    bad[b1 - 1] ^= 0xFF             # and frame 0's CRC corrupted
+    with pytest.raises(Error) as port:
+        ct.decode_streams_device([bytes(bad)], device="cpu").to_host()
+    with pytest.raises(Error) as ref:
+        jpipe.decode_streams_device([bytes(bad)],
+                                    segmentation="host").to_host()
+    assert "frame CRC mismatch" in str(port.value)
+    assert type(port.value) is type(ref.value)
+    assert str(port.value) == str(ref.value)
+
+
+def test_channel_count_error_after_deferred_crc_check():
+    """A frame whose channel count disagrees with STREAMINFO raises the
+    reference's error, unless an earlier frame's deferred CRC fails."""
+    mono = encode_flac(synth_music(2048, channels=1, bps=16, seed=83),
+                       44100, 16, block_size=1024)
+    si, bb = native.extract_stream_bits(mono, emit_slots=False,
+                                        defer_crc=True)
+    bb.bframes["channels"][1] = 2
+    with pytest.raises(FormatError, match="channel count does not match"):
+        tpb.plan_raw_bits([(si, bb)], 128)
+
+
+def test_fuzzed_streams_decode_or_raise():
+    """Damaged streams decode exactly like the scalar decoder, or raise
+    claxon_tpu.Error where it does -- never another exception."""
+    from test_torch_cuda import assert_decodes_like_scalar, fuzzed_streams
+
+    assert_decodes_like_scalar(fuzzed_streams(), "cpu")
+
+
+def test_decode_streams_device_empty_batch():
+    assert ct.decode_streams_device([], device="cpu").to_host() == []
+    assert ct.decode_streams([], device="cpu") == []
+
+
+def test_unported_options_raise(monkeypatch):
+    data = _configs()[1]
+    with pytest.raises(NotImplementedError, match="segmentation"):
+        ct.decode_streams_device([data], segmentation="device",
+                                 device="cpu")
+    monkeypatch.setattr(tpb, "MAX_BATCH_BYTES", len(data))
+    with pytest.raises(ValueError, match="smaller batches"):
+        ct.decode_streams_device([data], device="cpu")

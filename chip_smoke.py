@@ -8,22 +8,32 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which raises on failure (so the script exits non-zero):
 
   (a) print the card's name and power limit (nvidia-smi) and build the
-      CUDA kernels from ``claxon_tpu_torch/csrc``;
-  (b) run each kernel (K1 synthesis, K2 stream Rice decode, K4 range
-      CRC-16) on the card against its plain PyTorch form, on the bucket
-      inputs the main path builds for the headline corpus and every
-      bucket of the mixed corpus, plus K1 edge cases; equality is exact
-      (tolerance 0: every value is an integer);
+      CUDA kernels from ``claxon_tpu_torch/csrc`` (one nvcc per source,
+      in parallel);
+  (b) run each kernel on the card against its plain PyTorch form, with
+      exact equality (tolerance 0: every value is an integer): K1
+      synthesis, K2 stream Rice decode and K4 range CRC-16 on the bucket
+      inputs the host-walk path builds for the headline corpus and every
+      bucket of the mixed corpus, plus K1 edge cases; then K5 sync scan,
+      K6 fused-demux body (bswap, header fields and compaction, summary),
+      K7 subframe walk and K8 values gather on every group the segmented
+      path builds for the headline and mixed corpora, and on every K8
+      dispatch of those decodes;
   (c) decode the headline corpus (8 x 10 s of 16-bit 44.1 kHz stereo,
       block size 4096, seeds 1000-1007, replicated x4 into one batch of
       32 streams), the mixed corpus (8 specs, seeds 2000-2007) and
       ``testsamples/generated/*.flac`` through the public calls with
-      device="cuda", and hold every PCM to the C++ scalar decoder and the
-      STREAMINFO MD5; the kernels' launch counts are reset just before the
-      headline decode and read just after it;
+      device="cuda", on the host-walk path and on the segmented path
+      (segmentation="device"), and hold every PCM to the C++ scalar
+      decoder and the STREAMINFO MD5; each path's kernel launch counts
+      are reset just before its headline decode and read just after it;
+      the segmented headline decode must not fall back, and the mixed
+      24-bit and generated 6-channel streams must;
   (d) corrupt one stored frame CRC byte: the decode must raise
-      claxon_tpu.Error "frame CRC mismatch", which only K4 can detect;
-  (e) time the device-resident and to-host decode of the headline batch.
+      claxon_tpu.Error "frame CRC mismatch", which only K4 can detect, on
+      both paths;
+  (e) time the device-resident and to-host decode of the headline batch
+      on both paths, with the segmented path's host stages.
 
 The last two lines are the kernels' JSON summary and the result
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -43,6 +53,11 @@ sys.path.insert(0, str(REPO))
 HEADLINE_SEEDS = range(1000, 1008)
 HEADLINE_SECONDS = 10
 HEADLINE_REPLICAS = 4
+#: the 24-bit stream of the mixed corpus: its codes pass the subframe
+#: walk's 32-bit cap, so it leaves the segmented path (as in the JAX
+#: package) and takes the host walk.
+MIXED_24BIT = dict(block_size=2048, bps=24, max_lpc_order=8,
+                   partition_order=3)
 MIXED_SPECS = [
     dict(block_size=1152, max_lpc_order=2, partition_order=1),
     dict(block_size=4096, max_lpc_order=12, partition_order=4),
@@ -50,7 +65,7 @@ MIXED_SPECS = [
     dict(block_size=4096, stereo="left_side", partition_order=2),
     dict(block_size=4096, stereo="right_side", partition_order=2),
     dict(block_size=4096, rice2=True, partition_order=4),
-    dict(block_size=2048, bps=24, max_lpc_order=8, partition_order=3),
+    MIXED_24BIT,
     dict(block_size=4096, bps=16, force_subframe="fixed",
          partition_order=2),
 ]
@@ -106,21 +121,32 @@ def cuda_ms(fn, reps):
 
 
 def compare(name, kernel_fn, plain_fn, reps=20):
-    """Run kernel and plain form on the card; exact equality or raise.
+    """Run kernel and plain form on the card; exact equality of every
+    tensor they return (one, or a tuple or dict of them), or raise.
     Returns (max_abs_err, kernel_ms, plain_ms)."""
     import torch
 
-    got = kernel_fn()                      # warm-up, and the compared run
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in flat(x[k])]
+        return [t for v in x for t in flat(v)]
+
+    got = flat(kernel_fn())
     torch.cuda.synchronize()
-    want = plain_fn()
+    want = flat(plain_fn())
     torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-        if got.numel() else 0
-    if got.shape != want.shape or not torch.equal(got, want):
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: kernel and plain shapes differ")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()))
+    if len(got) != len(want) or err:
         raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
-    ms = cuda_ms(kernel_fn, reps)
-    plain_ms = cuda_ms(plain_fn, 1)
-    return err, ms, plain_ms
+    return err, cuda_ms(kernel_fn, reps), cuda_ms(plain_fn, 1)
 
 
 def phase_b(datas4, mixed):
@@ -211,6 +237,98 @@ def phase_b(datas4, mixed):
     return rows, main_shape, k4_shape
 
 
+def phase_b_seg(datas4, mixed):
+    """K5-K8 against their plain forms on the segmented path's own
+    inputs: every group of the headline and mixed decodes, and every K8
+    dispatch."""
+    import torch
+
+    from claxon_tpu_torch import pipeline_seg
+    from claxon_tpu_torch.ops import demux, seg_gather, seg_parse, segment
+
+    rows = {}
+    for label, datas in (("headline", datas4), ("mixed", mixed)):
+        k8_calls = []
+        dispatch = pipeline_seg._dispatch_values
+
+        def recording(walk, rws, lengths, modes, tb32, device):
+            k8_calls.append((walk["values"], walk["warm"], walk["order"],
+                             torch.from_numpy(rws).to(device), tb32))
+            return dispatch(walk, rws, lengths, modes, tb32, device)
+
+        pipeline_seg._dispatch_values = recording
+        try:
+            pending = pipeline_seg.begin_segmented(datas, device=DEVICE)
+            pipeline_seg.finish_segmented(pending).sync()
+        finally:
+            pipeline_seg._dispatch_values = dispatch
+        for gi, group in enumerate(pending.groups):
+            pend = group[-1]
+            words_le, n_bytes, T, nch, ends, si_bps = pend._key
+            cap, wcap = pend.cap, pend.wcap
+            shape = (f"W={words_le.shape[0]} cap={cap} wcap={wcap} T={T} "
+                     f"nch={nch}")
+            tag = f"{label}[{gi}] {shape}"
+            r6a = compare(f"K6 bswap {tag}",
+                               lambda: seg_parse.bswap_words(words_le),
+                               lambda: seg_parse.bswap_words_plain(words_le))
+            stream = seg_parse.bswap_words(words_le)
+            r5 = compare(
+                f"K5 {tag}",
+                lambda: segment.find_frame_headers(stream, n_bytes, cap),
+                lambda: segment.find_frame_headers_plain(stream, n_bytes,
+                                                         cap))
+            pos, valid, count, win = segment.find_frame_headers(
+                stream, n_bytes, cap)
+            pargs = (pos, valid, win, count, ends, si_bps, T, nch, wcap)
+            r6b = compare(
+                f"K6 fields {tag}",
+                lambda: seg_parse.parse_candidates(*pargs),
+                lambda: seg_parse.parse_candidates_plain(*pargs))
+            fields, lane_of, walk_in, counts = \
+                seg_parse.parse_candidates(*pargs)
+            r7 = compare(
+                f"K7 {tag}",
+                lambda: demux.walk_frames(stream, *walk_in, T, nch),
+                lambda: demux.walk_frames_plain(stream, *walk_in, T, nch),
+                reps=5)
+            walk, end_bits, ok = demux.walk_frames(stream, *walk_in, T, nch)
+            sargs = (pos, fields, lane_of, end_bits, ok, walk["n_parts"],
+                     walk["sa_words"], nch)
+            r6c = compare(
+                f"K6 summary {tag}",
+                lambda: seg_parse.pack_summary(*sargs),
+                lambda: seg_parse.pack_summary_plain(*sargs))
+            n_walk = int(counts[1])
+            values_mb = walk["values"].numel() * 4 / 1e6
+            r6 = (max(r6a[0], r6b[0], r6c[0]), r6a[1] + r6b[1] + r6c[1],
+                  r6a[2] + r6b[2] + r6c[2])
+            log(f"(b) {tag}: {int(count)} sync hits, {n_walk} walked "
+                f"frames, {values_mb:.0f} MB of walk values; K5 == plain "
+                f"({r5[1]:.3f} ms vs {r5[2]:.1f} ms), K6 == plain "
+                f"({r6[1]:.3f} ms vs {r6[2]:.1f} ms: bswap {r6a[1]:.3f}, "
+                f"fields {r6b[1]:.3f}, summary {r6c[1]:.3f}), K7 == plain "
+                f"({r7[1]:.3f} ms vs {r7[2]:.1f} ms)")
+            if label == "headline" and gi == 0:
+                rows.update(K5=r5, K6=r6, K7=r7)
+                rows["seg_shape"] = shape
+        if not k8_calls:
+            raise AssertionError(f"{label}: the segmented decode ran no K8")
+        for ci, args in enumerate(k8_calls):
+            values, warm, order, rws, tb32 = args
+            r8 = compare(
+                f"K8 {label}[{ci}]",
+                lambda: seg_gather.gather_values(*args),
+                lambda: seg_gather.gather_values_plain(*args))
+            log(f"(b) {label} K8 dispatch {ci} L={rws.shape[0]} "
+                f"Tb={tb32} rows of {values.shape[1]}: K8 == plain "
+                f"({r8[1]:.3f} ms vs {r8[2]:.1f} ms)")
+            if label == "headline" and ci == 0:
+                rows["K8"] = r8
+                rows["k8_shape"] = f"L={rws.shape[0]} Tb={tb32}"
+    return rows
+
+
 def check_decoded(label, datas, results):
     """Every PCM equals the scalar decoder's, and its MD5 where stored."""
     import numpy as np
@@ -259,7 +377,8 @@ def main():
     import claxon_tpu
     import claxon_tpu_torch as ct
     from claxon_tpu import native
-    from claxon_tpu_torch.ops import _build, crc, entropy, predict
+    from claxon_tpu_torch.ops import (_build, crc, demux, entropy, predict,
+                                      seg_gather, seg_parse, segment)
     from claxon_tpu_torch.pipeline import extract_streams_bits
     from claxon_tpu_torch.pipeline_bits import plan_raw_bits
 
@@ -278,28 +397,46 @@ def main():
     base = headline_corpus()
     datas4 = base * HEADLINE_REPLICAS
     mixed = mixed_corpus()
-    generated = [p.read_bytes() for p in
-                 sorted((REPO / "testsamples" / "generated").glob("*.flac"))]
+    gen_paths = sorted((REPO / "testsamples" / "generated").glob("*.flac"))
+    generated = [p.read_bytes() for p in gen_paths]
+    generated_names = [p.name for p in gen_paths]
     log(f"(a) corpora encoded in {time.perf_counter() - t0:.1f} s: "
         f"headline x{HEADLINE_REPLICAS} = {len(datas4)} streams "
         f"({sum(map(len, datas4))} bytes), mixed {len(mixed)}, generated "
         f"{len(generated)}")
 
     rows, main_shape, k4_shape = phase_b(datas4, mixed)
+    rows.update(phase_b_seg(datas4, mixed))
 
-    # (c) the main path, through the public calls.
-    wrappers = {"K1": predict.synthesize,
-                "K2": entropy.decode_residual_bits_stream,
-                "K4": crc.crc16_ranges}
-    for w in wrappers.values():
-        w.launches = 0
-    res = ct.decode_streams(datas4, device=DEVICE)
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"(c) launches in the headline decode: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched by the main path")
+    # (c) each path, through the public calls.
+    seg_wrappers = {
+        "K5": [segment.find_frame_headers],
+        "K6": [seg_parse.bswap_words, seg_parse.parse_candidates,
+               seg_parse.pack_summary],
+        "K7": [demux.walk_frames], "K8": [seg_gather.gather_values]}
+    wrappers = {"K1": [predict.synthesize],
+                "K2": [entropy.decode_residual_bits_stream],
+                "K4": [crc.crc16_ranges], **seg_wrappers}
+
+    def drive(path_kernels, fn):
+        """Run fn with every launch count at 0; return the counts of the
+        path's kernels (a kernel's count sums its wrappers)."""
+        for ws in wrappers.values():
+            for w in ws:
+                w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: sum(w.launches for w in wrappers[k])
+                  for k in path_kernels}
+        for k, n in counts.items():
+            if any(w.launches <= 0 for w in wrappers[k]):
+                raise AssertionError(f"{k} was not launched by the path "
+                                     f"(counts {counts})")
+        return out, counts
+
+    res, launches = drive(("K1", "K2", "K4"),
+                          lambda: ct.decode_streams(datas4, device=DEVICE))
+    log(f"(c) host-walk path, launches in the headline decode: {launches}")
     check_decoded(f"headline x{HEADLINE_REPLICAS}", datas4, res)
     total_samples = sum(r.pcm.size for r in res)
     check_decoded("mixed", mixed, ct.decode_streams(mixed, device=DEVICE))
@@ -307,7 +444,8 @@ def main():
                   ct.decode_streams(generated, device=DEVICE))
     check_decoded("generated, one stream at a time", generated,
                   [ct.decode_stream(d, device=DEVICE) for d in generated])
-    check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches of 8", datas4,
+    check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches "
+                  "of 8", datas4,
                   ct.decode_streams_pipelined(datas4, batch_streams=8,
                                               device=DEVICE))
     dd = ct.decode_streams_device(datas4, device=DEVICE).sync()
@@ -316,30 +454,71 @@ def main():
                and b[2].dtype == torch.int32 for b in buckets):
         raise AssertionError("device_buckets() are not int32 tensors on "
                              "the card")
-    check_decoded(f"headline x{HEADLINE_REPLICAS}, device-resident", datas4, dd.to_host())
+    check_decoded(f"headline x{HEADLINE_REPLICAS}, device-resident", datas4,
+                  dd.to_host())
+
+    def seg_decode(datas):
+        return ct.decode_streams_device(datas, segmentation="device",
+                                        device=DEVICE)
+
+    dd, seg_launches = drive(("K1", "K4", "K5", "K6", "K7", "K8"),
+                             lambda: seg_decode(datas4).sync())
+    launches.update({k: seg_launches[k] for k in seg_wrappers})
+    log(f"(c) segmented path, launches in the headline decode: "
+        f"{seg_launches}")
+    if dd.fallback_streams or not dd.segmented:
+        raise AssertionError(f"headline x{HEADLINE_REPLICAS}: streams "
+                             f"{dd.fallback_streams} left the segmented "
+                             "path")
+    check_decoded(f"headline x{HEADLINE_REPLICAS}, segmented", datas4,
+                  dd.to_host())
+    for label, datas, want_fb in (
+            ("mixed", mixed, [MIXED_SPECS.index(MIXED_24BIT)]),
+            ("generated", generated,
+             [i for i, n in enumerate(generated_names)
+              if n == "sixchan.flac"])):
+        dd = seg_decode(datas)
+        log(f"(c) {label}, segmented: fallback streams "
+            f"{dd.fallback_streams}")
+        if not set(want_fb) <= set(dd.fallback_streams) or \
+                len(dd.fallback_streams) >= len(datas):
+            raise AssertionError(f"{label}: unexpected segmented "
+                                 f"fallbacks {dd.fallback_streams}")
+        check_decoded(f"{label}, segmented", datas, dd.to_host())
+    pend = ct.decode_streams_device_async(datas4, segmentation="device",
+                                          device=DEVICE)
+    check_decoded(f"headline x{HEADLINE_REPLICAS}, segmented async",
+                  datas4, pend.finish().to_host())
 
     # (d) a corrupted stored frame CRC is refused, by K4 alone.
     bad = corrupt_first_frame_crc(base[0])
-    crc.crc16_ranges.launches = 0
-    dd = ct.decode_streams_device([base[1], bad], device=DEVICE)
-    try:
-        dd.to_host()
-    except claxon_tpu.Error as e:
-        if "frame CRC mismatch" not in str(e):
-            raise
-        log(f"(d) corrupted frame refused: {e}")
-    else:
-        raise AssertionError("a corrupted frame CRC was not detected")
-    try:
-        dd.sync()
-    except claxon_tpu.Error as e:
-        if "frame CRC mismatch" not in str(e):
-            raise
-    else:
-        raise AssertionError("the CRC failure did not latch")
-    if crc.crc16_ranges.launches != 1:
-        raise AssertionError("K4 did not run for the corrupted batch")
-    log("(d) the failure latches (sync() raises again); K4 ran once")
+    for path in ("host", "device"):
+        crc.crc16_ranges.launches = 0
+        dd = ct.decode_streams_device([base[1], bad], segmentation=path,
+                                      device=DEVICE)
+        if dd.fallback_streams:
+            raise AssertionError("the corrupted stream left the "
+                                 "segmented path")
+        try:
+            dd.to_host()
+        except claxon_tpu.Error as e:
+            if "frame CRC mismatch" not in str(e):
+                raise
+            log(f"(d) {path} path: corrupted frame refused: {e}")
+        else:
+            raise AssertionError("a corrupted frame CRC was not detected")
+        try:
+            dd.sync()
+        except claxon_tpu.Error as e:
+            if "frame CRC mismatch" not in str(e):
+                raise
+        else:
+            raise AssertionError("the CRC failure did not latch")
+        if crc.crc16_ranges.launches != 1:
+            raise AssertionError("K4 did not run once for the corrupted "
+                                 "batch")
+        log(f"(d) {path} path: the failure latches (sync() raises again); "
+            "K4 ran once")
 
     # (e) rates on the headline batch (samples = every channel's samples).
     def timed(fn):
@@ -351,27 +530,41 @@ def main():
             ts.append(time.perf_counter() - t)
         return statistics.median(ts), min(ts)
 
-    timed(lambda: ct.decode_streams_device(datas4, device=DEVICE).sync())
-    walk_s, _ = timed(lambda: extract_streams_bits(datas4, native))
-    braws = extract_streams_bits(datas4, native)
-    plan_s, _ = timed(lambda: plan_raw_bits(braws, 128))
-    res_s, res_min = timed(
-        lambda: ct.decode_streams_device(datas4, device=DEVICE).sync())
-    host_s, host_min = timed(
-        lambda: ct.decode_streams(datas4, device=DEVICE))
-    scalar_s, _ = timed(lambda: [native.decode_stream_scalar(d)
-                                 for d in datas4])
     ms = total_samples / 1e6
     log(f"(e) {card}: headline x{HEADLINE_REPLICAS}, {total_samples} "
         f"samples, median of {TIMED_RUNS}:")
-    log(f"(e)   device-resident {ms / res_s:.2f} Ms/s "
-        f"({res_s * 1e3:.1f} ms; best {ms / res_min:.2f} Ms/s)")
-    log(f"(e)   to-host         {ms / host_s:.2f} Ms/s "
-        f"({host_s * 1e3:.1f} ms; best {ms / host_min:.2f} Ms/s)")
-    log(f"(e)   of which host walk {walk_s * 1e3:.1f} ms, planning "
+    for path in ("host", "device"):
+        timed(lambda: ct.decode_streams_device(
+            datas4, segmentation=path, device=DEVICE).sync())
+        res_s, res_min = timed(lambda: ct.decode_streams_device(
+            datas4, segmentation=path, device=DEVICE).sync())
+        host_s, host_min = timed(lambda: ct.decode_streams_device(
+            datas4, segmentation=path, device=DEVICE).to_host())
+        log(f"(e)   {path:6s} device-resident {ms / res_s:.2f} Ms/s "
+            f"({res_s * 1e3:.1f} ms; best {ms / res_min:.2f} Ms/s); "
+            f"to-host {ms / host_s:.2f} Ms/s ({host_s * 1e3:.1f} ms; best "
+            f"{ms / host_min:.2f} Ms/s)")
+    walk_s, _ = timed(lambda: extract_streams_bits(datas4, native))
+    braws = extract_streams_bits(datas4, native)
+    plan_s, _ = timed(lambda: plan_raw_bits(braws, 128))
+    log(f"(e)   host path: host walk {walk_s * 1e3:.1f} ms, planning "
         f"{plan_s * 1e3:.1f} ms; kernels on the main bucket "
         f"({main_shape}): K2 {rows['K2'][1]:.3f} ms, K1 "
         f"{rows['K1'][1]:.3f} ms, K4 ({k4_shape}) {rows['K4'][1]:.3f} ms")
+    stages = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        stages.append(seg_decode(datas4).sync().stage_seconds)
+    med = {k: statistics.median(st.get(k, 0.0) for st in stages)
+           for k in stages[0]}
+    log("(e)   segmented path host stages, median ms: " + ", ".join(
+        f"{k} {v * 1e3:.2f}" for k, v in med.items()))
+    log(f"(e)   segmented kernels ({rows['seg_shape']}): K5 "
+        f"{rows['K5'][1]:.3f} ms, K6 {rows['K6'][1]:.3f} ms, K7 "
+        f"{rows['K7'][1]:.3f} ms, K8 ({rows['k8_shape']}) "
+        f"{rows['K8'][1]:.3f} ms")
+    scalar_s, _ = timed(lambda: [native.decode_stream_scalar(d)
+                                 for d in datas4])
     log(f"(e)   C++ scalar decode on the host: {ms / scalar_s:.2f} Ms/s")
 
     sources = {"K1": ("claxon_tpu_torch/csrc/synth.cu",
@@ -379,11 +572,19 @@ def main():
                "K2": ("claxon_tpu_torch/csrc/entropy.cu",
                       "claxon_tpu/ops/entropy.py:158"),
                "K4": ("claxon_tpu_torch/csrc/crc.cu",
-                      "claxon_tpu/ops/crc.py:193")}
+                      "claxon_tpu/ops/crc.py:193"),
+               "K5": ("claxon_tpu_torch/csrc/segment.cu",
+                      "claxon_tpu/ops/segment.py:74"),
+               "K6": ("claxon_tpu_torch/csrc/seg_parse.cu",
+                      "claxon_tpu/ops/seg_parse.py:164"),
+               "K7": ("claxon_tpu_torch/csrc/demux.cu",
+                      "claxon_tpu/ops/demux.py:516"),
+               "K8": ("claxon_tpu_torch/csrc/seg_gather.cu",
+                      "claxon_tpu/pipeline_seg.py:203")}
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
                 "replaces": sources[k][1], "launches": launches[k],
                 "max_abs_err": rows[k][0], "ms": rows[k][1],
-                "plain_ms": rows[k][2]} for k in ("K1", "K2", "K4")]
+                "plain_ms": rows[k][2]} for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,13 @@ error model) are shared with ``claxon_tpu`` and imported as they are; the
 device side is rewritten for an NVIDIA Hopper card:
 
 * ``ops`` -- each device kernel's wrapper beside its plain PyTorch form:
-  K1 synthesis, K2 stream Rice decode and K4 range CRC-16 as hand-written
+  K1 synthesis, K2 stream Rice decode, K4 range CRC-16, K5 sync scan, K6
+  fused-demux body, K7 subframe walk and K8 values gather as hand-written
   CUDA (``csrc/``, built with nvcc at first use), K3 epilogue as torch ops;
-* ``pipeline_bits`` -- numpy bucket planning and the per-bucket steps;
+* ``pipeline_bits`` -- numpy bucket planning and the per-bucket steps of
+  the host-walk path;
+* ``pipeline_seg`` -- the segmented path (``segmentation="device"``):
+  frame search and subframe walk on the card;
 * ``pipeline`` -- the public calls and the device-resident result.
 
 This package never imports JAX. Output is bit-identical to ``claxon_tpu``
@@ -16,7 +20,8 @@ and to the C++ scalar decoder.
 
 from .pipeline import (DecodedStream, DeviceDecoded, decode_stream,
                        decode_streams, decode_streams_device,
-                       decode_streams_pipelined)
+                       decode_streams_device_async, decode_streams_pipelined)
 
 __all__ = ["decode_stream", "decode_streams", "decode_streams_device",
-           "decode_streams_pipelined", "DeviceDecoded", "DecodedStream"]
+           "decode_streams_device_async", "decode_streams_pipelined",
+           "DeviceDecoded", "DecodedStream"]

@@ -4,7 +4,12 @@ PyTorch form.
 * ``predict``  -- K1 synthesis (CUDA, ``csrc/synth.cu``);
 * ``entropy``  -- K2 stream Rice decode (CUDA, ``csrc/entropy.cu``);
 * ``crc``      -- K4 range CRC-16 (CUDA, ``csrc/crc.cu``);
-* ``epilogue`` -- K3 wasted bits + stereo decorrelation (torch ops).
+* ``epilogue`` -- K3 wasted bits + stereo decorrelation (torch ops);
+* ``segment``  -- K5 sync scan and header CRC-8 (CUDA, ``csrc/segment.cu``);
+* ``seg_parse`` -- K6 fused-demux body: bswap, header fields and
+  compaction, summary (CUDA, ``csrc/seg_parse.cu``), and the fused run;
+* ``demux``    -- K7 subframe walk (CUDA, ``csrc/demux.cu``);
+* ``seg_gather`` -- K8 values gather (CUDA, ``csrc/seg_gather.cu``).
 
 A wrapper takes its plain form only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.

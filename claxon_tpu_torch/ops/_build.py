@@ -2,9 +2,10 @@
 
 The kernels live in ``claxon_tpu_torch/csrc/*.cu`` behind a plain C
 interface. At first use they are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library under ``build/claxon_tpu_torch/`` at
-the repository root, named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the cached library. The
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library under ``build/claxon_tpu_torch/`` at the
+repository root, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the cached library. The
 library is bound with ``ctypes``: every pointer and the CUDA stream cross
 as ``c_void_p``, every size as ``c_int64``, and every entry point returns
 its ``cudaGetLastError()``, which :func:`check` turns into an exception.
@@ -25,10 +26,13 @@ __all__ = ["load", "check", "stream_handle", "build_seconds"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("synth.cu", "entropy.cu", "crc.cu")
+_SOURCES = ("synth.cu", "entropy.cu", "crc.cu", "segment.cu", "seg_parse.cu",
+            "demux.cu", "seg_gather.cu")
+#: headers the sources include (hashed with them).
+_HEADERS = ("scan.cuh",)
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
@@ -43,7 +47,32 @@ _SIGNATURES = {
                            _P, _P, _N, _N, _N, _P],
     # stream, W, starts, ends, out, F, stream
     "cxk_crc16_ranges": [_P, _N, _P, _P, _P, _N, _P],
+    # K5 -- W -> number of scan blocks; stream, W, n_bytes, blk, stream;
+    # stream, W, n_bytes, incl, positions, C, stream; stream, W, n_bytes,
+    # count, positions, valid, win, C, stream
+    "cxk_sync_blocks": [_N],
+    "cxk_sync_count": [_P, _N, _N, _P, _P],
+    "cxk_sync_write": [_P, _N, _N, _P, _P, _N, _P],
+    "cxk_header_check": [_P, _N, _N, _P, _P, _P, _P, _N, _P],
+    # K6 -- in, out, W, stream; positions, valid, win, C, ends, si_bps, S,
+    # T, nch, fields, stream; positions, fields, C, count, wcap, lane_of,
+    # start_bits, bs, modes, bps, counts, stream; positions, fields,
+    # lane_of, C, end_bits, walk_ok, n_parts, sa_words, nch, summary,
+    # stream
+    "cxk_seg_bswap": [_P, _P, _N, _P],
+    "cxk_seg_fields": [_P, _P, _P, _N, _P, _P, _N, _N, _N, _P, _P],
+    "cxk_seg_compact": [_P, _P, _N, _P, _N, _P, _P, _P, _P, _P, _P, _P],
+    "cxk_seg_summary": [_P, _P, _P, _N, _P, _P, _P, _P, _N, _P, _P],
+    # K7 -- stream, W, start_bits, bs, modes, bps0, F, T, nch, then the
+    # 13 per-lane outputs (demux.WALK_KEYS order), end_bits, ok, stream
+    "cxk_walk_frames": [_P, _N, _P, _P, _P, _P, _N, _N, _N] + [_P] * 13
+                       + [_P, _P, _P],
+    # K8 -- values, warm, order, rows, R, row_words, L, Tb32, out, stream
+    "cxk_seg_gather": [_P, _P, _P, _P, _N, _N, _N, _N, _P, _P],
 }
+
+#: entry points that return a value rather than a CUDA error code.
+_VALUED = {"cxk_sync_blocks": ctypes.c_int64}
 
 _lib = None
 #: wall-clock seconds the last build (or cache hit) of this process took.
@@ -64,30 +93,50 @@ def _nvcc():
 
 def _library_path():
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return _BUILD_DIR / f"libclaxon_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's
+    output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        try:
+            _out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = " ".join(cmd) + "\n" + err
+    if failed is not None:
+        raise RuntimeError("claxon_tpu_torch: nvcc failed:\n" + failed)
+
+
 def _build(out):
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a per-process name and rename: a concurrent builder never
+    # Compile to per-process names and rename: another process never
     # sees a half-written library.
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / name) for name in _SOURCES)]
+    tag = f"tmp{os.getpid()}"
+    tmp = out.with_suffix(f".{tag}.so")
+    objs = [_BUILD_DIR / f"{out.stem}.{name}.{tag}.o" for name in _SOURCES]
+    nvcc = _nvcc()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError("claxon_tpu_torch: nvcc failed:\n" +
-                               " ".join(cmd) + "\n" + proc.stderr)
+        _run_all([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)]
+                  for name, obj in zip(_SOURCES, objs)])
+        _run_all([[nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                   *(str(o) for o in objs)]])
         os.replace(tmp, out)
     finally:
-        if tmp.exists():
-            tmp.unlink()
+        for f in [tmp, *objs]:
+            if f.exists():
+                f.unlink()
 
 
 def load():
@@ -103,7 +152,7 @@ def load():
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _VALUED.get(name, ctypes.c_int)
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib

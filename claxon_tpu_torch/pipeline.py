@@ -1,16 +1,18 @@
 """Batched decode pipeline of the port: the library's public entry points
-(counterpart of ``claxon_tpu.pipeline``, host-walk bits path).
+(counterpart of ``claxon_tpu.pipeline``).
 
 ``decode_streams_device`` walks every stream once on the host with the
 shared C++ core (frame CRC-16 checks deferred to the device), plans the
 batch into fixed (L, T) buckets (``pipeline_bits``), and runs the
-hand-written kernels on ``device``. The result, :class:`DeviceDecoded`,
-keeps the decoded PCM on the device bucket by bucket; ``to_host()``
-scatters it into per-stream interleaved PCM.
+hand-written kernels on ``device``. With ``segmentation="device"`` the
+card finds the frames and walks the subframes itself instead
+(``pipeline_seg``). The result, :class:`DeviceDecoded`, keeps the decoded
+PCM on the device bucket by bucket; ``to_host()`` scatters it into
+per-stream interleaved PCM.
 
 Every call takes an explicit ``device`` (default ``"cuda"``): nothing
 probes for a GPU, and CPU tensors take the kernels' plain PyTorch forms.
-Only the host-walk segmentation is ported; the C++ core is required.
+The C++ core is required.
 """
 
 from dataclasses import dataclass
@@ -20,8 +22,9 @@ import numpy as np
 import torch
 
 __all__ = ["decode_stream", "decode_streams", "decode_streams_device",
-           "decode_streams_pipelined", "extract_streams_bits",
-           "DeviceDecoded", "DecodedStream", "bucket_shape"]
+           "decode_streams_device_async", "decode_streams_pipelined",
+           "extract_streams_bits", "merge_decoded", "DeviceDecoded",
+           "DecodedStream", "bucket_shape"]
 
 # Time-axis bucket sizes: the common FLAC block sizes plus power-of-two
 # fill-ins, so a stream with one block size makes one bucket shape.
@@ -78,9 +81,20 @@ class DeviceDecoded:
         self.dispatches = dispatches
         self._plans = plans
         self._pcms = pcms
-        #: ((F,) int32 device CRCs, n valid), "failed" once a mismatch
-        #: was seen (it latches), or None when nothing is left to check.
+        #: [((F,) int32 device CRCs, n valid), ...] (one pair per CRC
+        #: dispatch), "failed" once a mismatch was seen (it latches), or
+        #: None when nothing is left to check.
         self.crc_check = None
+        #: host-to-device bytes this batch uploaded.
+        self.upload_bytes = 0
+        #: segmented-path markers (``pipeline_seg``): at least one stream
+        #: rode the device demux; the device demux ran at all; the stream
+        #: indices that took the host walk instead.
+        self.segmented = False
+        self.seg_engaged = False
+        self.fallback_streams = []
+        #: segmented path: host seconds per stage of the batch.
+        self.stage_seconds = {}
         self._crc_host = None
         self._fetched = None   # CUDA event after the host copies, or True
 
@@ -103,15 +117,15 @@ class DeviceDecoded:
             return
         if self.crc_check == "failed":
             fmt_err("frame CRC mismatch")
-        vals, n = self.crc_check
         if self._crc_host is not None:
             self._wait_fetched()
-            host = self._crc_host
+            hosts = self._crc_host
         else:
-            host = vals.cpu()
-        if bool(host[:n].any()):
-            self.crc_check = "failed"
-            fmt_err("frame CRC mismatch")
+            hosts = [vals.cpu() for vals, _n in self.crc_check]
+        for host, (_vals, n) in zip(hosts, self.crc_check):
+            if bool(host[:n].any()):
+                self.crc_check = "failed"
+                fmt_err("frame CRC mismatch")
         self.crc_check = None
 
     def start_fetch(self):
@@ -121,23 +135,20 @@ class DeviceDecoded:
         if self._fetched is not None:
             return self
         cuda = None
+
+        def fetch(t):
+            nonlocal cuda
+            if not t.is_cuda:
+                return t
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            cuda = t.device
+            return host
+
         for d in self.dispatches:
-            if d.out_full.is_cuda:
-                d.host = torch.empty(d.out_full.shape, dtype=torch.int32,
-                                     pin_memory=True)
-                d.host.copy_(d.out_full, non_blocking=True)
-                cuda = d.out_full.device
-            else:
-                d.host = d.out_full
-        if isinstance(self.crc_check, tuple):
-            vals = self.crc_check[0]
-            if vals.is_cuda:
-                self._crc_host = torch.empty(vals.shape, dtype=vals.dtype,
-                                             pin_memory=True)
-                self._crc_host.copy_(vals, non_blocking=True)
-                cuda = vals.device
-            else:
-                self._crc_host = vals
+            d.host = fetch(d.out_full)
+        if isinstance(self.crc_check, list):
+            self._crc_host = [fetch(vals) for vals, _n in self.crc_check]
         if cuda is None:
             self._fetched = True
         else:
@@ -189,6 +200,46 @@ def _native():
     return native
 
 
+def merge_decoded(n_streams, parts):
+    """One DeviceDecoded over ``n_streams`` streams from ``parts``, a list
+    of ``(stream_indices, DeviceDecoded)``: part stream j is batch stream
+    ``stream_indices[j]``. Dispatches and lane plans are concatenated with
+    their stream indices remapped, and every part's CRC dispatches are
+    kept. A later part's result overwrites an earlier one's."""
+    results, pcms = [None] * n_streams, [None] * n_streams
+    dispatches, plans, crc = [], [], []
+    upload = 0
+    for idx, dd in parts:
+        for j, i in enumerate(idx):
+            results[i] = dd.results[j]
+            pcms[i] = dd._pcms[j]
+        dispatches.extend(dd.dispatches)
+        plans.extend([(idx[r[0]],) + tuple(r[1:]) for r in plan]
+                     for plan in dd._plans)
+        if dd.crc_check is not None:
+            crc.extend(dd.crc_check)
+        upload += dd.upload_bytes
+    out = DeviceDecoded(results, dispatches, plans, pcms)
+    out.crc_check = crc or None
+    out.upload_bytes = upload
+    return out
+
+
+def _split_batch(datas, limit):
+    """Runs of consecutive stream indices whose byte totals stay below
+    ``limit``; a stream of ``limit`` bytes or more is a run of its own."""
+    runs, run, size = [], [], 0
+    for i, d in enumerate(datas):
+        if run and size + len(d) >= limit:
+            runs.append(run)
+            run, size = [], 0
+        run.append(i)
+        size += len(d)
+    if run:
+        runs.append(run)
+    return runs
+
+
 def extract_streams_bits(datas, native):
     """Walk every stream of a batch with the C++ core: frame boundaries,
     descriptors and chunk bases, the frame CRC-16 checks deferred to the
@@ -205,20 +256,85 @@ def extract_streams_bits(datas, native):
             for d in datas]
 
 
+def _decode_host_walk(datas, lane_quantum, device):
+    """The host-walk bits path. A batch of ``MAX_BATCH_BYTES`` or more is
+    split at stream boundaries into sub-batches below it (chunk bases are
+    int32 bit positions into one sub-batch's upload), and their results
+    merge; a single stream that large still raises ValueError."""
+    from . import pipeline_bits
+
+    runs = _split_batch(datas, pipeline_bits.MAX_BATCH_BYTES)
+    parts = []
+    for run in runs:
+        braws = extract_streams_bits([datas[i] for i in run], _native())
+        parts.append((run, pipeline_bits.decode_raw_bits_device(
+            braws, lane_quantum, device=device)))
+    if len(parts) == 1:
+        return parts[0][1]
+    return merge_decoded(len(datas), parts)
+
+
+def _check_segmentation(segmentation):
+    if segmentation not in (None, "host", "device"):
+        raise NotImplementedError(
+            f"claxon_tpu_torch: segmentation={segmentation!r} is not "
+            "ported; use None, 'host' or 'device'")
+
+
 def decode_streams_device(datas, lane_quantum=_L_QUANTUM, segmentation=None,
                           device="cuda") -> DeviceDecoded:
     """Decode many FLAC streams (bytes) into PCM buckets on ``device``.
 
-    ``segmentation`` None or ``"host"`` is the host-walk bits path, the
-    only one ported; other values raise NotImplementedError."""
-    if segmentation not in (None, "host"):
-        raise NotImplementedError(
-            f"claxon_tpu_torch: segmentation={segmentation!r} is not "
-            "ported; use None or 'host'")
-    from .pipeline_bits import decode_raw_bits_device
+    ``segmentation`` None or ``"host"`` is the host-walk bits path;
+    ``"device"`` the segmented path (``pipeline_seg``: frame search and
+    subframe walk on the card, odd streams on the host walk). Other
+    values (the JAX package's ``"auto"``) raise NotImplementedError."""
+    _check_segmentation(segmentation)
+    if segmentation == "device":
+        from .pipeline_seg import decode_streams_segmented
 
-    braws = extract_streams_bits(datas, _native())
-    return decode_raw_bits_device(braws, lane_quantum, device=device)
+        return decode_streams_segmented(datas, lane_quantum, device=device)
+    return _decode_host_walk(datas, lane_quantum, device)
+
+
+class PendingDeviceBatch:
+    """Handle for an in-flight ``decode_streams_device_async`` batch."""
+
+    def __init__(self, finish):
+        self._finish = finish
+        self._done = None
+
+    def finish(self) -> DeviceDecoded:
+        """The batch's DeviceDecoded (computed once; idempotent)."""
+        if self._done is None:
+            self._done = self._finish()
+            self._finish = None
+        return self._done
+
+
+def decode_streams_device_async(datas, lane_quantum=_L_QUANTUM,
+                                segmentation=None,
+                                device="cuda") -> PendingDeviceBatch:
+    """Two-stage form of ``decode_streams_device``: returns once the
+    batch's first stage is queued; ``finish()`` returns the DeviceDecoded.
+
+    Only the segmented path has a first stage (uploads, frame search and
+    subframe walk, the summary copy started), so a caller that begins
+    batch n+1 before finishing batch n hides the summary wait behind the
+    next batch's host work. The host-walk path decodes eagerly."""
+    _check_segmentation(segmentation)
+    if segmentation == "device":
+        from .pipeline_seg import (_host_fallback, begin_segmented,
+                                   finish_segmented)
+
+        pending = begin_segmented(datas, lane_quantum, device=device)
+        if pending is not None:
+            return PendingDeviceBatch(lambda: finish_segmented(pending))
+        dd = _host_fallback(datas, lane_quantum, device)
+    else:
+        dd = decode_streams_device(datas, lane_quantum, segmentation,
+                                   device=device)
+    return PendingDeviceBatch(lambda: dd)
 
 
 def decode_streams(datas, lane_quantum=_L_QUANTUM,

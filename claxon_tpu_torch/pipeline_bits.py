@@ -433,23 +433,28 @@ def decode_raw_bits_device(braws, lane_quantum, device="cuda"):
 
     bp = plan_raw_bits(braws, lane_quantum)
     stream_t, _, se_t = inputs_from_numpy(bp.stream, None, bp.se, device)
+    upload = bp.stream.nbytes
     dispatches, plans = [], []
     for b in bp.bits:
         out = stream_step(stream_t, _to_device(b.mb, device),
                           b.n_parts_max, b.sa, b.nc)
+        upload += b.mb.nbytes
         dispatches.append(_BucketDispatch(b.n_ch, out))
         plans.append(b.plan)
     for s in bp.samples:
+        arrays = (s.x, s.coefs, s.shifts, s.orders, s.wasted, s.pair_modes,
+                  s.lengths)
         x, coefs, shifts, orders, wasted, pair_modes, lengths = (
-            _to_device(a, device) for a in (
-                s.x, s.coefs, s.shifts, s.orders, s.wasted, s.pair_modes,
-                s.lengths))
+            _to_device(a, device) for a in arrays)
+        upload += sum(a.nbytes for a in arrays)
         out = apply_epilogue(synthesize(x, coefs, shifts, orders, lengths),
                              wasted, pair_modes)
         dispatches.append(_BucketDispatch(s.n_ch, out))
         plans.append(s.plan)
     dd = DeviceDecoded(bp.results, dispatches, plans, bp.pcms)
     if bp.se is not None:
-        dd.crc_check = (crc16_ranges(stream_t, se_t[0].contiguous(),
-                                     se_t[1].contiguous()), bp.n_crc)
+        dd.crc_check = [(crc16_ranges(stream_t, se_t[0].contiguous(),
+                                      se_t[1].contiguous()), bp.n_crc)]
+        upload += bp.se.nbytes
+    dd.upload_bytes = upload
     return dd

@@ -1,0 +1,406 @@
+"""Segmented device decode of the port: frame boundaries and subframe demux
+on the card (counterpart of ``claxon_tpu.pipeline_seg``, values mode).
+
+The host never walks payload bytes. It parses each stream's metadata,
+groups streams by (STREAMINFO block-size bucket, channel count), and per
+group uploads the raw little-endian payload words once and queues the
+fused demux (``ops.seg_parse``: K6 bswap, K5 sync scan, K6 header parse and
+compaction, K7 subframe walk, K6 summary). The summary copy is started at
+once, so ``begin_segmented`` returns with the group's work in flight.
+``finish_segmented`` waits for each summary, chains the candidates of each
+stream (a real frame starts where the previous one's CRC-16 ends), and per
+(frame block-size bucket) dispatches K8 (gather the walk's decoded values
+and warm-up samples) -> K1 synthesis -> K3 epilogue, then K4 over the
+chained frames' CRC ranges.
+
+A stream that cannot ride this path -- more than 2 channels, a STREAMINFO
+block size above 65535, a walk-rejected frame, a chain break -- goes to
+the host-walk path alone (``pipeline.decode_streams_device(...,
+segmentation="host")``, which reproduces the reference's errors) and its
+result merges into the batch; a group with more sync candidates than the
+caps allow falls back as a group, and a batch of ``MAX_BATCH_BYTES`` or
+more goes to the host walk whole. Every route is bit-exact.
+
+Not carried over from the JAX package: the delta and scan entropy modes,
+int16 transfer packing, the mesh, and the ``CLAXON_TPU_SEG_DEBUG`` prints
+(the host stage times are kept in ``DeviceDecoded.stage_seconds``).
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from claxon_tpu.pipeline_seg import _si_key
+
+__all__ = ["decode_streams_segmented", "begin_segmented",
+           "finish_segmented"]
+
+#: STREAMINFO identities of streams that left the device demux for a
+#: per-stream reason (a walk-rejected frame or a chain break) once in this
+#: process: ``begin_segmented`` sends them straight to the per-stream host
+#: walk, so a repeated decode does not upload and walk them again. A
+#: routing memo only (both routes are bit-exact); streams without a stored
+#: MD5 are never cached, and a group overflow is not cached.
+_REJECT_CACHE = set()
+_REJECT_CACHE_CAP = 1 << 16
+
+
+class _Stages:
+    """Host seconds per stage of one segmented batch (perf_counter)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def mark(self, label):
+        now = time.perf_counter()
+        self.seconds[label] = self.seconds.get(label, 0.0) + now - self._t
+        self._t = now
+
+
+class _SegPending:
+    """An in-flight segmented batch: every group's upload and fused demux
+    is queued and its summary copy started."""
+
+    def __init__(self, datas, lane_quantum, device):
+        self.datas = datas
+        self.lane_quantum = lane_quantum
+        self.device = device
+        self.sis = []
+        self.groups = []
+        self.upload_bytes = 0
+        self.pre_fallback = []
+        self.stages = _Stages()
+
+
+def _host_fallback(datas, lane_quantum, device, per_stream=False):
+    """The host-walk path for ``datas``. A per-stream fallback batch holds
+    a few odd streams, so it pads lanes to 8 rather than the caller's
+    quantum."""
+    from .pipeline import _L_QUANTUM, decode_streams_device
+
+    if lane_quantum is None:
+        lane_quantum = _L_QUANTUM
+    if per_stream:
+        lane_quantum = min(lane_quantum, 8)
+    return decode_streams_device(datas, lane_quantum, segmentation="host",
+                                 device=device)
+
+
+def begin_segmented(datas, lane_quantum=None, device="cuda"):
+    """Stage 1: metadata parse, stream grouping and, per group, one upload
+    and one queued fused demux with its summary copy started. Returns the
+    pending batch for :func:`finish_segmented`, or None when the batch
+    cannot ride the device demux at all (the caller takes the host walk).
+    """
+    from claxon_tpu import native
+    from claxon_tpu.native.binding import _read_metadata
+
+    from . import pipeline_bits
+    from .ops.seg_parse import fused_demux_async
+    from .pipeline import _L_QUANTUM, _T_BUCKETS
+
+    if lane_quantum is None:
+        lane_quantum = _L_QUANTUM
+    if not native.available():
+        return None
+    if sum(len(d) for d in datas) >= pipeline_bits.MAX_BATCH_BYTES:
+        return None  # int32 bit positions: the host walk splits the batch
+    pending = _SegPending(datas, lane_quantum, device)
+    stages = pending.stages
+
+    # ---- metadata only; no payload byte is touched.
+    sis, payloads = [], []
+    for d in datas:
+        si, pos = _read_metadata(d)
+        sis.append(si)
+        payloads.append(np.frombuffer(d, np.uint8)[pos:])
+    tbv = np.asarray(_T_BUCKETS, np.int64)
+    # Streams the device demux cannot represent at all (> 2 channels; a
+    # block size above the bucket ladder) and remembered rejects take the
+    # per-stream host walk; the rest of the batch stays on the card.
+    pre_fb = [i for i, si in enumerate(sis)
+              if si.channels > 2 or si.max_block_size > int(tbv[-1])
+              or _si_key(si, len(datas[i])) in _REJECT_CACHE]
+    if len(pre_fb) == len(datas):
+        return None
+    pending.pre_fallback = pre_fb
+    pre_fb = set(pre_fb)
+    pending.sis = sis
+
+    # ---- groups: (T bucket of the STREAMINFO max block size, channels).
+    si_groups = {}
+    for gi, si in enumerate(sis):
+        if gi in pre_fb:
+            continue
+        T = int(tbv[np.searchsorted(tbv, max(si.max_block_size, 1))])
+        si_groups.setdefault((T, si.channels), []).append(gi)
+    # Same-channel groups whose buckets lie within 4x of the largest merge:
+    # each group costs an upload, a demux and a summary round trip, while
+    # walking a small-block stream at a larger T only costs device work
+    # (the decode dispatches re-bucket per frame).
+    merged = {}
+    for (T, nch), g in sorted(si_groups.items(), reverse=True):
+        for (Tm, nchm) in merged:
+            if nchm == nch and Tm <= 4 * T:
+                merged[(Tm, nchm)].extend(g)
+                break
+        else:
+            merged[(T, nch)] = list(g)
+    stages.mark("metadata")
+
+    for (T, nch), g_streams in merged.items():
+        g_streams = sorted(g_streams)
+        sizes = [payloads[i].nbytes for i in g_streams]
+        wcs = [(s + 3) // 4 for s in sizes]
+        total_q = pipeline_bits._pad_stream_words(sum(wcs))
+        buf = np.zeros(total_q * 4, dtype=np.uint8)
+        byte_off = np.zeros(len(g_streams), np.int64)
+        off = 0
+        for k, (i, s, wc) in enumerate(zip(g_streams, sizes, wcs)):
+            buf[off:off + s] = payloads[i]
+            byte_off[k] = off
+            off += wc * 4
+        ends_abs = byte_off + np.asarray(sizes, np.int64)
+        # Frame-count bound from STREAMINFO for the capacity classes.
+        frames_est = 0
+        for i in g_streams:
+            si = sis[i]
+            if not si.samples or not si.min_block_size:
+                frames_est = None
+                break
+            frames_est += -(-si.samples // si.min_block_size) + 2
+        stages.mark("buffer")
+
+        words_le = torch.from_numpy(buf.view(np.int32)).to(device)
+        pending.upload_bytes += total_q * 4
+        stages.mark("upload")
+        pend = fused_demux_async(
+            words_le, total_q * 4, T, nch, ends_abs,
+            [sis[i].bits_per_sample for i in g_streams], frames_est)
+        pending.groups.append((T, nch, g_streams, byte_off, ends_abs, sizes,
+                               pend))
+        stages.mark("demux_queue")
+    return pending
+
+
+def _chain(k, size, idx, cpos, end_byte, ok_c, byte_off):
+    """The candidate indices that tile stream k's payload in order, or
+    None on a chain break."""
+    if idx.size == 0:
+        return idx if size == 0 else None
+    local = cpos[idx] - byte_off[k]
+    nxt = end_byte[idx] - byte_off[k] + 2
+    # Fast path: no mimics, every candidate links to the next.
+    if ok_c[idx].all() and local[0] == 0 and nxt[-1] == size \
+            and np.array_equal(nxt[:-1], local[1:]):
+        return idx
+    # Slow path: a payload byte mimicked a header; follow the chain.
+    pos_map = {int(p): int(ci) for p, ci in zip(local, idx)}
+    exp, chain = 0, []
+    while exp < size:
+        ci = pos_map.get(exp)
+        if ci is None or not ok_c[ci]:
+            return None
+        chain.append(ci)
+        nxt1 = int(end_byte[ci]) + 2 - int(byte_off[k])
+        if nxt1 <= exp:
+            return None
+        exp = nxt1
+    return np.asarray(chain, np.int64) if exp == size else None
+
+
+def _dispatch_values(walk, rows, lengths, modes, tb32, device):
+    """K8 -> K1 -> K3 for one decode dispatch: (L,) int32 walk rows,
+    lengths and modes (numpy) -> (L, tb32) int32 PCM on the device."""
+    from .ops.epilogue import apply_epilogue
+    from .ops.predict import synthesize
+    from .ops.seg_gather import gather_values
+
+    L = rows.shape[0]
+    plan = torch.from_numpy(np.stack([rows, lengths, modes])).to(device)
+    rows_t, lengths_t = plan[0], plan[1]
+    pair_modes = plan[2].reshape(L // 2, 2)[:, 0].contiguous()
+    x = gather_values(walk["values"], walk["warm"], walk["order"], rows_t,
+                      tb32)
+    pick = lambda key: walk[key].index_select(0, rows_t)
+    ords = pick("order")
+    out = synthesize(x, pick("coefs"), pick("shift"), ords, lengths_t)
+    return apply_epilogue(out, pick("wasted"), pair_modes), plan.numel() * 4
+
+
+def finish_segmented(pending):
+    """Stage 2: resolve each group's summary, chain the candidates, plan and
+    dispatch the decode and the CRC check, then host-walk the streams that
+    left the device path and merge them in. Returns a DeviceDecoded."""
+    from .ops.crc import crc16_ranges
+    from .ops.seg_parse import SUMMARY_COLS, DemuxOverflow
+    from .pipeline import (DecodedStream, DeviceDecoded, _BucketDispatch,
+                           _T_BUCKETS, bucket_shape, merge_decoded)
+
+    datas = pending.datas
+    lane_quantum = pending.lane_quantum
+    device = pending.device
+    sis = pending.sis
+    stages = pending.stages
+    stages.mark("between")
+
+    results = [None] * len(datas)
+    pcms = [None] * len(datas)
+    dispatches, plans, crc_pairs = [], [], []
+    fb_streams = list(pending.pre_fallback)
+    fb_learn = []   # per-stream rejects of this batch -> _REJECT_CACHE
+    upload_bytes = pending.upload_bytes
+    t_buckets = np.asarray(_T_BUCKETS, np.int64)
+
+    for (T, nch, g_streams, byte_off, ends_abs, sizes, pend) \
+            in pending.groups:
+        try:
+            summary, count = pend.resolve()
+        except DemuxOverflow:
+            # A sync-saturated payload: the whole group host-walks.
+            fb_streams.extend(g_streams)
+            stages.mark("summary")
+            continue
+        stages.mark("summary")
+        cols = {name: summary[:, k] for k, name in enumerate(SUMMARY_COLS)}
+        cpos = cols["pos"]
+        ok_c = (cols["valid"] != 0) & (cols["walk_ok"] != 0)
+        # The device compacts walkable candidates in candidate order; this
+        # is its lane map (walk row = walk_rank * nch + channel).
+        walk_rank = np.cumsum(cols["valid"] != 0) - 1
+        end_byte = cols["end_byte"]
+        bs_c = cols["block_size"]
+        time_raw = (cols["time_hi"] << 32) | (cols["time_lo"] & 0xFFFFFFFF)
+        c_si = np.searchsorted(ends_abs, cpos, side="right")
+        if len(g_streams):
+            c_si = np.minimum(c_si, len(g_streams) - 1)
+
+        chains = {}
+        for k, size in enumerate(sizes):
+            chain = _chain(k, size, np.flatnonzero(c_si == k), cpos,
+                           end_byte, ok_c, byte_off)
+            if chain is None:
+                fb_streams.append(g_streams[k])
+                fb_learn.append(g_streams[k])
+            else:
+                chains[k] = chain
+        stages.mark("chain")
+
+        # ---- results and output offsets (chain order is stream order).
+        out0_c = np.zeros(count, np.int64)
+        chained = np.zeros(count, bool)
+        crc_starts, crc_ends = [], []
+        for k, chain in chains.items():
+            si = sis[g_streams[k]]
+            bs_v = bs_c[chain]
+            pcm = np.zeros((int(bs_v.sum()), si.channels), dtype=np.int32)
+            pcms[g_streams[k]] = pcm
+            t_raw = time_raw[chain]
+            times = np.where(cols["variable"][chain] != 0, t_raw,
+                             t_raw * bs_v)
+            results[g_streams[k]] = DecodedStream(
+                streaminfo=si, pcm=pcm, frame_times=times.tolist(),
+                frame_sizes=bs_v.tolist())
+            if chain.size:
+                out0_c[chain] = np.cumsum(bs_v) - bs_v
+                chained[chain] = True
+                crc_starts.append(cpos[chain])
+                crc_ends.append(end_byte[chain] + 2)
+
+        # ---- decode dispatches, one per frame T bucket (sparse buckets
+        # merge upward, as the JAX package merges its classes).
+        g_idx = np.flatnonzero(chained)
+        if g_idx.size:
+            tcls = t_buckets[np.searchsorted(t_buckets,
+                                             np.maximum(bs_c[g_idx], 1))]
+            uniqt = list(np.unique(tcls))
+            for ci, Tc in enumerate(uniqt[:-1]):
+                m = tcls == Tc
+                if m.sum() * Tc < 32 * uniqt[ci + 1]:
+                    tcls[m] = uniqt[ci + 1]
+            for Tb in np.unique(tcls):
+                sub = g_idx[tcls == Tb]
+                sub = sub[np.lexsort((out0_c[sub], c_si[sub]))]
+                n_frames = sub.size
+                n_lanes = n_frames * nch
+                L, Tb = bucket_shape(n_lanes, int(Tb), lane_quantum)
+                bs_v = bs_c[sub]
+                # Padding lanes read walk row 0 with length 0: K1 writes
+                # zeros there and to_host never reads them.
+                rows = np.zeros(L, np.int32)
+                lengths = np.zeros(L, np.int32)
+                modes = np.zeros(L, np.int32)
+                rows[:n_lanes] = (walk_rank[sub][:, None] * nch
+                                  + np.arange(nch)[None, :]).reshape(-1)
+                lengths[:n_lanes] = np.repeat(bs_v, nch)
+                modes[:n_lanes] = np.repeat(cols["mode"][sub], nch)
+                si_v = c_si[sub]
+                out0_v = out0_c[sub]
+                brk = np.flatnonzero(
+                    (si_v[1:] != si_v[:-1]) | (bs_v[1:] != bs_v[:-1])
+                    | (out0_v[1:] != out0_v[:-1] + bs_v[:-1])) + 1
+                starts_r = np.concatenate([[0], brk])
+                ends_r = np.concatenate([brk, [n_frames]])
+                plan = [(g_streams[int(si_v[st])], int(out0_v[st]),
+                         int(en - st), int(bs_v[st]), nch, int(st * nch))
+                        for st, en in zip(starts_r, ends_r)]
+                out, nbytes = _dispatch_values(
+                    pend.walk, rows, lengths, modes, (Tb + 31) // 32 * 32,
+                    device)
+                upload_bytes += nbytes
+                dispatches.append(_BucketDispatch(nch, out))
+                plans.append(plan)
+
+        if crc_starts:
+            starts = np.concatenate(crc_starts).astype(np.int32)
+            ends_a = np.concatenate(crc_ends).astype(np.int32)
+            n = len(starts)
+            fq = 8
+            while fq < n:
+                fq *= 2
+            se = np.stack([np.pad(starts, (0, fq - n)),
+                           np.pad(ends_a, (0, fq - n))])
+            se_t = torch.from_numpy(se).to(device)
+            crc_pairs.append((crc16_ranges(pend.stream, se_t[0], se_t[1]),
+                              n))
+            upload_bytes += se.nbytes
+        stages.mark("plan_dispatch")
+
+    for i in fb_learn:
+        if len(_REJECT_CACHE) >= _REJECT_CACHE_CAP:
+            break
+        key = _si_key(sis[i], len(datas[i]))
+        if key is not None:
+            _REJECT_CACHE.add(key)
+
+    dd = DeviceDecoded(results, dispatches, plans, pcms)
+    dd.crc_check = crc_pairs or None
+    dd.upload_bytes = upload_bytes
+    if fb_streams:
+        fb_streams = sorted(set(fb_streams))
+        fb_dd = _host_fallback([datas[i] for i in fb_streams], lane_quantum,
+                               device, per_stream=True)
+        dd = merge_decoded(len(datas), [(list(range(len(datas))), dd),
+                                        (fb_streams, fb_dd)])
+        stages.mark("fallback")
+    # Markers: some stream rode the device demux; the demux ran at all;
+    # the streams that took the host walk.
+    dd.segmented = len(fb_streams) < len(datas)
+    dd.seg_engaged = True
+    dd.fallback_streams = list(fb_streams)
+    dd.stage_seconds = dict(stages.seconds)
+    return dd
+
+
+def decode_streams_segmented(datas, lane_quantum=None, device="cuda"):
+    """Decode FLAC streams with the frame search and subframe walk on the
+    card. Returns a DeviceDecoded, like ``decode_streams_device``; streams
+    the device demux cannot take are host-walked and merged in (see the
+    module docstring). Overlapping callers use :func:`begin_segmented` and
+    :func:`finish_segmented` (``decode_streams_device_async``)."""
+    pending = begin_segmented(datas, lane_quantum, device)
+    if pending is None:
+        return _host_fallback(datas, lane_quantum, device)
+    return finish_segmented(pending)

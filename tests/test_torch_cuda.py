@@ -119,11 +119,15 @@ def fuzzed_streams(n=24, seed=7):
     return out
 
 
-def assert_decodes_like_scalar(datas, device):
+def assert_decodes_like_scalar(datas, device, segmentation=None):
     """Each stream decodes to the scalar decoder's PCM, or raises
     claxon_tpu.Error where the scalar decoder does; nothing else."""
     import claxon_tpu_torch as ct
     from claxon_tpu.error import Error
+
+    def decode(data):
+        return ct.decode_streams_device([data], segmentation=segmentation,
+                                        device=device).to_host()[0].pcm
 
     for data in datas:
         try:
@@ -132,10 +136,9 @@ def assert_decodes_like_scalar(datas, device):
             want = None
         if want is None:
             with pytest.raises(Error):
-                ct.decode_streams([data], device=device)
+                decode(data)
         else:
-            got = ct.decode_streams([data], device=device)[0].pcm
-            assert np.array_equal(got, want)
+            assert np.array_equal(decode(data), want)
 
 
 def test_fuzzed_streams_on_the_card(cuda):
@@ -151,3 +154,191 @@ def test_generated_corpus_on_the_card(cuda):
     assert all(b[2].is_cuda for b in dd.device_buckets())
     for data, dec in zip(datas, dd.to_host()):
         assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
+
+
+def _payload_words(data):
+    """Big-endian int32 words of a stream's frame section."""
+    from claxon_tpu.native.binding import _read_metadata
+
+    payload = np.frombuffer(data, np.uint8)[_read_metadata(data)[1]:]
+    pad = np.zeros((-len(payload)) % 4, np.uint8)
+    return np.concatenate([payload, pad]).view(">i4").astype(np.int32), \
+        len(payload)
+
+
+def _small_streams():
+    from claxon_tpu.testing import encode_flac, synth_music
+
+    pcm = synth_music(4000, channels=2, bps=16, seed=11)
+    return [encode_flac(pcm, 44100, 16, block_size=1024),
+            encode_flac(pcm, 44100, 16, block_size=576, stereo="left_side",
+                        partition_order=3),
+            encode_flac(pcm, 44100, 16, block_size=1024,
+                        force_subframe="verbatim")]
+
+
+def test_sync_scan_kernel_matches_plain(cuda):
+    from claxon_tpu_torch.ops import segment
+
+    rng = np.random.default_rng(4)
+    words, n = _payload_words(_small_streams()[0])
+    saturated = np.frombuffer(bytes(np.where(
+        rng.random(6000) < 0.5, 0xFF, 0xF8).astype(np.uint8)), ">i4") \
+        .astype(np.int32)
+    noise = rng.integers(-(1 << 31), 1 << 31, 3000, dtype=np.int64)
+    cases = [(words, n, 64), (words, n, 3), (words, n - 5, 64),
+             (saturated, 4 * len(saturated), 4096),
+             (saturated, 4 * len(saturated), 100), (noise, 4 * 3000, 256),
+             (noise[:1], 3, 8), (noise[:1], 1, 8)]
+    for w, nb, C in cases:
+        s = _c(w, cuda)
+        got = segment.find_frame_headers(s, nb, C)
+        want = segment.find_frame_headers_plain(s, nb, C)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (len(w), nb, C)
+
+
+def _walk_inputs(rng, n_frames, W, T):
+    """Fuzzed walk lanes: start bits anywhere in (and past) the stream,
+    block sizes around T, every channel mode, and bits per sample."""
+    return (rng.integers(0, 32 * W + 2048, n_frames),
+            rng.integers(0, T + 40, n_frames), rng.integers(0, 4, n_frames),
+            rng.integers(1, 34, n_frames))
+
+
+def test_walk_kernel_matches_plain_everywhere(cuda):
+    """Every output of every lane equals the plain form's, rejected lanes
+    included, on real frames and on fuzzed cursors and streams (reads
+    past the stream end are zero bits in both)."""
+    from claxon_tpu.pipeline_seg import host_header_fields
+    from claxon_tpu_torch.ops import demux
+
+    rng = np.random.default_rng(5)
+    data = _small_streams()[1]
+    words, n = _payload_words(data)
+    _si, bb = native.extract_stream_bits(data, emit_slots=False,
+                                         defer_crc=True)
+    bf = bb.bframes
+    payload = words.astype(">i4").tobytes()[:n]
+    hlen = host_header_fields(np.frombuffer(payload, np.uint8),
+                              bf["byte0"])["hlen"]
+    real = ((bf["byte0"] + hlen) * 8, bf["block_size"], bf["mode"],
+            bf["bps"])
+    noise = rng.integers(-(1 << 31), 1 << 31, 700, dtype=np.int64)
+    noise[::3] &= 0x00FFFFFF  # long zero runs: wasted-bit and unary edges
+    for stream, lanes, T, nch in (
+            (words, real, 576, 2), (words, real, 1024, 2),
+            (words, _walk_inputs(rng, 100, len(words), 576), 576, 2),
+            (noise, _walk_inputs(rng, 150, 700, 256), 256, 2),
+            (noise, _walk_inputs(rng, 60, 700, 64), 64, 1),
+            (noise[:3], _walk_inputs(rng, 20, 3, 192), 192, 2)):
+        args = [_c(stream, cuda)] + [_c(a, cuda) for a in lanes]
+        n0 = demux.walk_frames.launches
+        out, end, ok = demux.walk_frames(*args, T, nch)
+        assert demux.walk_frames.launches == n0 + 1
+        p_out, p_end, p_ok = demux.walk_frames_plain(*args, T, nch)
+        assert torch.equal(ok, p_ok) and torch.equal(end, p_end)
+        for k in demux.WALK_KEYS:
+            assert torch.equal(out[k], p_out[k]), (k, T, nch)
+        if lanes is real:
+            assert bool(ok.all())
+
+
+def test_fused_demux_kernels_match_plain(cuda):
+    """K6's bswap, field parse + compaction and summary kernels equal
+    their plain forms on a real group and on noise, and the whole fused
+    run equals the plain run on the CPU."""
+    from claxon_tpu_torch.ops import seg_parse
+    from claxon_tpu_torch.ops.demux import walk_frames
+    from claxon_tpu_torch.ops.segment import find_frame_headers
+
+    rng = np.random.default_rng(6)
+    streams = _small_streams()
+    raw = b"".join(streams)
+    le = np.frombuffer(raw + b"\0" * ((-len(raw)) % 4), "<i4") \
+        .astype(np.int32)
+    ends = np.cumsum([len(s) for s in streams]).astype(np.int32)
+    noise = rng.integers(-(1 << 31), 1 << 31, 5000, dtype=np.int64) \
+        .astype(np.int32)
+    noise[::7] = np.int32(-0x00070001)  # 0xFFF8FFFF: sync-like words
+    for words_le, T, nch, wcap in ((le, 1024, 2, 256), (noise, 4096, 2, 8),
+                                   (noise, 256, 1, 256)):
+        n_bytes = 4 * len(words_le)
+        ends_p = np.full(8, n_bytes, np.int32)
+        ends_p[:len(ends)] = ends
+        bps = np.full(8, 16, np.int32)
+        w_t, ends_t, bps_t = (_c(a, cuda) for a in (words_le, ends_p, bps))
+        stream = seg_parse.bswap_words(w_t)
+        assert torch.equal(stream, seg_parse.bswap_words_plain(w_t))
+        pos, valid, count, win = find_frame_headers(stream, n_bytes, 512)
+        args = (pos, valid, win, count, ends_t, bps_t, T, nch, wcap)
+        got = seg_parse.parse_candidates(*args)
+        want = seg_parse.parse_candidates_plain(*args)
+        for a, b in zip(got[:2] + got[2] + got[3:],
+                        want[:2] + want[2] + want[3:]):
+            assert torch.equal(a, b)
+        fields, lane_of, walk_in, _counts = got
+        walk, end_bits, ok = walk_frames(stream, *walk_in, T, nch)
+        sargs = (pos, fields, lane_of, end_bits, ok, walk["n_parts"],
+                 walk["sa_words"], nch)
+        assert torch.equal(seg_parse.pack_summary(*sargs),
+                           seg_parse.pack_summary_plain(*sargs))
+        dev_run = seg_parse.fused_demux_run(w_t, n_bytes, T, nch, ends_t,
+                                            bps_t, 512, wcap)
+        cpu_run = seg_parse.fused_demux_run(w_t.cpu(), n_bytes, T, nch,
+                                            ends_t.cpu(), bps_t.cpu(), 512,
+                                            wcap)
+        assert torch.equal(dev_run[0].cpu(), cpu_run[0])
+        for k in dev_run[1]:
+            assert torch.equal(dev_run[1][k].cpu(), cpu_run[1][k]), k
+        assert torch.equal(dev_run[2].cpu(), cpu_run[2])
+        assert torch.equal(dev_run[3].cpu(), cpu_run[3])
+
+
+def test_gather_kernel_matches_plain(cuda):
+    from claxon_tpu_torch.ops import seg_gather
+
+    rng = np.random.default_rng(7)
+    R, NC = 50, 6
+    values = rng.integers(-(1 << 31), 1 << 31, (R, NC * 32), dtype=np.int64)
+    warm = rng.integers(-(1 << 31), 1 << 31, (R, 32), dtype=np.int64)
+    order = rng.integers(0, 45, R)
+    rows = rng.integers(-3, R + 3, 77)
+    args = [_c(a, cuda) for a in (values, warm, order, rows)]
+    for tb32 in (32, 64, NC * 32):
+        got = seg_gather.gather_values(*args, tb32)
+        assert torch.equal(got, seg_gather.gather_values_plain(*args, tb32))
+
+
+def test_segmented_decode_on_the_card(cuda):
+    """The segmented path on the card: bit-exact against the scalar
+    decoder, through every new kernel, with nothing falling back."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch.ops import demux, seg_gather, seg_parse, segment
+
+    datas = _small_streams() + [p.read_bytes()
+                                for p in sorted(GENERATED.glob("*.flac"))]
+    wrappers = (segment.find_frame_headers, seg_parse.bswap_words,
+                seg_parse.parse_candidates, seg_parse.pack_summary,
+                demux.walk_frames, seg_gather.gather_values)
+    before = [w.launches for w in wrappers]
+    dd = ct.decode_streams_device(datas, segmentation="device", device=cuda)
+    assert all(w.launches > n for w, n in zip(wrappers, before))
+    assert dd.segmented
+    for data, dec in zip(datas, dd.to_host()):
+        assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
+    assert_decodes_like_scalar(fuzzed_streams(), cuda, "device")
+
+
+def test_segmented_65535_bucket_on_the_card(cuda):
+    """A STREAMINFO block size in the 65535 bucket (the one T that is not
+    a multiple of 32) rides the segmented path bit-exactly."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu.testing import encode_flac, synth_music
+
+    data = encode_flac(synth_music(80000, channels=1, bps=16, seed=65),
+                       44100, 16, block_size=40000)
+    dd = ct.decode_streams_device([data], segmentation="device", device=cuda)
+    assert dd.segmented and dd.fallback_streams == []
+    assert np.array_equal(dd.to_host()[0].pcm,
+                          native.decode_stream_scalar(data)[1])

@@ -1,7 +1,7 @@
 """The port runs where JAX is not installed (as on the machine with the
 card): in a fresh interpreter whose imports of ``jax``/``jaxlib`` fail,
-``claxon_tpu_torch`` and ``chip_smoke`` import, and a small stream
-decodes on the CPU bit-exactly."""
+``claxon_tpu_torch`` and ``chip_smoke`` import, and small streams decode
+on the CPU bit-exactly through the host-walk and the segmented paths."""
 
 import pathlib
 import subprocess
@@ -38,6 +38,13 @@ _SCRIPT = textwrap.dedent("""
     dec = ct.decode_stream(data, device="cpu")
     assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
     assert np.array_equal(dec.pcm, pcm)
+    mono = encode_flac(pcm[:, :1], 44100, 16, block_size=576)
+    dd = ct.decode_streams_device([data, mono], segmentation="device",
+                                  device="cpu")
+    assert dd.segmented and dd.fallback_streams == []
+    out = dd.to_host()
+    assert np.array_equal(out[0].pcm, pcm)
+    assert np.array_equal(out[1].pcm, pcm[:, :1])
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib"))
     assert not loaded, loaded

@@ -268,10 +268,46 @@ def test_decode_streams_device_empty_batch():
 
 
 def test_unported_options_raise(monkeypatch):
+    """segmentation="auto" is not ported, and a single stream at the
+    2^27-byte batch limit (int32 chunk bit positions) still raises."""
     data = _configs()[1]
     with pytest.raises(NotImplementedError, match="segmentation"):
-        ct.decode_streams_device([data], segmentation="device",
-                                 device="cpu")
+        ct.decode_streams_device([data], segmentation="auto", device="cpu")
     monkeypatch.setattr(tpb, "MAX_BATCH_BYTES", len(data))
     with pytest.raises(ValueError, match="smaller batches"):
         ct.decode_streams_device([data], device="cpu")
+    with pytest.raises(ValueError, match="smaller batches"):
+        ct.decode_streams_device([data], segmentation="device", device="cpu")
+
+
+@pytest.mark.parametrize("segmentation", ["host", "device"])
+def test_batch_above_the_byte_limit_splits(monkeypatch, segmentation):
+    """A batch of MAX_BATCH_BYTES or more decodes as sub-batches split at
+    stream boundaries, exactly as unsplit; the segmented path hands such a
+    batch to the host walk whole. A corrupted CRC in the second sub-batch
+    raises, and the failure latches."""
+    datas = _configs()
+    want = ct.decode_streams_device(datas, device="cpu")
+    want_res = want.to_host()
+    # Every stream fits the limit and no two do: three sub-batches.
+    limit = max(len(d) for d in datas) + 1
+    assert min(len(a) + len(b) for a in datas for b in datas
+               if a is not b) >= limit
+    monkeypatch.setattr(tpb, "MAX_BATCH_BYTES", limit)
+    dd = ct.decode_streams_device(datas, segmentation=segmentation,
+                                  device="cpu")
+    assert len(dd.crc_check) == 3  # one CRC dispatch per sub-batch
+    assert dd.lane_plans() != want.lane_plans()
+    got = dd.to_host()
+    _assert_oracle(datas, got)
+    for g, w in zip(got, want_res):
+        assert np.array_equal(g.pcm, w.pcm)
+        assert g.frame_times == w.frame_times
+
+    bad = datas[:1] + [_corrupt_crc(datas[1])] + datas[2:]
+    dd = ct.decode_streams_device(bad, segmentation=segmentation,
+                                  device="cpu")
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.to_host()
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.sync()

@@ -14,7 +14,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
       exact equality (tolerance 0: every value is an integer): K1
       synthesis, K2 stream Rice decode and K4 range CRC-16 on the bucket
       inputs the host-walk path builds for the headline corpus and every
-      bucket of the mixed corpus, plus K1 edge cases; then K5 sync scan,
+      bucket of the mixed corpus, plus K1 edge cases and the cases of its
+      tap classes (a warp mixing orders 0, 1, 4, 8, 12 and 32;
+      coefficients only in column 0; T from 1 to 4608 with 100 lanes and
+      lengths below T); then K5 sync scan,
       K6 fused-demux body (bswap, header fields and compaction, summary),
       K7 subframe walk and K8 values gather on every group the segmented
       path builds for the headline and mixed corpora, and on every K8
@@ -30,14 +33,21 @@ Phases, each of which raises on failure (so the script exits non-zero):
       the segmented headline decode must not fall back, and the mixed
       24-bit and generated 6-channel streams must;
   (d) corrupt one stored frame CRC byte: the decode must raise
-      claxon_tpu.Error "frame CRC mismatch", which only K4 can detect, on
-      both paths;
+      claxon_tpu_torch.Error "frame CRC mismatch", which only K4 can
+      detect, on both paths;
   (e) time the device-resident and to-host decode of the headline batch
-      on both paths, with the segmented path's host stages.
+      on both paths, with the segmented path's host stages;
+  (f) decode one stream of at least 2^27 bytes (8 channels of 24-bit
+      audio, FIXED subframes) on both paths: it walks in chunks of frames
+      below the int32 limit, bit-exact against the scalar decoder and the
+      STREAMINFO MD5.
 
-The last two lines are the kernels' JSON summary and the result
-``{"ok": true, "device": {...}}``. Without a CUDA device the script
-exits non-zero and prints no result. It never imports JAX.
+The last three lines are the kernels' JSON summary (time, plain time,
+bound and launches of each), the card's name and power limit, and the
+result ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script exits non-zero and prints no result. It imports neither JAX nor
+the JAX package: the encoder, the C++ core and the errors are the
+port's own.
 """
 
 import json
@@ -71,6 +81,21 @@ MIXED_SPECS = [
 ]
 TIMED_RUNS = 5
 DEVICE = "cuda"
+#: phase (f): one stream of at least this many bytes (the port's
+#: MAX_BATCH_BYTES), 8 channels of 24-bit 96 kHz audio in FIXED subframes
+#: with rice2 codes, block size 4096: about 2.5 bytes per sample, so about
+#: 70 s of audio.
+LARGE_MIN_BYTES = 1 << 27
+LARGE_SOURCE_FRAMES = 31  # distinct frames, repeated with new numbers
+#: bound rates of one H100 SXM (NVIDIA's data sheet): device memory, and
+#: the scalar float32
+#: rate outside the tensor cores, the closest figure the table has for
+#: the kernels' integer multiply-adds.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+#: K1's first design on the headline bucket (PERF.md, measured on one
+#: NVIDIA H100 80GB HBM3 at 700 W), printed beside the new time.
+K1_OLD_MS = 1.181
 
 
 def log(msg):
@@ -87,7 +112,7 @@ def card_line():
 
 
 def headline_corpus():
-    from claxon_tpu.testing import encode_flac, synth_music
+    from claxon_tpu_torch.testing import encode_flac, synth_music
 
     return [encode_flac(synth_music(44100 * HEADLINE_SECONDS, channels=2,
                                     bps=16, seed=s), 44100, 16,
@@ -95,7 +120,7 @@ def headline_corpus():
 
 
 def mixed_corpus():
-    from claxon_tpu.testing import encode_flac, synth_music
+    from claxon_tpu_torch.testing import encode_flac, synth_music
 
     datas = []
     for i, spec in enumerate(MIXED_SPECS):
@@ -118,6 +143,40 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tensor_bytes(*xs):
+    """Bytes of every tensor in ``xs`` (tensors, or tuples, lists or dicts
+    of them)."""
+    import torch
+
+    n = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            n += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            n += tensor_bytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            n += tensor_bytes(*x)
+    return n
+
+
+def bound(nbytes, ops=0):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` once or do ``ops`` integer operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def synth_ops(orders, lengths):
+    """Multiply-adds (counted as 2 operations) that K1's inputs need: each
+    lane's order taps at every predicted step."""
+    import torch
+
+    o = orders.to(torch.int64).clamp(0, 32)
+    steps = (lengths.to(torch.int64) - o).clamp(min=0)
+    return int((2 * o * steps).sum())
 
 
 def compare(name, kernel_fn, plain_fn, reps=20):
@@ -154,13 +213,13 @@ def phase_b(datas4, mixed):
     import numpy as np
     import torch
 
-    from claxon_tpu import native
+    from claxon_tpu_torch import native
     from claxon_tpu_torch.ops import crc, entropy, predict
     from claxon_tpu_torch.pipeline import extract_streams_bits
     from claxon_tpu_torch.pipeline_bits import (inputs_from_numpy,
                                                 plan_raw_bits, unpack_mb)
 
-    rows = {}
+    rows, bounds = {}, {}
     for label, datas in (("headline", datas4), ("mixed", mixed)):
         bp = plan_raw_bits(extract_streams_bits(datas, native), 128)
         for bi, b in enumerate(bp.bits):
@@ -188,7 +247,18 @@ def phase_b(datas4, mixed):
                 f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms)")
             if label == "headline" and bi == 0:
                 rows["K2"], rows["K1"] = r2, r1
+                bounds["K2"] = bound(tensor_bytes(k2_args, x))
+                bounds["K1"] = bound(2 * tensor_bytes(x) + tensor_bytes(
+                    k1_args[1:]), synth_ops(u["orders"], u["lengths"]))
                 main_shape = shape
+                # K1's per-warp latency: the bucket's first 32 lanes alone
+                # (one warp on the card) against the whole bucket.
+                one = [t[:32].contiguous() for t in k1_args]
+                one_ms = cuda_ms(lambda: predict.synthesize(*one), 20)
+                log(f"(b) K1 on the first 32 lanes alone: {one_ms:.4f} ms "
+                    f"({one_ms * 1e-3 * 1.98e9 / (b.nc * 32):.0f} cycles "
+                    "per step at 1.98 GHz) against "
+                    f"{r1[1]:.4f} ms for all {b.mb.shape[0]} lanes")
         # K4 on the batch's deferred frame ranges: the stored CRC is
         # included (all zero when intact) and excluded (the CRC itself,
         # which must equal the stored bytes and the host's crc16).
@@ -214,6 +284,8 @@ def phase_b(datas4, mixed):
             f"({r4[1]:.3f} ms vs {r4[2]:.1f} ms)")
         if label == "headline":
             rows["K4"] = r4
+            # Output: one int32 per range, the size of starts.
+            bounds["K4"] = bound(tensor_bytes(stream, starts, ends, starts))
             k4_shape = f"F={starts.shape[0]}"
 
     # K1 edge cases: order 32, shift 15, |c| = 2^15 - 1, int32 wrap.
@@ -234,7 +306,35 @@ def phase_b(datas4, mixed):
             lambda: predict.synthesize_plain(*t), 1)
     log("(b) K1 edge cases (order 32, shift 15, |c| = 2^15-1, int32 wrap): "
         "kernel == plain")
-    return rows, main_shape, k4_shape
+
+    # The redesign's tap classes: a warp whose lanes need every class
+    # (orders 0, 1, 4, 8, 12, 32), coefficients nonzero only in column 0
+    # (the warp must take all 32 taps), T from 1 to 4608 with L = 100 (not
+    # a multiple of 32) and lengths below T.
+    def k1_case(label, L, T, orders, col0=False, short=False):
+        xs = rng.integers(-(1 << 31), 1 << 31, (L, T), dtype=np.int64)
+        cs = rng.integers(-(1 << 15) + 1, 1 << 15, (L, 32))
+        if col0:
+            cs[:, 1:] = 0
+        else:
+            cs[np.arange(32)[None, :] < 32 - orders[:, None]] = 0
+        lens = rng.integers(0, T, L) if short else np.full(L, T)
+        args = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                .to(DEVICE) for a in (xs, cs, rng.integers(0, 32, L),
+                                      orders, lens)]
+        r = compare(f"K1 {label}", lambda: predict.synthesize(*args),
+                    lambda: predict.synthesize_plain(*args), 1)
+        log(f"(b) K1 {label} (L={L} T={T}): kernel == plain "
+            f"({r[1]:.3f} ms)")
+
+    mix = np.resize(np.array([0, 1, 4, 8, 12, 32]), 64)
+    k1_case("tap classes mixed in each warp", 64, 1152, mix)
+    k1_case("coefficients in column 0 only", 100, 576,
+            rng.integers(0, 33, 100), col0=True)
+    for T in (1, 192, 1152, 4096, 4608):
+        k1_case("ragged lanes, lengths below T", 100, T,
+                rng.integers(0, 33, 100), short=True)
+    return rows, bounds, main_shape, k4_shape
 
 
 def phase_b_seg(datas4, mixed):
@@ -244,16 +344,20 @@ def phase_b_seg(datas4, mixed):
     import torch
 
     from claxon_tpu_torch import pipeline_seg
-    from claxon_tpu_torch.ops import demux, seg_gather, seg_parse, segment
+    from claxon_tpu_torch.ops import (demux, predict, seg_gather, seg_parse,
+                                      segment)
 
-    rows = {}
+    rows, bounds = {}, {}
     for label, datas in (("headline", datas4), ("mixed", mixed)):
-        k8_calls = []
+        k8_calls, k1_calls = [], []
         dispatch = pipeline_seg._dispatch_values
 
         def recording(walk, rws, lengths, modes, tb32, device):
+            rows_t = torch.from_numpy(rws).to(device)
             k8_calls.append((walk["values"], walk["warm"], walk["order"],
-                             torch.from_numpy(rws).to(device), tb32))
+                             rows_t, tb32))
+            k1_calls.append((walk, rows_t,
+                             torch.from_numpy(lengths).to(device)))
             return dispatch(walk, rws, lengths, modes, tb32, device)
 
         pipeline_seg._dispatch_values = recording
@@ -312,6 +416,14 @@ def phase_b_seg(datas4, mixed):
             if label == "headline" and gi == 0:
                 rows.update(K5=r5, K6=r6, K7=r7)
                 rows["seg_shape"] = shape
+                bounds["K5"] = bound(tensor_bytes(
+                    stream, segment.find_frame_headers(stream, n_bytes,
+                                                       cap)))
+                bounds["K6"] = bound(tensor_bytes(
+                    words_le, stream, pargs, fields, lane_of, walk_in,
+                    counts, sargs, seg_parse.pack_summary(*sargs)))
+                bounds["K7"] = bound(tensor_bytes(
+                    stream, walk_in, walk, end_bits, ok))
         if not k8_calls:
             raise AssertionError(f"{label}: the segmented decode ran no K8")
         for ci, args in enumerate(k8_calls):
@@ -323,18 +435,33 @@ def phase_b_seg(datas4, mixed):
             log(f"(b) {label} K8 dispatch {ci} L={rws.shape[0]} "
                 f"Tb={tb32} rows of {values.shape[1]}: K8 == plain "
                 f"({r8[1]:.3f} ms vs {r8[2]:.1f} ms)")
+            # K1's inputs in this dispatch, as _dispatch_values builds them.
+            walk1, rows1, lengths1 = k1_calls[ci]
+            args1 = (seg_gather.gather_values(*args),
+                     *(walk1[k].index_select(0, rows1)
+                       for k in ("coefs", "shift", "order")), lengths1)
+            r1 = compare(f"K1 segmented {label}[{ci}]",
+                         lambda: predict.synthesize(*args1),
+                         lambda: predict.synthesize_plain(*args1))
+            log(f"(b) {label} segmented K1 dispatch {ci} "
+                f"L={args1[0].shape[0]} T={args1[0].shape[1]}: K1 == plain "
+                f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms)")
             if label == "headline" and ci == 0:
                 rows["K8"] = r8
                 rows["k8_shape"] = f"L={rws.shape[0]} Tb={tb32}"
-    return rows
+                # Data-dependent: only the gathered rows of the walk
+                # values (and their warm-up samples) are read.
+                n = rws.shape[0]
+                bounds["K8"] = bound(4 * (2 * n * tb32 + 34 * n))
+    return rows, bounds
 
 
 def check_decoded(label, datas, results):
     """Every PCM equals the scalar decoder's, and its MD5 where stored."""
     import numpy as np
 
-    from claxon_tpu import native
-    from claxon_tpu.testing import pcm_md5
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.testing import pcm_md5
 
     if len(results) != len(datas):
         raise AssertionError(f"{label}: {len(results)} results for "
@@ -354,14 +481,117 @@ def check_decoded(label, datas, results):
 
 def corrupt_first_frame_crc(data):
     """``data`` with the stored CRC-16 of its first frame flipped."""
-    from claxon_tpu import native
-    from claxon_tpu.native.binding import _read_metadata
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.native.binding import _read_metadata
 
     _si, bb = native.extract_stream_bits(data, emit_slots=False)
     _si, pos = _read_metadata(data)
     bad = bytearray(data)
     bad[pos + int(bb.bframes[0]["byte1"]) - 1] ^= 0xFF
     return bytes(bad)
+
+
+def large_stream():
+    """(stream, pcm): one valid FLAC stream of at least LARGE_MIN_BYTES
+    bytes and its PCM. The port's encoder writes LARGE_SOURCE_FRAMES
+    distinct frames (8 channels, 24-bit, 96 kHz, FIXED subframes, rice2,
+    block size 4096: poor compression, every frame on the bits path, so
+    through K2); they repeat in order under new frame numbers, each with
+    its CRC-8 and CRC-16 recomputed, and STREAMINFO gets the new sample
+    count, frame sizes and PCM MD5."""
+    import numpy as np
+
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.crc import crc8
+    from claxon_tpu_torch.native.binding import _read_metadata
+    from claxon_tpu_torch.testing import encode_flac, pcm_md5, synth_music
+    from claxon_tpu_torch.testing.flacgen import _utf8_like
+
+    bs, nch, bps, rate = 4096, 8, 24, 96000
+    pcm = synth_music(bs * LARGE_SOURCE_FRAMES, channels=nch, bps=bps,
+                      seed=4000, sample_rate=rate).astype(np.int32)
+    src = encode_flac(pcm, rate, bps, block_size=bs, force_subframe="fixed",
+                      rice2=True, partition_order=2)
+    _si, pos = _read_metadata(src)
+    _si, bb = native.extract_stream_bits(src, emit_slots=False)
+    if (bb.bframes["flags"] & 1).any():
+        raise AssertionError("large stream: a source frame left the bits "
+                             "path")
+    parts = []  # (sync and codes, subframes) of each source frame
+    for k, f in enumerate(bb.bframes):
+        raw = src[pos + int(f["byte0"]):pos + int(f["byte1"])]
+        parts.append((raw[:4], raw[4 + len(_utf8_like(k)) + 1:-2]))
+    frames, total = [], 0
+    while total < LARGE_MIN_BYTES:
+        head, body = parts[len(frames) % len(parts)]
+        hdr = head + _utf8_like(len(frames))
+        fr = hdr + bytes([crc8(hdr)]) + body
+        fr += native.crc16_bytes(fr).to_bytes(2, "big")
+        frames.append(fr)
+        total += len(fr)
+    n = len(frames) * bs
+    full = np.tile(pcm, (-(-len(frames) // len(parts)), 1))[:n]
+    si = bytearray(src[8:42])  # STREAMINFO body (the first block)
+    if src[4] & 0x7F != 0:
+        raise AssertionError("large stream: STREAMINFO is not first")
+    sizes = [len(f) for f in frames]
+    si[4:7] = min(sizes).to_bytes(3, "big")
+    si[7:10] = max(sizes).to_bytes(3, "big")
+    si[10:18] = ((rate << 44) | ((nch - 1) << 41) | ((bps - 1) << 36)
+                 | n).to_bytes(8, "big")
+    si[18:34] = pcm_md5(full, bps)
+    data = src[:8] + bytes(si) + src[42:pos] + b"".join(frames)
+    return data, full
+
+
+def phase_f():
+    """One stream of at least 2^27 bytes through both paths' public calls:
+    it walks in chunks of frames (the segmented path hands it to the host
+    walk whole), bit-exact against the scalar decoder and the MD5."""
+    import numpy as np
+
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.ops import entropy
+    from claxon_tpu_torch.pipeline_bits import MAX_BATCH_BYTES
+    from claxon_tpu_torch.testing import pcm_md5
+
+    t0 = time.perf_counter()
+    data, pcm = large_stream()
+    gen_s = time.perf_counter() - t0
+    if len(data) < max(LARGE_MIN_BYTES, MAX_BATCH_BYTES):
+        raise AssertionError(f"large stream: only {len(data)} bytes")
+    log(f"(f) large stream: {len(data)} bytes, {pcm.shape[0]} samples x "
+        f"{pcm.shape[1]} channels, 24-bit; generated in {gen_s:.1f} s")
+    t0 = time.perf_counter()
+    si, want = native.decode_stream_scalar(data)
+    if not np.array_equal(want, pcm):
+        raise AssertionError("large stream: scalar decoder != source PCM")
+    if pcm_md5(want, si.bits_per_sample) != si.md5sum:
+        raise AssertionError("large stream: scalar decoder MD5 mismatch")
+    log(f"(f) large stream: scalar decoder == source PCM == STREAMINFO MD5 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for path in ("host", "device"):
+        entropy.decode_residual_bits_stream.launches = 0
+        t0 = time.perf_counter()
+        dd = ct.decode_streams_device([data], segmentation=path,
+                                      device=DEVICE)
+        runs = len(dd.crc_check or [])  # one CRC dispatch per run
+        dec = dd.to_host()[0]
+        dt = time.perf_counter() - t0
+        if not np.array_equal(dec.pcm, want):
+            raise AssertionError(f"large stream, {path}: PCM != scalar "
+                                 "decoder")
+        if pcm_md5(dec.pcm, si.bits_per_sample) != si.md5sum:
+            raise AssertionError(f"large stream, {path}: MD5 mismatch")
+        k2 = entropy.decode_residual_bits_stream.launches
+        if runs < 2 or k2 < 1:
+            raise AssertionError(f"large stream, {path}: {runs} runs, "
+                                 f"{k2} K2 launches")
+        log(f"(f) large stream, {path} path: bit-exact vs the scalar "
+            f"decoder and the MD5; {runs} runs below the "
+            f"{MAX_BATCH_BYTES}-byte limit, {k2} K2 launches, "
+            f"{dt:.1f} s to host")
 
 
 def main():
@@ -374,16 +604,16 @@ def main():
 
     import numpy as np
 
-    import claxon_tpu
     import claxon_tpu_torch as ct
-    from claxon_tpu import native
+    from claxon_tpu_torch import native
     from claxon_tpu_torch.ops import (_build, crc, demux, entropy, predict,
                                       seg_gather, seg_parse, segment)
     from claxon_tpu_torch.pipeline import extract_streams_bits
     from claxon_tpu_torch.pipeline_bits import plan_raw_bits
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    for name in sys.modules:
+        if name.split(".")[0] in ("jax", "jaxlib", "claxon_tpu"):
+            raise AssertionError(f"the port imported {name}")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"(a) card: {card}; torch {torch.__version__}, CUDA "
@@ -405,8 +635,10 @@ def main():
         f"({sum(map(len, datas4))} bytes), mixed {len(mixed)}, generated "
         f"{len(generated)}")
 
-    rows, main_shape, k4_shape = phase_b(datas4, mixed)
-    rows.update(phase_b_seg(datas4, mixed))
+    rows, bounds, main_shape, k4_shape = phase_b(datas4, mixed)
+    seg_rows, seg_bounds = phase_b_seg(datas4, mixed)
+    rows.update(seg_rows)
+    bounds.update(seg_bounds)
 
     # (c) each path, through the public calls.
     seg_wrappers = {
@@ -437,6 +669,10 @@ def main():
     res, launches = drive(("K1", "K2", "K4"),
                           lambda: ct.decode_streams(datas4, device=DEVICE))
     log(f"(c) host-walk path, launches in the headline decode: {launches}")
+    log(f"(c) K1 on the main bucket ({main_shape}): new design "
+        f"{rows['K1'][1]:.4f} ms, bound {bounds['K1'][0]:.4f} ms "
+        f"({bounds['K1'][1]}), {launches['K1']} launch(es) in the headline "
+        f"decode; the old design took {K1_OLD_MS} ms there (PERF.md)")
     check_decoded(f"headline x{HEADLINE_REPLICAS}", datas4, res)
     total_samples = sum(r.pcm.size for r in res)
     check_decoded("mixed", mixed, ct.decode_streams(mixed, device=DEVICE))
@@ -501,7 +737,7 @@ def main():
                                  "segmented path")
         try:
             dd.to_host()
-        except claxon_tpu.Error as e:
+        except ct.Error as e:
             if "frame CRC mismatch" not in str(e):
                 raise
             log(f"(d) {path} path: corrupted frame refused: {e}")
@@ -509,7 +745,7 @@ def main():
             raise AssertionError("a corrupted frame CRC was not detected")
         try:
             dd.sync()
-        except claxon_tpu.Error as e:
+        except ct.Error as e:
             if "frame CRC mismatch" not in str(e):
                 raise
         else:
@@ -566,6 +802,8 @@ def main():
     scalar_s, _ = timed(lambda: [native.decode_stream_scalar(d)
                                  for d in datas4])
     log(f"(e)   C++ scalar decode on the host: {ms / scalar_s:.2f} Ms/s")
+    del braws, res, dd
+    phase_f()
 
     sources = {"K1": ("claxon_tpu_torch/csrc/synth.cu",
                       "claxon_tpu/ops/pallas_synth.py:127"),
@@ -584,7 +822,9 @@ def main():
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
                 "replaces": sources[k][1], "launches": launches[k],
                 "max_abs_err": rows[k][0], "ms": rows[k][1],
-                "plain_ms": rows[k][2]} for k in sources]
+                "plain_ms": rows[k][2], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": None}
+               for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """claxon_tpu_torch: the PyTorch + CUDA port of claxon_tpu's decode path.
 
-The host layers (stream and metadata parsing, the C++ boundary walk, the
-error model) are shared with ``claxon_tpu`` and imported as they are; the
-device side is rewritten for an NVIDIA Hopper card:
+The port keeps its own copy of the host layers it calls (``error``,
+``crc``, ``io``, ``metadata``, the C++ core ``native`` and the test
+encoder ``testing``), so it imports nothing of ``claxon_tpu``; the device
+side is rewritten for an NVIDIA Hopper card:
 
 * ``ops`` -- each device kernel's wrapper beside its plain PyTorch form:
   K1 synthesis, K2 stream Rice decode, K4 range CRC-16, K5 sync scan, K6
@@ -18,10 +19,12 @@ This package never imports JAX. Output is bit-identical to ``claxon_tpu``
 and to the C++ scalar decoder.
 """
 
+from .error import Error, FormatError, IoError, Unsupported
 from .pipeline import (DecodedStream, DeviceDecoded, decode_stream,
                        decode_streams, decode_streams_device,
                        decode_streams_device_async, decode_streams_pipelined)
 
 __all__ = ["decode_stream", "decode_streams", "decode_streams_device",
            "decode_streams_device_async", "decode_streams_pipelined",
-           "DeviceDecoded", "DecodedStream"]
+           "DeviceDecoded", "DecodedStream", "Error", "FormatError",
+           "IoError", "Unsupported"]

@@ -8,23 +8,45 @@
 //   out[t] = 0                                              for t >= length
 //
 // with an exact sum (|c| < 2^15, 32 taps of int32 samples: < 2^51, so
-// int64 holds it), an arithmetic shift, and an int32 add that wraps
-// (done in unsigned arithmetic). Column 31 of coefs multiplies out[t-1].
-// One recurrence covers LPC, FIXED, CONSTANT and VERBATIM lanes.
+// int64 holds it; wider garbage wraps as in the plain form), an arithmetic
+// shift, and an int32 add that wraps (done in unsigned arithmetic). Column
+// 31 of coefs multiplies out[t-1]. One recurrence covers LPC, FIXED,
+// CONSTANT and VERBATIM lanes.
 //
-// What bounds it on this card: time is a true serial dependency, so each
-// lane is a chain of T steps of 32 int64 multiply-adds plus a shift and
-// an add; lanes are independent. The main-path bucket has only L = 1792
-// to 6912 lanes, far fewer threads than the card can keep in flight, so
-// per-lane serial latency bounds the kernel, not bandwidth or ALUs.
+// What bounds it on this card: time is a true serial dependency (the
+// `>> shift` makes each step nonlinear, so steps are not re-associated),
+// and lanes are independent. The main-path bucket has L = 6912 lanes: 216
+// warps for 132 SMs, far fewer threads than the card keeps in flight. So
+// the time is T steps times the latency of one step, unless that falls
+// below the memory floor (the bucket's x read and out write: at L 6912, T
+// 4096, 226.5 MB / 3.35 TB/s = 0.068 ms). The first design (one serial
+// chain of 32 int64 multiply-adds per step, the history shifted by 31
+// register moves, a synchronous x tile load every 32 steps) took 1.181 ms
+// there, about 570 cycles per step at 1.98 GHz.
 //
-// First design: one thread per lane and one warp per block (so more
-// blocks spread over the 132 SMs); the 32 coefficients and the 32-sample
-// history live in registers (fully unrolled, static indices). x is staged
-// through shared memory in 32 x 32 tiles so the global loads and stores
-// are coalesced (a direct per-lane read of x[l, t] would stride by T).
-// Later work: split each lane's 32 taps over several threads, fuse K3
-// (the epilogue) into the tile store.
+// This design cuts the step latency and hides the loads:
+//
+// 1. Taps per warp from the coefficients. Each lane's span is 32 minus
+//    the index of its first nonzero column; the warp's maximum
+//    (__reduce_max_sync) picks a template instance with NT in {4, 8, 12,
+//    16, 24, 32} taps. Columns below 32 - NT are zero in every lane of the
+//    warp, so the result is exact for any input the plain form takes (it
+//    multiplies all 32 columns). LPC order 8, the headline corpus, runs 8.
+// 2. A short dependency chain. The NT - 1 older taps go into four
+//    independent partial sums, ready one step early; only the out[t-1]
+//    tap, the shift, the add and two selects sit on the critical path.
+// 3. The history as a register ring. The 32 steps of a tile are unrolled
+//    fully, so the history's register indices are static and the shift
+//    register becomes renaming (at most NT moves per tile, at the loop's
+//    back edge).
+// 4. x tiles prefetched. cp.async copies the next 32 x 32 tile into the
+//    other half of a double-buffered shared tile while this one is
+//    computed; tiles load and store row by row, 128 contiguous bytes per
+//    warp instruction (coalesced).
+// 5. Tiles past the warp's longest lane (padding lanes, short frames in a
+//    wide bucket) store zeros without loading or computing.
+//
+// One thread per lane and one warp per block, as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,58 +55,197 @@ namespace {
 
 constexpr int kTaps = 32;   // ORDER_MAX
 constexpr int kLanes = 32;  // lanes per block: one warp
-constexpr int kTile = 32;   // time steps staged per tile
+constexpr int kTile = 32;   // time steps per tile
+constexpr int kStages = 2;  // x tiles in flight per warp (4 and 8 were
+                            // no faster on the H100)
+
+struct Tile {
+  int v[kLanes][kTile + 1];  // +1: conflict-free per-lane rows
+};
+
+// 4-byte asynchronous copy global -> shared; ok == false fills a zero.
+__device__ __forceinline__ void cp_async4(int* dst, const int* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// acc + a * b in one IMAD.WIDE; PTX integer adds wrap, so garbage beyond
+// int64 wraps as in the plain form.
+__device__ __forceinline__ long long mad_wide(int a, int b, long long acc) {
+  long long d;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(acc));
+  return d;
+}
+
+__device__ __forceinline__ long long add_wrap(long long a, long long b) {
+  return (long long)((unsigned long long)a + (unsigned long long)b);
+}
+
+// v - t0 clamped into [-1, kTile + 1]: the step index j of a tile where
+// a per-lane bound at time v falls, so the per-step tests are 32-bit.
+__device__ __forceinline__ int tile_rel(int v, int64_t t0) {
+  const int64_t r = (int64_t)v - t0;
+  return r < -1 ? -1 : (r > kTile + 1 ? kTile + 1 : (int)r);
+}
+
+// Queue the x tile at [t0, t0 + 32) of the block's 32 lanes: row r is lane
+// lane0 + r, thread tid copies its column.
+__device__ __forceinline__ void load_tile(Tile& tile, const int* x,
+                                          int64_t lane0, int64_t L,
+                                          int64_t T, int64_t t0, int tid) {
+  const int64_t tc = t0 + tid;
+#pragma unroll 8
+  for (int r = 0; r < kLanes; ++r) {
+    const int64_t l = lane0 + r;
+    const bool ok = l < L && tc < T;
+    cp_async4(&tile.v[r][tid], ok ? x + l * T + tc : x, ok);
+  }
+  cp_async_commit();
+}
+
+template <int NT>
+__device__ __forceinline__ void synth_warp(
+    const int* __restrict__ x, const int* __restrict__ coefs,
+    int* __restrict__ out, Tile* tiles, int64_t lane0, int64_t L, int64_t T,
+    int64_t busy, int tid, bool live, int shift, int order, int length) {
+  const int64_t lane = lane0 + tid;
+  int c[NT];
+  int h[NT];  // h[k] = out[t - NT + k]
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    c[k] = live ? coefs[lane * kTaps + kTaps - NT + k] : 0;
+    h[k] = 0;
+  }
+
+  // A ring of kStages tiles: tile i + kStages - 1 loads while tile i is
+  // computed. Every iteration commits one group (empty past the end), so
+  // waiting until kStages - 1 groups are pending means tile i landed.
+  const int64_t n_tiles = (busy + kTile - 1) / kTile;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles)
+      load_tile(tiles[s], x, lane0, L, T, (int64_t)s * kTile, tid);
+    else
+      cp_async_commit();
+  }
+  for (int64_t i = 0; i < n_tiles; ++i) {
+    Tile& cur = tiles[i % kStages];
+    const int64_t t0 = i * kTile;
+    const int64_t ahead = i + kStages - 1;
+    if (ahead < n_tiles)
+      load_tile(tiles[ahead % kStages], x, lane0, L, T, ahead * kTile, tid);
+    else
+      cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const int first = tile_rel(order, t0);  // steps j >= first predict
+    const int end = tile_rel(length, t0);   // steps j >= end give 0
+    int xr[kTile];  // this lane's row: x in, out back in place
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) xr[j] = cur.v[tid][j];
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      // Older taps: four independent sums, each ending with its newest
+      // term, so they are ready before out[t-1] is.
+      long long s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+#pragma unroll
+      for (int k = 0; k < NT - 1; ++k) {
+        if ((k & 3) == 0) s0 = mad_wide(c[k], h[k], s0);
+        else if ((k & 3) == 1) s1 = mad_wide(c[k], h[k], s1);
+        else if ((k & 3) == 2) s2 = mad_wide(c[k], h[k], s2);
+        else s3 = mad_wide(c[k], h[k], s3);
+      }
+      const long long acc = mad_wide(c[NT - 1], h[NT - 1],
+                                     add_wrap(add_wrap(s0, s1),
+                                              add_wrap(s2, s3)));
+      // The low word of acc >> shift: one funnel shift below 32, the high
+      // word's arithmetic shift above (both ready, one select).
+      const unsigned lo = (unsigned)acc;
+      const int hi = (int)(acc >> 32);
+      const unsigned pred = shift < 32 ? __funnelshift_r(lo, (unsigned)hi,
+                                                         shift)
+                                       : (unsigned)(hi >> (shift - 32));
+      const int xt = xr[j];
+      int val = j >= first ? (int)((unsigned)xt + pred) : xt;
+      if (j >= end) val = 0;
+#pragma unroll
+      for (int k = 0; k < NT - 1; ++k) h[k] = h[k + 1];
+      h[NT - 1] = val;
+      xr[j] = val;
+    }
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) cur.v[tid][j] = xr[j];
+    __syncwarp();
+    const int64_t tc = t0 + tid;
+#pragma unroll 8
+    for (int r = 0; r < kLanes; ++r) {
+      const int64_t l = lane0 + r;
+      if (l < L && tc < T) out[l * T + tc] = cur.v[r][tid];
+    }
+    __syncwarp();  // the next prefetch overwrites this half
+  }
+  // Past every lane's length: zeros, nothing to load or compute.
+  for (int64_t t0 = n_tiles * kTile; t0 < T; t0 += kTile) {
+    const int64_t tc = t0 + tid;
+    for (int r = 0; r < kLanes; ++r) {
+      const int64_t l = lane0 + r;
+      if (l < L && tc < T) out[l * T + tc] = 0;
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kLanes)
 synth_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
              const int* __restrict__ shifts, const int* __restrict__ orders,
              const int* __restrict__ lengths, int* __restrict__ out,
              int64_t L, int64_t T) {
-  __shared__ int tile[kLanes][kTile + 1];  // +1: conflict-free columns
+  __shared__ Tile tiles[kStages];
   const int tid = threadIdx.x;
   const int64_t lane0 = (int64_t)blockIdx.x * kLanes;
   const int64_t lane = lane0 + tid;
   const bool live = lane < L;
 
-  int c[kTaps];
-  int h[kTaps];
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    c[k] = live ? coefs[lane * kTaps + k] : 0;
-    h[k] = 0;
+  unsigned nonzero = 0;  // bit k: column k of this lane's coefs
+  if (live) {
+    for (int k = 0; k < kTaps; ++k)
+      nonzero |= (unsigned)(coefs[lane * kTaps + k] != 0) << k;
   }
+  const int span = nonzero ? kTaps - (__ffs(nonzero) - 1) : 0;
+  const int nt = __reduce_max_sync(0xffffffffu, span);
   const int shift = live ? (shifts[lane] & 63) : 0;
   const int order = live ? orders[lane] : 0;
   const int length = live ? lengths[lane] : 0;
+  int64_t busy = __reduce_max_sync(0xffffffffu, length);
+  busy = busy < 0 ? 0 : (busy > T ? T : busy);
 
-  for (int64_t t0 = 0; t0 < T; t0 += kTile) {
-    const int64_t tc = t0 + tid;
-    for (int r = 0; r < kLanes; ++r) {
-      const int64_t l = lane0 + r;
-      tile[r][tid] = (l < L && tc < T) ? x[l * T + tc] : 0;
-    }
-    __syncwarp();
-    for (int j = 0; j < kTile; ++j) {
-      const int64_t t = t0 + j;
-      long long acc = 0;
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k) acc += (long long)c[k] * h[k];
-      const int xt = tile[tid][j];
-      const unsigned pred = (unsigned)(unsigned long long)(acc >> shift);
-      int val = t >= order ? (int)((unsigned)xt + pred) : xt;
-      if (t >= length) val = 0;
-#pragma unroll
-      for (int k = 0; k < kTaps - 1; ++k) h[k] = h[k + 1];
-      h[kTaps - 1] = val;
-      tile[tid][j] = val;
-    }
-    __syncwarp();
-    for (int r = 0; r < kLanes; ++r) {
-      const int64_t l = lane0 + r;
-      if (l < L && tc < T) out[l * T + tc] = tile[r][tid];
-    }
-    __syncwarp();
-  }
+  if (nt <= 4)
+    synth_warp<4>(x, coefs, out, tiles, lane0, L, T, busy, tid, live, shift,
+                  order, length);
+  else if (nt <= 8)
+    synth_warp<8>(x, coefs, out, tiles, lane0, L, T, busy, tid, live, shift,
+                  order, length);
+  else if (nt <= 12)
+    synth_warp<12>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
+                   shift, order, length);
+  else if (nt <= 16)
+    synth_warp<16>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
+                   shift, order, length);
+  else if (nt <= 24)
+    synth_warp<24>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
+                   shift, order, length);
+  else
+    synth_warp<32>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
+                   shift, order, length);
 }
 
 }  // namespace

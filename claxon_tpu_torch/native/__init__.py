@@ -1,0 +1,12 @@
+"""The port's C++ host core (a copy of ``claxon_tpu.native``).
+
+Loads ``libclaxon_demux.so`` via ctypes, building it with g++ on first use
+(``python -m claxon_tpu_torch.native.build``); ``available()`` returns
+False when it cannot be built or loaded.
+"""
+
+from .binding import (available, extract_stream_bits, extract_frames_bits,
+                      BitsBatch, crc16_bytes, decode_stream_scalar)
+
+__all__ = ["available", "extract_stream_bits", "extract_frames_bits",
+           "BitsBatch", "crc16_bytes", "decode_stream_scalar"]

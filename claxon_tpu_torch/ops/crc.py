@@ -11,8 +11,7 @@ to ``[0, 4W]`` and ``end`` to ``[start, 4W]``.
 import numpy as np
 import torch
 
-from claxon_tpu.crc import CRC16_TABLE
-
+from ..crc import CRC16_TABLE
 from . import _build
 from ._checks import on_cpu, require_cuda_int32
 

@@ -22,8 +22,7 @@ hits in order, then checks one candidate per thread with a table CRC.
 import numpy as np
 import torch
 
-from claxon_tpu.crc import CRC8_TABLE
-
+from ..crc import CRC8_TABLE
 from . import _build
 from ._checks import on_cpu, require_cuda_int32
 

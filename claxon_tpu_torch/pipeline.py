@@ -2,7 +2,8 @@
 (counterpart of ``claxon_tpu.pipeline``).
 
 ``decode_streams_device`` walks every stream once on the host with the
-shared C++ core (frame CRC-16 checks deferred to the device), plans the
+port's copy of the C++ core (frame CRC-16 checks deferred to the device;
+a stream of ``MAX_BATCH_BYTES`` or more in chunks of frames), plans the
 batch into fixed (L, T) buckets (``pipeline_bits``), and runs the
 hand-written kernels on ``device``. With ``segmentation="device"`` the
 card finds the frames and walks the subframes itself instead
@@ -21,6 +22,8 @@ from typing import List
 import numpy as np
 import torch
 
+from .error import fmt_err
+
 __all__ = ["decode_stream", "decode_streams", "decode_streams_device",
            "decode_streams_device_async", "decode_streams_pipelined",
            "extract_streams_bits", "merge_decoded", "DeviceDecoded",
@@ -36,7 +39,6 @@ _L_QUANTUM = 128  # lane-axis padding quantum (kept from the JAX package)
 def bucket_shape(n_lanes, block_size, lane_quantum=_L_QUANTUM):
     """The padded (L, T) shape for a group of subframes."""
     if block_size > _T_BUCKETS[-1]:
-        from claxon_tpu.error import fmt_err
         fmt_err("invalid block size, exceeds 65535")
     for t in _T_BUCKETS:
         if block_size <= t:
@@ -111,8 +113,6 @@ class DeviceDecoded:
         """Raise FormatError "frame CRC mismatch" if the device verifier
         flagged a frame. A mismatch latches: every later verify_crc(),
         sync() or to_host() on this batch raises again."""
-        from claxon_tpu.error import fmt_err
-
         if self.crc_check is None:
             return
         if self.crc_check == "failed":
@@ -191,12 +191,13 @@ class DeviceDecoded:
 
 
 def _native():
-    from claxon_tpu import native
+    from . import native
 
     if not native.available():
         raise RuntimeError(
-            "claxon_tpu_torch needs the C++ host core (claxon_tpu.native); "
-            "build it with python -m claxon_tpu.native.build")
+            "claxon_tpu_torch needs its C++ host core "
+            "(claxon_tpu_torch.native); build it with python -m "
+            "claxon_tpu_torch.native.build")
     return native
 
 
@@ -205,17 +206,39 @@ def merge_decoded(n_streams, parts):
     of ``(stream_indices, DeviceDecoded)``: part stream j is batch stream
     ``stream_indices[j]``. Dispatches and lane plans are concatenated with
     their stream indices remapped, and every part's CRC dispatches are
-    kept. A later part's result overwrites an earlier one's."""
+    kept. Part streams without a result (None) are skipped; several that
+    land on one batch stream (the chunks of a large stream, in stream
+    order) concatenate into one result, their lane plans shifted by the
+    samples before them."""
+    pieces = [[] for _ in range(n_streams)]
+    for p, (idx, dd) in enumerate(parts):
+        for j, i in enumerate(idx):
+            if dd.results[j] is not None:
+                pieces[i].append((p, j))
     results, pcms = [None] * n_streams, [None] * n_streams
+    shift = {}  # (part, part stream) -> first output sample in its stream
+    for i, got in enumerate(pieces):
+        rs = [parts[p][1].results[j] for p, j in got]
+        if len(rs) == 1:
+            (p, j), = got
+            results[i], pcms[i] = rs[0], parts[p][1]._pcms[j]
+            continue
+        off = 0
+        for key, r in zip(got, rs):
+            shift[key] = off
+            off += len(r.pcm)
+        if rs:
+            pcms[i] = np.zeros((off, rs[0].pcm.shape[1]), dtype=np.int32)
+            results[i] = DecodedStream(
+                streaminfo=rs[0].streaminfo, pcm=pcms[i],
+                frame_times=[t for r in rs for t in r.frame_times],
+                frame_sizes=[b for r in rs for b in r.frame_sizes])
     dispatches, plans, crc = [], [], []
     upload = 0
-    for idx, dd in parts:
-        for j, i in enumerate(idx):
-            results[i] = dd.results[j]
-            pcms[i] = dd._pcms[j]
+    for p, (idx, dd) in enumerate(parts):
         dispatches.extend(dd.dispatches)
-        plans.extend([(idx[r[0]],) + tuple(r[1:]) for r in plan]
-                     for plan in dd._plans)
+        plans.extend([(idx[r[0]], r[1] + shift.get((p, r[0]), 0))
+                      + tuple(r[2:]) for r in plan] for plan in dd._plans)
         if dd.crc_check is not None:
             crc.extend(dd.crc_check)
         upload += dd.upload_bytes
@@ -225,16 +248,16 @@ def merge_decoded(n_streams, parts):
     return out
 
 
-def _split_batch(datas, limit):
-    """Runs of consecutive stream indices whose byte totals stay below
-    ``limit``; a stream of ``limit`` bytes or more is a run of its own."""
+def _split_batch(sizes, limit):
+    """Runs of consecutive indices whose ``sizes`` total stays below
+    ``limit``; an item of ``limit`` or more is a run of its own."""
     runs, run, size = [], [], 0
-    for i, d in enumerate(datas):
-        if run and size + len(d) >= limit:
+    for i, n in enumerate(sizes):
+        if run and size + n >= limit:
             runs.append(run)
             run, size = [], 0
         run.append(i)
-        size += len(d)
+        size += n
     if run:
         runs.append(run)
     return runs
@@ -243,7 +266,9 @@ def _split_batch(datas, limit):
 def extract_streams_bits(datas, native):
     """Walk every stream of a batch with the C++ core: frame boundaries,
     descriptors and chunk bases, the frame CRC-16 checks deferred to the
-    device. Returns [(streaminfo, BitsBatch), ...]."""
+    device. Returns [(streaminfo, BitsBatch), ...] for one plan, so the
+    batch stays below ``MAX_BATCH_BYTES`` (``decode_streams_device``
+    splits larger batches and walks large streams in chunks)."""
     from .pipeline_bits import MAX_BATCH_BYTES
 
     total = sum(len(d) for d in datas)
@@ -251,25 +276,95 @@ def extract_streams_bits(datas, native):
         raise ValueError(
             f"claxon_tpu_torch: a batch of {total} bytes reaches the "
             f"{MAX_BATCH_BYTES}-byte limit of int32 chunk bit positions; "
-            "decode it in smaller batches")
+            "plan it in smaller batches")
     return [native.extract_stream_bits(d, emit_slots=False, defer_crc=True)
             for d in datas]
 
 
+def _frame_bound(si):
+    """Bytes one frame of the stream can take: STREAMINFO's maximum frame
+    size, or where that is unknown a verbatim frame (side channels carry
+    one bit more) with its header and footer."""
+    if si.max_frame_size:
+        return si.max_frame_size
+    return (si.max_block_size * si.channels * (si.bits_per_sample + 1)
+            + 7) // 8 + 64 + 2 * si.channels
+
+
+def _walk_chunks(data, native, limit):
+    """Walk one stream of ``limit`` bytes or more in chunks of whole
+    frames, each below ``limit`` bytes: the frame count per chunk comes
+    from STREAMINFO (:func:`_frame_bound`) and halves for a chunk that
+    overruns. Each chunk's bases and frame spans are relative to its own
+    payload, so they stay inside int32. Returns (streaminfo, [BitsBatch,
+    ...]). Before a walk error or a frame whose channel count disagrees
+    with STREAMINFO surfaces, the deferred CRCs of the chunks before it
+    are verified on the host, so an earlier CRC mismatch wins, as in
+    sequential decode."""
+    from .error import Error
+    from .native.binding import _read_metadata
+    from .pipeline_bits import _host_verify_deferred
+
+    si, pos = _read_metadata(data)
+    payload = memoryview(data)[pos:]
+    budget = limit - 5  # a chunk's padded words stay below the limit
+    per_chunk = max(1, budget // _frame_bound(si))
+    chunks, off = [], 0
+    try:
+        while off < len(payload):
+            used = []
+            bb = native.extract_frames_bits(
+                payload[off:], emit_slots=False, max_frames=per_chunk,
+                consumed=used, defer_crc=True)
+            if used[0] > budget and per_chunk > 1:
+                per_chunk //= 2
+                continue
+            if not len(bb.bframes):
+                break  # a clean end of stream (0 or 1 trailing bytes)
+            bb.payload = payload[off:off + used[0]]
+            chunks.append(bb)
+            off += used[0]
+    except Error:
+        for bb in chunks:
+            _host_verify_deferred(bb, len(bb.bframes))
+        raise
+    # The planner raises the channel-count error, after the deferred CRCs
+    # of the frames before it in that chunk; these are the chunks before.
+    bad = [k for k, bb in enumerate(chunks)
+           if (bb.bframes["channels"] != si.channels).any()]
+    for bb in chunks[:bad[0] if bad else 0]:
+        _host_verify_deferred(bb, len(bb.bframes))
+    return si, chunks
+
+
 def _decode_host_walk(datas, lane_quantum, device):
-    """The host-walk bits path. A batch of ``MAX_BATCH_BYTES`` or more is
-    split at stream boundaries into sub-batches below it (chunk bases are
-    int32 bit positions into one sub-batch's upload), and their results
-    merge; a single stream that large still raises ValueError."""
+    """The host-walk bits path. Chunk bases are int32 bit positions into
+    one plan's upload, so a batch of ``MAX_BATCH_BYTES`` or more is
+    planned as runs below it: every stream is walked first (a stream that
+    large in chunks of frames, :func:`_walk_chunks`), the walked units are
+    split into runs, and the runs' results merge, a large stream's chunks
+    concatenating back into its one result."""
     from . import pipeline_bits
 
-    runs = _split_batch(datas, pipeline_bits.MAX_BATCH_BYTES)
-    parts = []
-    for run in runs:
-        braws = extract_streams_bits([datas[i] for i in run], _native())
-        parts.append((run, pipeline_bits.decode_raw_bits_device(
-            braws, lane_quantum, device=device)))
-    if len(parts) == 1:
+    limit = pipeline_bits.MAX_BATCH_BYTES
+    native = _native()
+    braws, owners, sizes = [], [], []
+    for i, d in enumerate(datas):
+        if len(d) < limit:
+            braws.append(native.extract_stream_bits(d, emit_slots=False,
+                                                    defer_crc=True))
+            owners.append(i)
+            sizes.append(len(d))
+            continue
+        si, chunks = _walk_chunks(d, native, limit)
+        for bb in chunks:
+            braws.append((si, bb))
+            owners.append(i)
+            sizes.append(len(bb.payload) + 4)
+    parts = [([owners[u] for u in run], pipeline_bits.decode_raw_bits_device(
+        [braws[u] for u in run], lane_quantum, device=device))
+        for run in _split_batch(sizes, limit)]
+    if len(parts) == 1 and len(braws) == len(datas):
         return parts[0][1]
     return merge_decoded(len(datas), parts)
 

@@ -1,8 +1,8 @@
 """Bits-path device pipeline of the port: residual bits in, PCM out
 (counterpart of ``claxon_tpu.pipeline_bits``, stream mode).
 
-The C++ boundary walk (``claxon_tpu.native.extract_stream_bits``, shared
-with the JAX package) ships each stream's frame-section bytes and per-lane
+The C++ boundary walk (``native.extract_stream_bits``, the port's copy
+of the JAX package's core) ships each stream's frame-section bytes and per-lane
 descriptors. :func:`plan_raw_bits` turns them, in numpy alone, into the
 device uploads: one stream of big-endian int32 words for the batch, one
 packed int32 ``mb`` array per (T, nch) bucket (the ``_MB_FIXED`` layout
@@ -21,8 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from claxon_tpu.error import fmt_err
-
+from .error import fmt_err
 from .ops.crc import crc16_ranges
 from .ops.entropy import decode_residual_bits_stream
 from .ops.epilogue import apply_epilogue
@@ -63,7 +62,8 @@ def _mb_width(nc, p):
 
 
 #: chunk bases are int32 bit positions into the batch's stream upload, so
-#: a batch stays below this many bytes (checked in extract_streams_bits).
+#: one plan stays below this many bytes (``pipeline._decode_host_walk``
+#: splits a larger batch into runs and walks a larger stream in chunks).
 MAX_BATCH_BYTES = 1 << 27
 
 #: stream upload quantum (words) above the power-of-two classes.
@@ -85,7 +85,7 @@ def _host_verify_deferred(bb, before_idx):
     """Re-verify deferred frame CRCs preceding frame ``before_idx`` on the
     host (cold path: runs only when another error is about to surface, so
     that an earlier CRC mismatch wins, as in sequential decode)."""
-    from claxon_tpu import native
+    from . import native
 
     bf = bb.bframes[:before_idx]
     payload = memoryview(bb.payload)

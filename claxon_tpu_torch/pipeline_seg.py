@@ -31,8 +31,6 @@ import time
 import numpy as np
 import torch
 
-from claxon_tpu.pipeline_seg import _si_key
-
 __all__ = ["decode_streams_segmented", "begin_segmented",
            "finish_segmented"]
 
@@ -44,6 +42,21 @@ __all__ = ["decode_streams_segmented", "begin_segmented",
 #: MD5 are never cached, and a group overflow is not cached.
 _REJECT_CACHE = set()
 _REJECT_CACHE_CAP = 1 << 16
+
+
+def _si_key(si, n_bytes):
+    """The routing-memo key of a stream (``claxon_tpu.pipeline_seg.
+    _si_key``), or None for a stream without a stored MD5."""
+    md5 = si.md5sum
+    if not md5 or md5 == b"\x00" * 16:
+        return None
+    # The rejection is a property of the ENCODE, not the audio, and the
+    # PCM MD5 alone is shared by every encode of the same PCM. Block
+    # sizes + the exact stream length separate encodes in practice (a
+    # different rice/partition/LPC config virtually never produces the
+    # same byte count); a residual collision only costs routing (the
+    # host fallback is bit-exact), never correctness.
+    return (md5, si.min_block_size, si.max_block_size, n_bytes)
 
 
 class _Stages:
@@ -94,10 +107,8 @@ def begin_segmented(datas, lane_quantum=None, device="cuda"):
     pending batch for :func:`finish_segmented`, or None when the batch
     cannot ride the device demux at all (the caller takes the host walk).
     """
-    from claxon_tpu import native
-    from claxon_tpu.native.binding import _read_metadata
-
-    from . import pipeline_bits
+    from . import native, pipeline_bits
+    from .native.binding import _read_metadata
     from .ops.seg_parse import fused_demux_async
     from .pipeline import _L_QUANTUM, _T_BUCKETS
 

@@ -53,6 +53,42 @@ def test_synthesize_kernel_matches_plain(cuda):
     assert torch.equal(got, predict.synthesize_plain(*args))
 
 
+def _synth_args(rng, L, T, orders, col0=False, short=False):
+    x = rng.integers(-(1 << 31), 1 << 31, (L, T), dtype=np.int64)
+    coefs = rng.integers(-(1 << 15) + 1, 1 << 15, (L, 32))
+    if col0:
+        coefs[:, 1:] = 0
+    else:
+        coefs[np.arange(32)[None, :] < 32 - orders[:, None]] = 0
+    lengths = rng.integers(0, T, L) if short else np.full(L, T)
+    return x, coefs, rng.integers(0, 32, L), orders, lengths
+
+
+@pytest.mark.parametrize("case", [
+    "mixed_tap_classes", "column0_only", "T1", "T192", "T1152", "T4096",
+    "T4608"])
+def test_synthesize_kernel_tap_classes(cuda, case):
+    """The tap count each warp takes from its coefficients: a warp whose
+    lanes need every class (orders 0, 1, 4, 8, 12, 32), coefficients
+    nonzero only in column 0 (the warp must take all 32 taps), and T from
+    1 to 4608 with L = 100 (not a multiple of 32) and lengths below T."""
+    from claxon_tpu_torch.ops import predict
+
+    rng = np.random.default_rng(11)
+    if case == "mixed_tap_classes":
+        args = _synth_args(rng, 64, 1152,
+                           np.resize(np.array([0, 1, 4, 8, 12, 32]), 64))
+    elif case == "column0_only":
+        args = _synth_args(rng, 100, 576, rng.integers(0, 33, 100),
+                           col0=True)
+    else:
+        args = _synth_args(rng, 100, int(case[1:]),
+                           rng.integers(0, 33, 100), short=True)
+    args = [_c(a, cuda) for a in args]
+    assert torch.equal(predict.synthesize(*args),
+                       predict.synthesize_plain(*args))
+
+
 def test_entropy_kernel_matches_plain_on_garbage(cuda):
     from claxon_tpu_torch.ops import entropy
 
@@ -120,10 +156,11 @@ def fuzzed_streams(n=24, seed=7):
 
 
 def assert_decodes_like_scalar(datas, device, segmentation=None):
-    """Each stream decodes to the scalar decoder's PCM, or raises
-    claxon_tpu.Error where the scalar decoder does; nothing else."""
+    """Each stream decodes to the scalar decoder's PCM, or raises the
+    port's Error where the JAX package's scalar decoder raises its own;
+    nothing else."""
     import claxon_tpu_torch as ct
-    from claxon_tpu.error import Error
+    from claxon_tpu.error import Error as RefError
 
     def decode(data):
         return ct.decode_streams_device([data], segmentation=segmentation,
@@ -132,10 +169,10 @@ def assert_decodes_like_scalar(datas, device, segmentation=None):
     for data in datas:
         try:
             want = native.decode_stream_scalar(data)[1]
-        except Error:
+        except RefError:
             want = None
         if want is None:
-            with pytest.raises(Error):
+            with pytest.raises(ct.Error):
                 decode(data)
         else:
             assert np.array_equal(decode(data), want)

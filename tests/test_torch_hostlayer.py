@@ -1,0 +1,162 @@
+"""The port's own copy of the host layer (``claxon_tpu_torch.native``,
+``metadata``, ``error`` and ``testing``) against the JAX package's
+originals: the C++ boundary walk field by field, the scalar decoder, the
+bulk CRC-16 and the metadata parse on the generated corpus and encoded
+streams; the encoder byte for byte; and the errors of malformed inputs by
+class name and message. Equality is exact."""
+
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+
+from claxon_tpu import native as jnative
+from claxon_tpu import testing as jtesting
+from claxon_tpu.error import Error as RefError
+from claxon_tpu.native.binding import _read_metadata as j_read_metadata
+
+import claxon_tpu_torch as ct
+from claxon_tpu_torch import native as tnative
+from claxon_tpu_torch import testing as ttesting
+from claxon_tpu_torch.native.binding import _read_metadata as t_read_metadata
+
+pytestmark = pytest.mark.skipif(
+    not (jnative.available() and tnative.available()),
+    reason="native core not built")
+
+GENERATED = pathlib.Path(__file__).resolve().parents[1] / "testsamples" / \
+    "generated"
+ENCODED = {
+    "encoded_lpc12_1152": dict(block_size=1152, max_lpc_order=12,
+                               partition_order=4),
+    "encoded_fixed_rice2": dict(block_size=4096, force_subframe="fixed",
+                                rice2=True, partition_order=3),
+}
+STREAMS = sorted(p.name for p in GENERATED.glob("*.flac")) + sorted(ENCODED)
+
+
+def _stream(name):
+    if name in ENCODED:
+        pcm = jtesting.synth_music(6000, channels=2, bps=16,
+                                   seed=len(name))
+        return jtesting.encode_flac(pcm, 44100, 16, **ENCODED[name])
+    return (GENERATED / name).read_bytes()
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_boundary_walk_matches_jax(name):
+    """extract_stream_bits, as the port calls it and with the defaults:
+    every frame and subframe record, the Rice parameters, the code
+    lengths, the chunk bases and the samples of fallback frames are
+    equal. (The slot words are not compared: the core leaves the words of
+    chunks without codes unwritten, and the port never asks for slots.)"""
+    data = _stream(name)
+    for kw in (dict(emit_slots=False, defer_crc=True), {}):
+        jsi, jbb = jnative.extract_stream_bits(data, **kw)
+        tsi, tbb = tnative.extract_stream_bits(data, **kw)
+        assert dataclasses.astuple(jsi) == dataclasses.astuple(tsi)
+        assert jbb.bframes.dtype == tbb.bframes.dtype
+        assert jbb.bsubs.dtype == tbb.bsubs.dtype
+        for field in ("bframes", "bsubs", "ks", "bases", "deltas",
+                      "samples"):
+            assert np.array_equal(getattr(jbb, field),
+                                  getattr(tbb, field)), field
+        assert bytes(jbb.payload) == bytes(tbb.payload)
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_scalar_decode_and_metadata_match_jax(name):
+    data = _stream(name)
+    jsi, jpos = j_read_metadata(data)
+    tsi, tpos = t_read_metadata(data)
+    assert jpos == tpos
+    assert dataclasses.astuple(jsi) == dataclasses.astuple(tsi)
+    _jsi, jpcm = jnative.decode_stream_scalar(data)
+    _tsi, tpcm = tnative.decode_stream_scalar(data)
+    assert np.array_equal(jpcm, tpcm)
+    if tsi.md5sum != b"\x00" * 16:
+        assert ttesting.pcm_md5(tpcm, tsi.bits_per_sample) == tsi.md5sum
+
+
+def test_crc16_bytes_matches_jax():
+    rng = np.random.default_rng(12)
+    for n in (0, 1, 7, 8, 9, 100, 4099):
+        raw = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert tnative.crc16_bytes(raw) == jnative.crc16_bytes(raw)
+
+
+SPECS = [
+    dict(n=3000, channels=2, bps=16, seed=1, kw=dict(block_size=1152)),
+    dict(n=2500, channels=1, bps=24, seed=2,
+         kw=dict(block_size=576, max_lpc_order=12, partition_order=3,
+                 rice2=True, tags=[("TITLE", "x")])),
+    dict(n=2000, channels=6, bps=8, seed=3,
+         kw=dict(block_size=1000, force_subframe="fixed",
+                 variable_blocking=True, padding=7)),
+]
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=["stereo16", "mono24",
+                                             "six8_variable"])
+def test_encoder_is_byte_identical(spec):
+    jpcm = jtesting.synth_music(spec["n"], channels=spec["channels"],
+                                bps=spec["bps"], seed=spec["seed"])
+    tpcm = ttesting.synth_music(spec["n"], channels=spec["channels"],
+                                bps=spec["bps"], seed=spec["seed"])
+    assert np.array_equal(jpcm, tpcm)
+    jdata = jtesting.encode_flac(jpcm, 44100, spec["bps"], **spec["kw"])
+    tdata = ttesting.encode_flac(tpcm, 44100, spec["bps"], **spec["kw"])
+    assert jdata == tdata
+    assert ttesting.pcm_md5(tpcm, spec["bps"]) == \
+        jtesting.pcm_md5(jpcm, spec["bps"])
+
+
+def _valid():
+    return _stream("encoded_lpc12_1152")
+
+
+def _bad_magic():
+    return b"garbage!" + _valid()[8:]
+
+
+def _id3_prefix():
+    return b"ID3\x03\x00\x00\x00\x00\x00\x00" + _valid()
+
+
+def _truncated_streaminfo():
+    return _valid()[:20]
+
+
+def _bad_block_size():
+    data = bytearray(_valid())
+    data[8:10] = (8).to_bytes(2, "big")  # STREAMINFO min block size 8
+    return bytes(data)
+
+
+def _corrupt_frame_crc():
+    data = _valid()
+    _si, bb = jnative.extract_stream_bits(data, emit_slots=False)
+    bad = bytearray(data)
+    bad[j_read_metadata(data)[1] + int(bb.bframes[1]["byte1"]) - 1] ^= 0xFF
+    return bytes(bad)
+
+
+MALFORMED = [_bad_magic, _id3_prefix, _truncated_streaminfo, _bad_block_size,
+             _corrupt_frame_crc]
+
+
+@pytest.mark.parametrize("make", MALFORMED, ids=lambda f: f.__name__[1:])
+def test_malformed_inputs_raise_the_same_errors(make):
+    """The port's scalar decoder and its device path (on the CPU) raise
+    an error of the JAX package's class name, with its message."""
+    data = make()
+    with pytest.raises(RefError) as ref:
+        jnative.decode_stream_scalar(data)
+    with pytest.raises(ct.Error) as scalar:
+        tnative.decode_stream_scalar(data)
+    with pytest.raises(ct.Error) as device:
+        ct.decode_streams_device([data], device="cpu").to_host()
+    for got in (scalar.value, device.value):
+        assert type(got).__name__ == type(ref.value).__name__
+        assert str(got) == str(ref.value)

@@ -1,7 +1,9 @@
-"""The port runs where JAX is not installed (as on the machine with the
-card): in a fresh interpreter whose imports of ``jax``/``jaxlib`` fail,
-``claxon_tpu_torch`` and ``chip_smoke`` import, and small streams decode
-on the CPU bit-exactly through the host-walk and the segmented paths."""
+"""The port runs where neither JAX nor the JAX package is importable (as
+on the machine with the card): in a fresh interpreter whose imports of
+``jax``/``jaxlib`` and of ``claxon_tpu`` fail (the top-level name exactly,
+not ``claxon_tpu_torch``), ``claxon_tpu_torch`` and ``chip_smoke`` import,
+the port's own encoder and C++ core work, and small streams decode on the
+CPU bit-exactly through the host-walk and the segmented paths."""
 
 import pathlib
 import subprocess
@@ -17,10 +19,12 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 _SCRIPT = textwrap.dedent("""
     import sys
 
+    BLOCKED = ("jax", "jaxlib", "claxon_tpu")
+
     class _NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError("jax is blocked in this interpreter")
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this interpreter")
             return None
 
     sys.meta_path.insert(0, _NoJax())
@@ -28,16 +32,25 @@ _SCRIPT = textwrap.dedent("""
 
     import numpy as np
 
+    for name in BLOCKED:
+        try:
+            __import__(name)
+        except ImportError:
+            pass
+        else:
+            raise AssertionError(f"{name} was not blocked")
+
     import chip_smoke
     import claxon_tpu_torch as ct
-    from claxon_tpu import native
-    from claxon_tpu.testing import encode_flac, synth_music
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.testing import encode_flac, pcm_md5, synth_music
 
     pcm = synth_music(3000, channels=2, bps=16, seed=5)
     data = encode_flac(pcm, 44100, 16, block_size=1152)
     dec = ct.decode_stream(data, device="cpu")
     assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
     assert np.array_equal(dec.pcm, pcm)
+    assert pcm_md5(dec.pcm, 16) == dec.streaminfo.md5sum
     mono = encode_flac(pcm[:, :1], 44100, 16, block_size=576)
     dd = ct.decode_streams_device([data, mono], segmentation="device",
                                   device="cpu")
@@ -45,8 +58,13 @@ _SCRIPT = textwrap.dedent("""
     out = dd.to_host()
     assert np.array_equal(out[0].pcm, pcm)
     assert np.array_equal(out[1].pcm, pcm[:, :1])
-    loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib"))
+    try:
+        ct.decode_streams_device([data[:4] + b"!" + data[5:]], device="cpu")
+    except ct.FormatError as e:
+        assert "streaminfo" in str(e) or "metadata" in str(e), e
+    else:
+        raise AssertionError("a damaged metadata header decoded")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("NOJAX-OK")
 """)

@@ -3,6 +3,7 @@ against the JAX package and the C++ scalar decoder: byte-identical
 bucket uploads from the two planners, bit-identical PCM, and the same
 errors with the same wording. Tolerance 0 throughout."""
 
+import dataclasses
 import pathlib
 import sys
 
@@ -15,11 +16,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import claxon_tpu.pipeline as jpipe
 import claxon_tpu.pipeline_bits as jpb
 from claxon_tpu import native
-from claxon_tpu.error import Error, FormatError
+from claxon_tpu.error import Error as RefError
 from claxon_tpu.testing import encode_flac, synth_music
 
 import claxon_tpu_torch as ct
 import claxon_tpu_torch.pipeline_bits as tpb
+from claxon_tpu_torch.error import Error, FormatError
 from claxon_tpu_torch.pipeline import extract_streams_bits
 from util import pcm_md5
 
@@ -150,7 +152,9 @@ def test_slice_matches_jax_and_oracle():
         assert np.array_equal(a.pcm, b.pcm)
         assert a.frame_times == b.frame_times
         assert a.frame_sizes == b.frame_sizes
-        assert a.streaminfo == b.streaminfo
+        # Each package has its own StreamInfo class: compare the fields.
+        assert dataclasses.astuple(a.streaminfo) == \
+            dataclasses.astuple(b.streaminfo)
 
 
 def test_device_resident_api():
@@ -234,11 +238,12 @@ def test_deferred_crc_precedes_later_walk_error():
     bad[b1 - 1] ^= 0xFF             # and frame 0's CRC corrupted
     with pytest.raises(Error) as port:
         ct.decode_streams_device([bytes(bad)], device="cpu").to_host()
-    with pytest.raises(Error) as ref:
+    with pytest.raises(RefError) as ref:
         jpipe.decode_streams_device([bytes(bad)],
                                     segmentation="host").to_host()
     assert "frame CRC mismatch" in str(port.value)
-    assert type(port.value) is type(ref.value)
+    # Each package raises its own classes: compare name and message.
+    assert type(port.value).__name__ == type(ref.value).__name__
     assert str(port.value) == str(ref.value)
 
 
@@ -256,7 +261,7 @@ def test_channel_count_error_after_deferred_crc_check():
 
 def test_fuzzed_streams_decode_or_raise():
     """Damaged streams decode exactly like the scalar decoder, or raise
-    claxon_tpu.Error where it does -- never another exception."""
+    claxon_tpu_torch.Error where it raises -- never another exception."""
     from test_torch_cuda import assert_decodes_like_scalar, fuzzed_streams
 
     assert_decodes_like_scalar(fuzzed_streams(), "cpu")
@@ -268,16 +273,16 @@ def test_decode_streams_device_empty_batch():
 
 
 def test_unported_options_raise(monkeypatch):
-    """segmentation="auto" is not ported, and a single stream at the
-    2^27-byte batch limit (int32 chunk bit positions) still raises."""
+    """segmentation="auto" is not ported. A single stream at the 2^27-byte
+    batch limit (int32 chunk bit positions) no longer raises: both paths
+    walk it in chunks of frames and decode it exactly."""
     data = _configs()[1]
     with pytest.raises(NotImplementedError, match="segmentation"):
         ct.decode_streams_device([data], segmentation="auto", device="cpu")
     monkeypatch.setattr(tpb, "MAX_BATCH_BYTES", len(data))
-    with pytest.raises(ValueError, match="smaller batches"):
-        ct.decode_streams_device([data], device="cpu")
-    with pytest.raises(ValueError, match="smaller batches"):
-        ct.decode_streams_device([data], segmentation="device", device="cpu")
+    for segmentation in ("host", "device"):
+        _assert_oracle([data], ct.decode_streams_device(
+            [data], segmentation=segmentation, device="cpu").to_host())
 
 
 @pytest.mark.parametrize("segmentation", ["host", "device"])
@@ -306,6 +311,50 @@ def test_batch_above_the_byte_limit_splits(monkeypatch, segmentation):
 
     bad = datas[:1] + [_corrupt_crc(datas[1])] + datas[2:]
     dd = ct.decode_streams_device(bad, segmentation=segmentation,
+                                  device="cpu")
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.to_host()
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.sync()
+
+
+@pytest.mark.parametrize("segmentation", ["host", "device"])
+def test_single_stream_above_the_byte_limit_walks_in_chunks(monkeypatch,
+                                                            segmentation):
+    """One stream of MAX_BATCH_BYTES or more walks in chunks of whole
+    frames, decoded as runs below the limit whose PCM concatenates back:
+    equal to the unchunked decode, the scalar decoder and the JAX
+    package. A corrupted stored CRC in a middle chunk raises "frame CRC
+    mismatch", and the failure latches."""
+    from claxon_tpu.native.binding import _read_metadata
+
+    from claxon_tpu_torch import native as tnative
+    from claxon_tpu_torch.pipeline import _walk_chunks
+
+    data = _configs()[0]
+    whole = ct.decode_streams_device([data], device="cpu").to_host()[0]
+    ref = jpipe.decode_streams_device([data], segmentation="host") \
+        .to_host()[0]
+    limit = len(data) // 3
+    monkeypatch.setattr(tpb, "MAX_BATCH_BYTES", limit)
+    _si, chunks = _walk_chunks(data, tnative, limit)
+    assert len(chunks) >= 3
+    assert all(len(bb.payload) + 4 < limit for bb in chunks)
+    dd = ct.decode_streams_device([data], segmentation=segmentation,
+                                  device="cpu")
+    assert len(dd.crc_check) >= 3  # one CRC dispatch per run
+    got = dd.to_host()[0]
+    _assert_oracle([data], [got])
+    for want in (whole, ref):
+        assert np.array_equal(got.pcm, want.pcm)
+        assert got.frame_times == want.frame_times
+        assert got.frame_sizes == want.frame_sizes
+
+    _si, bb = native.extract_stream_bits(data, emit_slots=False)
+    mid = bb.bframes[len(bb.bframes) // 2]
+    bad = bytearray(data)
+    bad[_read_metadata(data)[1] + int(mid["byte1"]) - 1] ^= 0xFF
+    dd = ct.decode_streams_device([bytes(bad)], segmentation=segmentation,
                                   device="cpu")
     with pytest.raises(FormatError, match="frame CRC mismatch"):
         dd.to_host()

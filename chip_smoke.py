@@ -17,33 +17,56 @@ Phases, each of which raises on failure (so the script exits non-zero):
       bucket of the mixed corpus, plus K1 edge cases and the cases of its
       tap classes (a warp mixing orders 0, 1, 4, 8, 12 and 32;
       coefficients only in column 0; T from 1 to 4608 with 100 lanes and
-      lengths below T); then K5 sync scan,
+      lengths below T); K3b int16 pack and unpack on the decoded output
+      of the headline bucket and of every mixed bucket that packs, plus
+      their edge cases (the int16 boundaries, int32 extremes, one
+      out-of-range value in the last column of the last lane, per-lane
+      flags, T = 2, pack -> unpack); K3 (torch ops, held to its CPU
+      result) and the mb unpack timed alone there; then K5 sync scan,
       K6 fused-demux body (bswap, header fields and compaction, summary),
       K7 subframe walk and K8 values gather on every group the segmented
       path builds for the headline and mixed corpora, and on every K8
-      dispatch of those decodes;
+      dispatch of those decodes, and K4 on the segmented groups' ranges;
   (c) decode the headline corpus (8 x 10 s of 16-bit 44.1 kHz stereo,
       block size 4096, seeds 1000-1007, replicated x4 into one batch of
       32 streams), the mixed corpus (8 specs, seeds 2000-2007) and
       ``testsamples/generated/*.flac`` through the public calls with
       device="cuda", on the host-walk path and on the segmented path
       (segmentation="device"), and hold every PCM to the C++ scalar
-      decoder and the STREAMINFO MD5; each path's kernel launch counts
-      are reset just before its headline decode and read just after it;
-      the segmented headline decode must not fall back, and the mixed
-      24-bit and generated 6-channel streams must;
+      decoder and the STREAMINFO MD5; the PCM comes to the host through
+      the int16 transfer (K3b pack at fetch time; the buckets that packed
+      and the bytes copied back are printed, 56,623,104 for the headline
+      bucket), and a damaged 16-bit stream whose garbage leaves int16
+      (its frame CRC repaired) must set the overflow flag and come back
+      through the int32 refetch with the scalar decoder's PCM; each
+      path's kernel launch counts are reset just before its headline
+      decode and read just after it; sync(), device_buckets() and
+      lane_plans() must launch no K3b kernel; the segmented headline
+      decode must not fall back, and the mixed 24-bit and generated
+      6-channel streams must;
   (d) corrupt one stored frame CRC byte: the decode must raise
       claxon_tpu_torch.Error "frame CRC mismatch", which only K4 can
       detect, on both paths;
   (e) time the device-resident and to-host decode of the headline batch
-      on both paths, with the segmented path's host stages;
+      on both paths, with the segmented path's host stages; split the
+      to-host tail into the pack-and-copy wait and the host scatter, with
+      the int16 transfer and with it switched off; and take the card's
+      idle share of one device-resident decode per path from
+      torch.profiler;
   (f) decode one stream of at least 2^27 bytes (8 channels of 24-bit
       audio, FIXED subframes) on both paths: it walks in chunks of frames
       below the int32 limit, bit-exact against the scalar decoder and the
-      STREAMINFO MD5.
+      STREAMINFO MD5;
+  (g) mux each of the 8 headline streams, and the mixed 24-bit stream
+      (whose bucket must not pack), into Ogg and into MP4 (3 frames per
+      chunk) and decode them with decode_ogg_stream / decode_mp4_stream
+      on the card: PCM equal to the scalar decoder's and the MD5; one
+      corrupted Ogg page CRC and one short MP4 chunk must raise the
+      reference's errors.
 
 The last three lines are the kernels' JSON summary (time, plain time,
-bound and launches of each), the card's name and power limit, and the
+bound and launches of each; K3 and the mb unpack, which are torch ops,
+under "torch_ops"), the card's name and power limit, and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result. It imports neither JAX nor
 the JAX package: the encoder, the C++ core and the errors are the
@@ -80,6 +103,7 @@ MIXED_SPECS = [
          partition_order=2),
 ]
 TIMED_RUNS = 5
+#: every phase runs on the card.
 DEVICE = "cuda"
 #: phase (f): one stream of at least this many bytes (the port's
 #: MAX_BATCH_BYTES), 8 channels of 24-bit 96 kHz audio in FIXED subframes
@@ -213,13 +237,19 @@ def phase_b(datas4, mixed):
     import numpy as np
     import torch
 
-    from claxon_tpu_torch import native
-    from claxon_tpu_torch.ops import crc, entropy, predict
+    from claxon_tpu_torch import native, pipeline_bits
+    from claxon_tpu_torch.ops import crc, entropy, epilogue, predict
     from claxon_tpu_torch.pipeline import extract_streams_bits
     from claxon_tpu_torch.pipeline_bits import (inputs_from_numpy,
                                                 plan_raw_bits, unpack_mb)
 
-    rows, bounds = {}, {}
+    def lib_unpack(w):
+        return w.view(torch.int16).to(torch.int32)
+
+    def lib_pack_words(o):
+        return o.to(torch.int16).view(torch.int32)
+
+    rows, bounds, library = {}, {}, {}
     for label, datas in (("headline", datas4), ("mixed", mixed)):
         bp = plan_raw_bits(extract_streams_bits(datas, native), 128)
         for bi, b in enumerate(bp.bits):
@@ -245,8 +275,100 @@ def phase_b(datas4, mixed):
             log(f"(b) {label} bucket {bi} {shape}: K2 == plain "
                 f"({r2[1]:.3f} ms vs {r2[2]:.1f} ms), K1 == plain "
                 f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms)")
+            # K3 (torch ops) on K1's output, then K3b on K3's: the bucket
+            # as start_fetch() packs it, and the packed words unpacked (a
+            # fallback bucket's upload at this bucket's size).
+            y = predict.synthesize(*k1_args)
+            k3_args = (y, u["wasted"], u["pair_modes"])
+            out = epilogue.apply_epilogue(*k3_args)
+            rp = ru = None
+            if b.out_packed:
+                rp = compare(f"K3b pack {label}[{bi}] {shape}",
+                             lambda: epilogue.pack_int16_pairs(out),
+                             lambda: epilogue.pack_int16_pairs_plain(out))
+                compare(f"K3b pack per lane {label}[{bi}]",
+                        lambda: epilogue.pack_int16_pairs(out, True),
+                        lambda: epilogue.pack_int16_pairs_plain(out, True),
+                        1)
+                words, flag = epilogue.pack_int16_pairs(out)
+                if int(flag) or not torch.equal(
+                        epilogue.unpack_int16_pairs(words), out):
+                    raise AssertionError(f"K3b {label}[{bi}]: the 16-bit "
+                                         "bucket does not survive pack -> "
+                                         "unpack")
+                ru = compare(f"K3b unpack {label}[{bi}] {shape}",
+                             lambda: epilogue.unpack_int16_pairs(words),
+                             lambda: epilogue.unpack_int16_pairs_plain(
+                                 words))
+                # One PyTorch cast computes each function on a
+                # little-endian host: held equal here, timed on the
+                # headline bucket below, used nowhere in the port.
+                if not (torch.equal(lib_unpack(words), out) and torch.equal(
+                        lib_pack_words(out), words)):
+                    raise AssertionError(f"K3b {label}[{bi}]: the library "
+                                         "casts != the kernels")
+                log(f"(b) {label} bucket {bi} {shape}: K3b pack == plain "
+                    f"({rp[1]:.3f} ms vs {rp[2]:.2f} ms), unpack == plain "
+                    f"({ru[1]:.3f} ms vs {ru[2]:.2f} ms), flag 0, pack -> "
+                    "unpack == the bucket")
+            else:
+                log(f"(b) {label} bucket {bi} {shape}: does not pack")
             if label == "headline" and bi == 0:
                 rows["K2"], rows["K1"] = r2, r1
+                rows["K3b_pack"], rows["K3b_unpack"] = rp, ru
+                bounds["K3b_pack"] = bound(tensor_bytes(out, words, flag))
+                bounds["K3b_unpack"] = bound(tensor_bytes(words, out))
+                library["K3b_unpack"] = cuda_ms(lambda: lib_unpack(words),
+                                                20)
+                # pack's words only: the overflow flag would need a second
+                # call.
+                library["K3b_pack"] = cuda_ms(lambda: lib_pack_words(out),
+                                              20)
+                log(f"(b) headline bucket: library casts == K3b; "
+                    f"w.view(int16).to(int32) "
+                    f"{library['K3b_unpack']:.3f} ms, "
+                    "out.to(int16).view(int32) (no flag) "
+                    f"{library['K3b_pack']:.3f} ms")
+                # K3 is the same torch ops on either device: hold the
+                # card's result to the CPU's on this bucket.
+                if not torch.equal(out.cpu(), epilogue.apply_epilogue(
+                        *(t.cpu() for t in k3_args))):
+                    raise AssertionError("K3: the card's result != the "
+                                         "CPU's")
+                k3_ms = cuda_ms(lambda: epilogue.apply_epilogue(*k3_args),
+                                20)
+                mb_ms = cuda_ms(lambda: unpack_mb(mb, b.n_parts_max, b.nc),
+                                20)
+                rows["K3"] = (0, k3_ms, k3_ms)
+                rows["unpack_mb"] = (0, mb_ms, mb_ms)
+                bounds["K3"] = bound(tensor_bytes(k3_args, out))
+                bounds["unpack_mb"] = bound(tensor_bytes(mb, u))
+                # The mb's int16 tail, which unpack_mb gives to K3b unpack
+                # in one launch; then the whole mb unpack with the torch-op
+                # form of the unpack in the kernel's place.
+                tail = mb[:, 36:].contiguous()
+                compare(f"K3b unpack mb tail {tuple(tail.shape)}",
+                        lambda: epilogue.unpack_int16_pairs(tail),
+                        lambda: epilogue.unpack_int16_pairs_plain(tail), 1)
+                tail_ms = cuda_ms(
+                    lambda: epilogue.unpack_int16_pairs(tail), 20)
+                rows["unpack_mb_tail_ms"] = tail_ms
+                pipeline_bits.unpack_int16_pairs = \
+                    epilogue.unpack_int16_pairs_plain
+                try:
+                    mb_ops_ms = cuda_ms(
+                        lambda: unpack_mb(mb, b.n_parts_max, b.nc), 20)
+                finally:
+                    pipeline_bits.unpack_int16_pairs = \
+                        epilogue.unpack_int16_pairs
+                rows["unpack_mb_torch_ops_ms"] = mb_ops_ms
+                log(f"(b) headline bucket: K3 == its CPU result; alone "
+                    f"{k3_ms:.3f} ms (bound "
+                    f"{bounds['K3'][0]:.4f}), mb unpack alone {mb_ms:.3f} "
+                    f"ms (bound {bounds['unpack_mb'][0]:.4f}; {mb_ops_ms:.3f}"
+                    " ms with the torch-op unpack in the kernel's place), of "
+                    f"which K3b unpack, one launch on the mb tail "
+                    f"{tuple(tail.shape)}, {tail_ms:.3f} ms")
                 bounds["K2"] = bound(tensor_bytes(k2_args, x))
                 bounds["K1"] = bound(2 * tensor_bytes(x) + tensor_bytes(
                     k1_args[1:]), synth_ops(u["orders"], u["lengths"]))
@@ -334,7 +456,72 @@ def phase_b(datas4, mixed):
     for T in (1, 192, 1152, 4096, 4608):
         k1_case("ragged lanes, lengths below T", 100, T,
                 rng.integers(0, 33, 100), short=True)
-    return rows, bounds, main_shape, k4_shape
+    return rows, bounds, library, main_shape, k4_shape
+
+
+def phase_b_pack16():
+    """K3b edge cases against the plain forms, tolerance 0."""
+    import numpy as np
+    import torch
+
+    from claxon_tpu_torch.ops import epilogue
+
+    rng = np.random.default_rng(8)
+    i32 = np.iinfo(np.int32)
+
+    def quiet(L, T):
+        return rng.integers(-32768, 32768, (L, T))
+
+    cases = {}
+    x = quiet(64, 576)
+    x[:4, :4] = [[-32768, 32767, -32769, 32768]] * 4
+    cases["the int16 boundaries and one past each"] = (x, 1)
+    x = quiet(8, 4096)
+    x[0, :2] = [-32768, 32767]
+    cases["-32768 and 32767 alone"] = (x, 0)
+    x = quiet(37, 192)
+    x[5, 1], x[20, 190] = i32.max, i32.min
+    cases["int32 extremes"] = (x, 1)
+    x = quiet(6912, 4096)
+    x[-1, -1] = 32768
+    cases["one value out of range, last column of the last lane"] = (x, 1)
+    cases["T = 2"] = (np.array([[5, -7], [-32768, 32767], [0, 70000]]), 1)
+    cases["T = 6 (narrow vectors), 3 lanes"] = (
+        rng.integers(-40000, 40000, (3, 6)), None)
+    cases["garbage"] = (rng.integers(i32.min, i32.max + 1, (100, 4608),
+                                     dtype=np.int64), 1)
+    for label, (x, want_flag) in cases.items():
+        x_np = np.ascontiguousarray(x, np.int32)
+        x = torch.from_numpy(x_np).to(DEVICE)
+        for per_lane in (False, True):
+            compare(f"K3b pack, {label}",
+                    lambda: epilogue.pack_int16_pairs(x, per_lane),
+                    lambda: epilogue.pack_int16_pairs_plain(x, per_lane), 1)
+        words, flag = epilogue.pack_int16_pairs(x)
+        lanes = epilogue.pack_int16_pairs(x, per_lane=True)[1]
+        oob = (x_np > 32767) | (x_np < -32768)
+        if want_flag is not None and int(flag) != want_flag:
+            raise AssertionError(f"K3b pack, {label}: flag {int(flag)}")
+        if int(flag) != int(oob.any()) or not np.array_equal(
+                lanes.cpu().numpy() != 0, oob.any(axis=1)):
+            raise AssertionError(f"K3b pack, {label}: wrong flags")
+        compare(f"K3b unpack, {label}",
+                lambda: epilogue.unpack_int16_pairs(words),
+                lambda: epilogue.unpack_int16_pairs_plain(words), 1)
+        compare(f"K3b unpack of raw words, {label}",
+                lambda: epilogue.unpack_int16_pairs(x),
+                lambda: epilogue.unpack_int16_pairs_plain(x), 1)
+        back = epilogue.unpack_int16_pairs(words).cpu().numpy()
+        if not np.array_equal(back, x_np.astype(np.int16)):
+            raise AssertionError(f"K3b, {label}: pack -> unpack is not the "
+                                 "int16 wrap of the input")
+        if not np.array_equal(words.cpu().numpy().view(np.int16),
+                              x_np.astype(np.int16)):
+            raise AssertionError(f"K3b, {label}: the host's int16 view of "
+                                 "the words is not the input")
+        log(f"(b) K3b {label} {tuple(x_np.shape)}: pack (scalar and "
+            f"per-lane flags) and unpack == plain; flag {int(flag)}, "
+            f"{int(lanes.sum())} lane(s) flagged")
 
 
 def phase_b_seg(datas4, mixed):
@@ -344,13 +531,27 @@ def phase_b_seg(datas4, mixed):
     import torch
 
     from claxon_tpu_torch import pipeline_seg
-    from claxon_tpu_torch.ops import (demux, predict, seg_gather, seg_parse,
-                                      segment)
+    from claxon_tpu_torch.ops import (crc, demux, predict, seg_gather,
+                                      seg_parse, segment)
 
-    rows, bounds = {}, {}
+    def lib_unpack(w):
+        return w.view(torch.int16).to(torch.int32)
+
+    def lib_pack_words(o):
+        return o.to(torch.int16).view(torch.int32)
+
+    rows, bounds, library = {}, {}, {}
     for label, datas in (("headline", datas4), ("mixed", mixed)):
-        k8_calls, k1_calls = [], []
+        k8_calls, k1_calls, k4_calls = [], [], []
         dispatch = pipeline_seg._dispatch_values
+        crc16_ranges = crc.crc16_ranges
+
+        def recording_crc(stream, starts, ends):
+            k4_calls.append((stream, starts, ends))
+            return crc16_ranges(stream, starts, ends)
+
+        # The wrapper counts its launches on the module's name.
+        recording_crc.launches = 0
 
         def recording(walk, rws, lengths, modes, tb32, device):
             rows_t = torch.from_numpy(rws).to(device)
@@ -361,11 +562,30 @@ def phase_b_seg(datas4, mixed):
             return dispatch(walk, rws, lengths, modes, tb32, device)
 
         pipeline_seg._dispatch_values = recording
+        crc.crc16_ranges = recording_crc
         try:
             pending = pipeline_seg.begin_segmented(datas, device=DEVICE)
             pipeline_seg.finish_segmented(pending).sync()
         finally:
             pipeline_seg._dispatch_values = dispatch
+            crc.crc16_ranges = crc16_ranges
+        if not k4_calls:
+            raise AssertionError(f"{label}: the segmented decode ran no K4")
+        for gi, (stream, starts, ends) in enumerate(k4_calls):
+            r4 = compare(
+                f"K4 segmented {label}[{gi}] F={starts.shape[0]}",
+                lambda: crc.crc16_ranges(stream, starts, ends),
+                lambda: crc.crc16_ranges_plain(stream, starts, ends))
+            if crc.crc16_ranges(stream, starts, ends).any():
+                raise AssertionError(f"K4 segmented {label}[{gi}]: an "
+                                     "intact frame failed")
+            log(f"(b) {label} segmented K4 group {gi} "
+                f"F={starts.shape[0]} W={stream.shape[0]}: == plain "
+                f"({r4[1]:.3f} ms vs {r4[2]:.1f} ms)")
+            if label == "headline" and gi == 0:
+                rows["K4_seg"] = r4
+                bounds["K4_seg"] = bound(tensor_bytes(stream, starts, ends,
+                                                      starts))
         for gi, group in enumerate(pending.groups):
             pend = group[-1]
             words_le, n_bytes, T, nch, ends, si_bps = pend._key
@@ -491,6 +711,72 @@ def corrupt_first_frame_crc(data):
     return bytes(bad)
 
 
+def device_idle_share(fn):
+    """(device busy ms, wall ms) of one ``fn()`` under torch.profiler
+    (kernels and copies, summed by their own device time), or None when the
+    profiler reports no device time. The profiler slows the host, so the
+    wall time is longer than an unprofiled run's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # The averages hold a row for each kernel or copy (device type CUDA)
+    # and a row for each host operator, which carries the device time of
+    # what it launched: the same time twice. Count the device rows.
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        busy_us += t
+    return (busy_us / 1e3, wall_ms) if busy_us > 0 else None
+
+
+def overflow_stream():
+    """A 16-bit stream (3 frames of 4096) with one damaged byte in frame
+    1's first subframe and that frame's CRC-16 repaired, so it parses and
+    passes every CRC, and decodes to garbage far outside int16 (found by
+    a seeded search on the CPU; checked again by the caller)."""
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.native.binding import _read_metadata
+    from claxon_tpu_torch.testing import encode_flac, synth_music
+
+    data = encode_flac(synth_music(4096 * 3, channels=2, bps=16, seed=3000),
+                       44100, 16, block_size=4096)
+    _si, bb = native.extract_stream_bits(data, emit_slots=False)
+    _si, pos = _read_metadata(data)
+    b0 = pos + int(bb.bframes[1]["byte0"])
+    b1 = pos + int(bb.bframes[1]["byte1"])
+    bad = bytearray(data)
+    bad[b0 + 27] ^= 13
+    bad[b1 - 2:b1] = native.crc16_bytes(bytes(bad[b0:b1 - 2])) \
+        .to_bytes(2, "big")
+    return bytes(bad)
+
+
+def fetch_stats(dd):
+    """(buckets, buckets fetched as int16 pairs, buckets refetched as
+    int32 after the overflow flag, bytes copied back) of a DeviceDecoded
+    after to_host()."""
+    packed = refetched = nbytes = 0
+    for d in dd.dispatches:
+        if d.packed:
+            packed += 1
+            nbytes += tensor_bytes(d.words, d.flag)
+            refetched += d.host is not None
+        nbytes += tensor_bytes(d.host)
+    return len(dd.dispatches), packed, refetched, nbytes
+
+
 def large_stream():
     """(stream, pcm): one valid FLAC stream of at least LARGE_MIN_BYTES
     bytes and its PCM. The port's encoder writes LARGE_SOURCE_FRAMES
@@ -594,6 +880,95 @@ def phase_f():
             f"{dt:.1f} s to host")
 
 
+def phase_g(base, wide):
+    """Containers at full width: each headline stream, and the 24-bit
+    ``wide`` stream, from Ogg and from MP4 on the card. Returns the launch
+    counts of the first Ogg decode."""
+    import numpy as np
+
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.ops import (crc, entropy, epilogue, predict)
+    from claxon_tpu_torch.testing import (mux_mp4_flac, mux_ogg_flac,
+                                          pcm_md5)
+
+    wrappers = {"K1": predict.synthesize,
+                "K2": entropy.decode_residual_bits_stream,
+                "K4": crc.crc16_ranges,
+                "K3b_pack": epilogue.pack_int16_pairs,
+                "K3b_unpack": epilogue.unpack_int16_pairs}
+    first = None
+    for i, flac in enumerate(list(base) + [wide]):
+        si, want = native.decode_stream_scalar(flac)
+        t0 = time.perf_counter()
+        ogg, mp4 = mux_ogg_flac(flac), mux_mp4_flac(flac, frames_per_chunk=3)
+        mux_s = time.perf_counter() - t0
+        times = {}
+        for name, fn, data in (("Ogg", ct.decode_ogg_stream, ogg),
+                               ("MP4", ct.decode_mp4_stream, mp4)):
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            dec = fn(data, device=DEVICE)
+            times[name] = (time.perf_counter() - t0) * 1e3
+            counts = {k: w.launches for k, w in wrappers.items()}
+            if not np.array_equal(dec.pcm, want):
+                raise AssertionError(f"(g) stream {i} from {name}: PCM != "
+                                     "scalar decoder")
+            if pcm_md5(dec.pcm, si.bits_per_sample) != si.md5sum:
+                raise AssertionError(f"(g) stream {i} from {name}: MD5 "
+                                     "mismatch")
+            packs = si.bits_per_sample <= 16
+            if (counts["K3b_pack"] > 0) != packs or not all(
+                    counts[k] > 0
+                    for k in ("K1", "K2", "K4", "K3b_unpack")):
+                raise AssertionError(f"(g) stream {i} from {name}: "
+                                     f"launches {counts}")
+            if first is None:
+                first = counts
+        # The Ogg time includes the page CRC-32s, checked in Python.
+        raw = ct.decode_ogg_stream(ogg, verify_crc=False, device=DEVICE)
+        t0 = time.perf_counter()
+        raw = ct.decode_ogg_stream(ogg, verify_crc=False, device=DEVICE)
+        nocrc_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(raw.pcm, want):
+            raise AssertionError(f"(g) stream {i} from Ogg without page "
+                                 "CRCs: PCM != scalar decoder")
+        log(f"(g) stream {i} ({si.bits_per_sample}-bit, {len(flac)} bytes, "
+            f"{want.shape[0]} samples x {want.shape[1]}): Ogg "
+            f"{times['Ogg']:.1f} ms ({nocrc_ms:.1f} ms without the page "
+            f"CRCs), MP4 {times['MP4']:.1f} ms, bit-exact with MD5; "
+            f"{'packed' if si.bits_per_sample <= 16 else 'not packed'}; "
+            f"muxed in {mux_s:.1f} s")
+    # Malformed containers raise the reference's errors.
+    ogg = bytearray(mux_ogg_flac(base[0]))
+    ogg[len(ogg) // 2] ^= 0xFF
+    mp4 = mux_mp4_flac(base[0], frames_per_chunk=3)
+    at = mp4.index(b"stsc") + 4 + 12  # the first entry's frames per chunk
+    mp4 = mp4[:at] + (4).to_bytes(4, "big") + mp4[at + 4:]
+    for name, fn, data, msg in (
+            ("Ogg page CRC", ct.decode_ogg_stream, bytes(ogg),
+             "Ogg page CRC mismatch"),
+            ("short MP4 chunk", ct.decode_mp4_stream, mp4,
+             "MP4 chunk ends before its declared frame count")):
+        try:
+            fn(data, device=DEVICE)
+        except ct.FormatError as e:
+            if msg not in str(e):
+                raise
+            log(f"(g) {name}: refused: {e}")
+        else:
+            raise AssertionError(f"(g) {name}: a malformed container "
+                                 "decoded")
+    try:
+        ct.decode_ogg_stream(b"", use_native=False, device=DEVICE)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("(g) use_native=False did not raise")
+    return first
+
+
 def main():
     import torch
 
@@ -606,8 +981,9 @@ def main():
 
     import claxon_tpu_torch as ct
     from claxon_tpu_torch import native
-    from claxon_tpu_torch.ops import (_build, crc, demux, entropy, predict,
-                                      seg_gather, seg_parse, segment)
+    from claxon_tpu_torch.ops import (_build, crc, demux, entropy, epilogue,
+                                      predict, seg_gather, seg_parse,
+                                      segment)
     from claxon_tpu_torch.pipeline import extract_streams_bits
     from claxon_tpu_torch.pipeline_bits import plan_raw_bits
 
@@ -635,7 +1011,9 @@ def main():
         f"({sum(map(len, datas4))} bytes), mixed {len(mixed)}, generated "
         f"{len(generated)}")
 
-    rows, bounds, main_shape, k4_shape = phase_b(datas4, mixed)
+    t_start = time.perf_counter()
+    rows, bounds, library, main_shape, k4_shape = phase_b(datas4, mixed)
+    phase_b_pack16()
     seg_rows, seg_bounds = phase_b_seg(datas4, mixed)
     rows.update(seg_rows)
     bounds.update(seg_bounds)
@@ -648,7 +1026,9 @@ def main():
         "K7": [demux.walk_frames], "K8": [seg_gather.gather_values]}
     wrappers = {"K1": [predict.synthesize],
                 "K2": [entropy.decode_residual_bits_stream],
-                "K4": [crc.crc16_ranges], **seg_wrappers}
+                "K4": [crc.crc16_ranges],
+                "K3b_pack": [epilogue.pack_int16_pairs],
+                "K3b_unpack": [epilogue.unpack_int16_pairs], **seg_wrappers}
 
     def drive(path_kernels, fn):
         """Run fn with every launch count at 0; return the counts of the
@@ -666,30 +1046,72 @@ def main():
                                      f"(counts {counts})")
         return out, counts
 
-    res, launches = drive(("K1", "K2", "K4"),
-                          lambda: ct.decode_streams(datas4, device=DEVICE))
-    log(f"(c) host-walk path, launches in the headline decode: {launches}")
+    def fetched(dd):
+        dd.to_host()
+        return dd
+
+    def to_host_checked(label, datas, dd):
+        """to_host() through the int16 transfer, checked against the
+        scalar decoder; prints what packed and the bytes copied back. A
+        bucket must pack exactly when all its streams are 16-bit or
+        narrower, and none may need the int32 refetch."""
+        res = dd.to_host()
+        check_decoded(label, datas, res)
+        n, packed, refetched, nbytes = fetch_stats(dd)
+        log(f"(c) {label}: {packed} of {n} buckets came back as int16 "
+            f"pairs, {refetched} refetched as int32, {nbytes} bytes copied "
+            "back")
+        want = [all(res[run[0]].streaminfo.bits_per_sample <= 16
+                    for run in plan) for plan in dd.lane_plans()]
+        if refetched or [d.packed for d in dd.dispatches] != want:
+            raise AssertionError(f"{label}: packed "
+                                 f"{[d.packed for d in dd.dispatches]}, "
+                                 f"expected {want}; {refetched} refetched")
+        return nbytes
+
+    dd, launches = drive(
+        ("K1", "K2", "K4", "K3b_pack", "K3b_unpack"),
+        lambda: fetched(ct.decode_streams_device(datas4, device=DEVICE)))
+    res = dd.results
+    log(f"(c) host-walk path, launches in the headline decode to host: "
+        f"{launches}")
+    back = to_host_checked(f"headline x{HEADLINE_REPLICAS}, to host", datas4,
+                           dd)
+    L, T = dd.dispatches[0].out_full.shape
+    # At the full size the bucket is (6912, 4096): 56,623,104 bytes.
+    if back != L * T * 2 + 4 or T != 4096:
+        raise AssertionError(f"headline bucket {(L, T)}: {back} bytes "
+                             f"copied back, expected {L * T * 2} + the flag")
     log(f"(c) K1 on the main bucket ({main_shape}): new design "
         f"{rows['K1'][1]:.4f} ms, bound {bounds['K1'][0]:.4f} ms "
         f"({bounds['K1'][1]}), {launches['K1']} launch(es) in the headline "
         f"decode; the old design took {K1_OLD_MS} ms there (PERF.md)")
-    check_decoded(f"headline x{HEADLINE_REPLICAS}", datas4, res)
     total_samples = sum(r.pcm.size for r in res)
-    check_decoded("mixed", mixed, ct.decode_streams(mixed, device=DEVICE))
-    check_decoded("generated", generated,
-                  ct.decode_streams(generated, device=DEVICE))
+    check_decoded(f"headline x{HEADLINE_REPLICAS}, decode_streams", datas4,
+                  ct.decode_streams(datas4, device=DEVICE))
+    # The mixed corpus packs every bucket but the 24-bit stream's.
+    to_host_checked("mixed", mixed,
+                    ct.decode_streams_device(mixed, device=DEVICE))
+    to_host_checked("generated", generated,
+                    ct.decode_streams_device(generated, device=DEVICE))
     check_decoded("generated, one stream at a time", generated,
                   [ct.decode_stream(d, device=DEVICE) for d in generated])
     check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches "
                   "of 8", datas4,
                   ct.decode_streams_pipelined(datas4, batch_streams=8,
                                               device=DEVICE))
+    epilogue.pack_int16_pairs.launches = 0
     dd = ct.decode_streams_device(datas4, device=DEVICE).sync()
     buckets = dd.device_buckets()
+    dd.lane_plans()
     if not all(b[2].device.type == torch.device(DEVICE).type
                and b[2].dtype == torch.int32 for b in buckets):
         raise AssertionError("device_buckets() are not int32 tensors on "
                              "the card")
+    if epilogue.pack_int16_pairs.launches:
+        raise AssertionError("the device-resident path launched K3b pack")
+    log("(c) sync(), device_buckets() and lane_plans() launched no K3b "
+        "pack")
     check_decoded(f"headline x{HEADLINE_REPLICAS}, device-resident", datas4,
                   dd.to_host())
 
@@ -697,17 +1119,22 @@ def main():
         return ct.decode_streams_device(datas, segmentation="device",
                                         device=DEVICE)
 
-    dd, seg_launches = drive(("K1", "K4", "K5", "K6", "K7", "K8"),
-                             lambda: seg_decode(datas4).sync())
+    dd, seg_launches = drive(
+        ("K1", "K4", "K5", "K6", "K7", "K8", "K3b_pack"),
+        lambda: fetched(seg_decode(datas4)))
     launches.update({k: seg_launches[k] for k in seg_wrappers})
-    log(f"(c) segmented path, launches in the headline decode: "
+    log(f"(c) segmented path, launches in the headline decode to host: "
         f"{seg_launches}")
     if dd.fallback_streams or not dd.segmented:
         raise AssertionError(f"headline x{HEADLINE_REPLICAS}: streams "
                              f"{dd.fallback_streams} left the segmented "
                              "path")
-    check_decoded(f"headline x{HEADLINE_REPLICAS}, segmented", datas4,
-                  dd.to_host())
+    to_host_checked(f"headline x{HEADLINE_REPLICAS}, segmented", datas4, dd)
+    epilogue.pack_int16_pairs.launches = 0
+    seg_decode(datas4).sync().device_buckets()
+    if epilogue.pack_int16_pairs.launches:
+        raise AssertionError("the segmented device-resident path launched "
+                             "K3b pack")
     for label, datas, want_fb in (
             ("mixed", mixed, [MIXED_SPECS.index(MIXED_24BIT)]),
             ("generated", generated,
@@ -720,11 +1147,37 @@ def main():
                 len(dd.fallback_streams) >= len(datas):
             raise AssertionError(f"{label}: unexpected segmented "
                                  f"fallbacks {dd.fallback_streams}")
-        check_decoded(f"{label}, segmented", datas, dd.to_host())
+        to_host_checked(f"{label}, segmented", datas, dd)
     pend = ct.decode_streams_device_async(datas4, segmentation="device",
                                           device=DEVICE)
     check_decoded(f"headline x{HEADLINE_REPLICAS}, segmented async",
                   datas4, pend.finish().to_host())
+
+    # The overflow case: garbage that leaves int16 behind valid CRCs.
+    loud = overflow_stream()
+    _si, want = native.decode_stream_scalar(loud)
+    n_out = int((np.abs(want.astype(np.int64)) > 32767).sum())
+    if not n_out:
+        raise AssertionError("the overflow stream stays inside int16")
+    for path in ("host", "device"):
+        dd = ct.decode_streams_device([base[0], loud], segmentation=path,
+                                      device=DEVICE)
+        out = dd.to_host()
+        check_decoded(f"overflow stream's neighbour, {path} path",
+                      [base[0]], out[:1])
+        # The damaged stream's MD5 cannot match: the PCM alone is held.
+        if not np.array_equal(out[1].pcm, want):
+            raise AssertionError(f"overflow stream, {path} path: PCM != "
+                                 "scalar decoder")
+        n, packed, refetched, nbytes = fetch_stats(dd)
+        flags = [int(d.flag) for d in dd.dispatches if d.packed]
+        if packed != n or refetched != 1 or sum(flags) != 1:
+            raise AssertionError(f"overflow stream, {path} path: flags "
+                                 f"{flags}, {refetched} refetched")
+        log(f"(c) overflow stream, {path} path: {n_out} samples outside "
+            f"int16 (max |x| {int(np.abs(want.astype(np.int64)).max())}); "
+            f"flags {flags}, 1 bucket refetched as int32, PCM == scalar "
+            "decoder")
 
     # (d) a corrupted stored frame CRC is refused, by K4 alone.
     bad = corrupt_first_frame_crc(base[0])
@@ -780,6 +1233,52 @@ def main():
             f"({res_s * 1e3:.1f} ms; best {ms / res_min:.2f} Ms/s); "
             f"to-host {ms / host_s:.2f} Ms/s ({host_s * 1e3:.1f} ms; best "
             f"{ms / host_min:.2f} Ms/s)")
+    # The to-host tail, split: after sync() (the buckets are on the card),
+    # the host clock around start_fetch()._wait_fetched() (K3b pack, the
+    # copy into pinned memory, its event) and around the rest of to_host()
+    # (the strided scatter into per-stream PCM); then the same with the
+    # int16 transfer switched off on the dispatches.
+    split = {}
+    for path in ("host", "device"):
+        for mode in ("int16", "int32"):
+            waits, scatters = [], []
+            for _ in range(TIMED_RUNS):
+                dd = ct.decode_streams_device(datas4, segmentation=path,
+                                              device=DEVICE).sync()
+                if mode == "int32":
+                    for d in dd.dispatches:
+                        d.packed = False
+                t0 = time.perf_counter()
+                dd.start_fetch()._wait_fetched()
+                t1 = time.perf_counter()
+                dd.to_host()
+                t2 = time.perf_counter()
+                waits.append(t1 - t0)
+                scatters.append(t2 - t1)
+            split[path, mode] = (statistics.median(waits) * 1e3,
+                                 statistics.median(scatters) * 1e3,
+                                 fetch_stats(dd)[3])
+            w, sc, nb = split[path, mode]
+            log(f"(e)   {path:6s} to-host tail, {mode} transfer ({nb} "
+                f"bytes): pack + copy wait {w:.1f} ms (min "
+                f"{min(waits) * 1e3:.1f}, max {max(waits) * 1e3:.1f}), "
+                f"scatter {sc:.1f} ms (min {min(scatters) * 1e3:.1f}, max "
+                f"{max(scatters) * 1e3:.1f}), median of {TIMED_RUNS}")
+    del dd
+
+    # The card's idle share of one device-resident decode per path.
+    idle = {}
+    for path in ("host", "device"):
+        idle[path] = device_idle_share(lambda: ct.decode_streams_device(
+            datas4, segmentation=path, device=DEVICE).sync())
+        if idle[path] is None:
+            log(f"(e)   {path:6s} device idle share: not measured (the "
+                "profiler reported no device time)")
+        else:
+            busy_ms, wall_ms = idle[path]
+            log(f"(e)   {path:6s} device idle share under torch.profiler: "
+                f"{100 * (1 - busy_ms / wall_ms):.1f}% ({busy_ms:.2f} ms "
+                f"busy of {wall_ms:.1f} ms)")
     walk_s, _ = timed(lambda: extract_streams_bits(datas4, native))
     braws = extract_streams_bits(datas4, native)
     plan_s, _ = timed(lambda: plan_raw_bits(braws, 128))
@@ -802,8 +1301,10 @@ def main():
     scalar_s, _ = timed(lambda: [native.decode_stream_scalar(d)
                                  for d in datas4])
     log(f"(e)   C++ scalar decode on the host: {ms / scalar_s:.2f} Ms/s")
-    del braws, res, dd
+    del braws, res
     phase_f()
+    g_launches = phase_g(base, mixed[MIXED_SPECS.index(MIXED_24BIT)])
+    log(f"(g) launches in the first Ogg decode: {g_launches}")
 
     sources = {"K1": ("claxon_tpu_torch/csrc/synth.cu",
                       "claxon_tpu/ops/pallas_synth.py:127"),
@@ -818,14 +1319,42 @@ def main():
                "K7": ("claxon_tpu_torch/csrc/demux.cu",
                       "claxon_tpu/ops/demux.py:516"),
                "K8": ("claxon_tpu_torch/csrc/seg_gather.cu",
-                      "claxon_tpu/pipeline_seg.py:203")}
+                      "claxon_tpu/pipeline_seg.py:203"),
+               "K3b_pack": ("claxon_tpu_torch/csrc/pack16.cu",
+                            "claxon_tpu/ops/epilogue.py:78"),
+               "K3b_unpack": ("claxon_tpu_torch/csrc/pack16.cu",
+                              "claxon_tpu/ops/epilogue.py:101")}
     kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
                 "replaces": sources[k][1], "launches": launches[k],
                 "max_abs_err": rows[k][0], "ms": rows[k][1],
                 "plain_ms": rows[k][2], "bound_ms": bounds[k][0],
-                "bound_by": bounds[k][1], "library_ms": None}
+                "bound_by": bounds[k][1], "library_ms": library.get(k)}
                for k in sources]
-    print(json.dumps({"kernels": kernels}))
+    for k in kernels:
+        # Launches of the segmented headline decode and of the first
+        # container decode, beside the host-walk path's.
+        k["launches_segmented"] = seg_launches.get(k["name"], 0)
+        k["launches_ogg"] = g_launches.get(k["name"], 0)
+        if k["name"] == "K4":
+            k["ms_segmented"] = rows["K4_seg"][1]
+            k["bound_ms_segmented"] = bounds["K4_seg"][0]
+        if k["name"] == "K3b_unpack":
+            k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
+    torch_ops = [{"name": k, "source": src, "ms": rows[k][1],
+                  "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+                 for k, src in (
+                     ("K3", "claxon_tpu_torch/ops/epilogue.py"),
+                     ("unpack_mb", "claxon_tpu_torch/pipeline_bits.py"))]
+    to_host_tail = [{"path": path, "transfer": mode, "wait_ms": w,
+                     "scatter_ms": sc, "bytes": nb}
+                    for (path, mode), (w, sc, nb) in split.items()]
+    log(f"total {time.perf_counter() - t_start:.0f} s after the corpora "
+        "were encoded")
+    print(json.dumps({"kernels": kernels, "torch_ops": torch_ops,
+                      "to_host_tail": to_host_tail,
+                      "device_idle": {p: (None if v is None else
+                                          {"busy_ms": v[0], "wall_ms": v[1]})
+                                      for p, v in idle.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,18 +7,22 @@ side is rewritten for an NVIDIA Hopper card:
 
 * ``ops`` -- each device kernel's wrapper beside its plain PyTorch form:
   K1 synthesis, K2 stream Rice decode, K4 range CRC-16, K5 sync scan, K6
-  fused-demux body, K7 subframe walk and K8 values gather as hand-written
-  CUDA (``csrc/``, built with nvcc at first use), K3 epilogue as torch ops;
+  fused-demux body, K7 subframe walk, K8 values gather and K3b int16
+  pack/unpack as hand-written CUDA (``csrc/``, built with nvcc at first
+  use), K3 epilogue as torch ops;
 * ``pipeline_bits`` -- numpy bucket planning and the per-bucket steps of
   the host-walk path;
 * ``pipeline_seg`` -- the segmented path (``segmentation="device"``):
   frame search and subframe walk on the card;
-* ``pipeline`` -- the public calls and the device-resident result.
+* ``pipeline`` -- the public calls and the device-resident result;
+* ``containers`` -- FLAC in Ogg and in MP4: the demuxers and
+  ``decode_ogg_stream`` / ``decode_mp4_stream``.
 
 This package never imports JAX. Output is bit-identical to ``claxon_tpu``
 and to the C++ scalar decoder.
 """
 
+from .containers import decode_mp4_stream, decode_ogg_stream
 from .error import Error, FormatError, IoError, Unsupported
 from .pipeline import (DecodedStream, DeviceDecoded, decode_stream,
                        decode_streams, decode_streams_device,
@@ -26,5 +30,6 @@ from .pipeline import (DecodedStream, DeviceDecoded, decode_stream,
 
 __all__ = ["decode_stream", "decode_streams", "decode_streams_device",
            "decode_streams_device_async", "decode_streams_pipelined",
-           "DeviceDecoded", "DecodedStream", "Error", "FormatError",
-           "IoError", "Unsupported"]
+           "decode_ogg_stream", "decode_mp4_stream", "DeviceDecoded",
+           "DecodedStream", "Error", "FormatError", "IoError",
+           "Unsupported"]

@@ -5,8 +5,10 @@ copy of ``claxon_tpu.metadata``, trimmed to what the port calls, plus
 Mirrors claxon `src/metadata.rs`: STREAMINFO parse + validation, Vorbis
 comment parse with anti-DoS limits and block-type dispatch. The port's
 decode paths call :func:`read_stream_header` and
-:func:`read_flac_metadata` (through ``native.binding._read_metadata``);
-tags, seek tables and the container entry points are not carried over.
+:func:`read_flac_metadata` (through ``native.binding._read_metadata``),
+and its container demuxers :func:`read_metadata_block_with_header` (Ogg
+and MP4 embed metadata blocks verbatim, headers included); tags and seek
+tables are not carried over.
 """
 
 from dataclasses import dataclass
@@ -16,7 +18,8 @@ from .error import Error, Unsupported, fmt_err
 
 __all__ = [
     "StreamInfo", "VorbisComment", "MetadataBlock", "MetadataBlockReader",
-    "read_metadata_block", "read_flac_metadata", "read_stream_header",
+    "read_metadata_block", "read_metadata_block_with_header",
+    "read_flac_metadata", "read_stream_header",
 ]
 
 # Metadata block bodies larger than this are rejected to avoid
@@ -97,6 +100,16 @@ def read_metadata_block_header(input):
     block_type = byte & 0b0111_1111
     length = input.read_be_u24()
     return is_last, block_type, length
+
+
+def read_metadata_block_with_header(input):
+    """Read a single metadata block header and body from the input.
+
+    For FLAC embedded in a container that keeps block headers (Ogg).
+    Returns the ``MetadataBlock`` (reference `src/metadata.rs:243-248`).
+    """
+    _is_last, block_type, length = read_metadata_block_header(input)
+    return read_metadata_block(input, block_type, length)
 
 
 def read_metadata_block(input, block_type, length):

@@ -6,7 +6,9 @@ False when it cannot be built or loaded.
 """
 
 from .binding import (available, extract_stream_bits, extract_frames_bits,
-                      BitsBatch, crc16_bytes, decode_stream_scalar)
+                      merge_bits_batches, BitsBatch, crc16_bytes,
+                      decode_stream_scalar)
 
 __all__ = ["available", "extract_stream_bits", "extract_frames_bits",
-           "BitsBatch", "crc16_bytes", "decode_stream_scalar"]
+           "merge_bits_batches", "BitsBatch", "crc16_bytes",
+           "decode_stream_scalar"]

@@ -17,7 +17,8 @@ from ..metadata import read_flac_metadata, read_stream_header
 from .build import ensure_built
 
 __all__ = ["available", "extract_stream_bits", "extract_frames_bits",
-           "BitsBatch", "crc16_bytes", "decode_stream_scalar"]
+           "merge_bits_batches", "BitsBatch", "crc16_bytes",
+           "decode_stream_scalar"]
 
 #: Expected cxt_abi_version() of the loaded .so; must move in lockstep with
 #: any change to the C-ABI struct layouts below.
@@ -188,8 +189,9 @@ def extract_frames_bits(payload, emit_slots=True, max_frames=None,
     samples. Returns a BitsBatch.
 
     ``max_frames`` bounds the walk (the port walks a large stream in
-    chunks of frames); ``consumed``, a one-element list, receives the byte
-    length of the frames actually parsed. ``defer_crc`` skips host CRC-16
+    chunks of frames, and container chunks declare their frame count);
+    ``consumed``, a one-element list, receives the byte length of the
+    frames actually parsed. ``defer_crc`` skips host CRC-16
     verification entirely (flagged frames get flags bit 1); callers MUST
     then verify the flagged byte0/byte1 ranges -- the port runs K4
     (``ops.crc.crc16_ranges``) over the stream upload and surfaces "frame
@@ -234,6 +236,37 @@ def extract_stream_bits(data, emit_slots=True, defer_crc=False):
     streaminfo, pos = _read_metadata(data)
     return streaminfo, extract_frames_bits(memoryview(data)[pos:],
                                            emit_slots, defer_crc=defer_crc)
+
+
+def merge_bits_batches(batches):
+    """Concatenate BitsBatches of consecutive frame runs into one batch.
+
+    Containers split a stream's frame section into chunks (MP4 stsc runs,
+    Ogg packets); each chunk extracts independently and this stitches the
+    flat arrays back into the single-section form the device pipeline
+    expects. Chunk payloads are byte-concatenated, so every chunk's
+    ``bases`` (absolute bit positions within its own payload) is rebased
+    by the bits preceding it."""
+    if len(batches) == 1:
+        return batches[0]
+    payloads = [bytes(b.payload) for b in batches]
+    bases, bframes, bit0 = [], [], 0
+    for b, p in zip(batches, payloads):
+        bases.append(b.bases + np.int32(bit0))
+        bf = b.bframes.copy()
+        bf["byte0"] += np.int32(bit0 // 8)  # frame spans rebase too
+        bf["byte1"] += np.int32(bit0 // 8)
+        bframes.append(bf)
+        bit0 += 8 * len(p)
+    cat = np.concatenate
+    return BitsBatch(cat(bframes),
+                     cat([b.bsubs for b in batches]),
+                     cat([b.deltas for b in batches]),
+                     cat([b.slots for b in batches]),
+                     cat([b.ks for b in batches]),
+                     cat([b.samples for b in batches]),
+                     cat(bases),
+                     b"".join(payloads))
 
 
 def crc16_bytes(data):

@@ -27,7 +27,7 @@ __all__ = ["load", "check", "stream_handle", "build_seconds"]
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = ("synth.cu", "entropy.cu", "crc.cu", "segment.cu", "seg_parse.cu",
-            "demux.cu", "seg_gather.cu")
+            "demux.cu", "seg_gather.cu", "pack16.cu")
 #: headers the sources include (hashed with them).
 _HEADERS = ("scan.cuh",)
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
@@ -69,6 +69,10 @@ _SIGNATURES = {
                        + [_P, _P, _P],
     # K8 -- values, warm, order, rows, R, row_words, L, Tb32, out, stream
     "cxk_seg_gather": [_P, _P, _P, _P, _N, _N, _N, _N, _P, _P],
+    # K3b -- x, L, T, per_lane, words, flag, stream; words, n_words, out,
+    # stream
+    "cxk_pack_int16_pairs": [_P, _N, _N, _N, _P, _P, _P],
+    "cxk_unpack_int16_pairs": [_P, _N, _P, _P],
 }
 
 #: entry points that return a value rather than a CUDA error code.

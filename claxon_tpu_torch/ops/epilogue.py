@@ -1,9 +1,16 @@
-"""K3: per-frame epilogue, wasted-bits shift + stereo decorrelation
-(counterpart of ``claxon_tpu.ops.epilogue.apply_epilogue``).
+"""K3: per-frame epilogue, wasted-bits shift + stereo decorrelation, and
+K3b: int16-pair transfer packing (counterpart of
+``claxon_tpu.ops.epilogue``).
 
-Plain elementwise torch ops on either device: XLA fused this into the
-synthesis program on the TPU; fusing it into K1's store is later work.
-Semantics (claxon ``src/subframe.rs``, ``src/frame.rs``):
+K3 (``apply_epilogue``) is plain elementwise torch ops on either device:
+XLA fused it into the synthesis program on the TPU; fusing it into K1's
+store is later work. K3b (``pack_int16_pairs``, ``unpack_int16_pairs``)
+is two CUDA kernels (``csrc/pack16.cu``), each beside its plain form:
+16-bit audio crosses the host link at half width, word w of a lane
+holding sample 2w in its low half and sample 2w+1 in its high half,
+which a little-endian host reads as int16 pairs with a zero-copy view.
+
+K3 semantics (claxon ``src/subframe.rs``, ``src/frame.rs``):
 
 * wasted bits: wrapping left shift;
 * left/side:  right = left - side;
@@ -20,8 +27,12 @@ mid/side (``claxon_tpu.extract.MODE_CODES``).
 
 import torch
 
-__all__ = ["apply_epilogue", "MODE_LEFT_SIDE", "MODE_RIGHT_SIDE",
-           "MODE_MID_SIDE"]
+from . import _build
+from ._checks import on_cpu, require_cuda_int32
+
+__all__ = ["apply_epilogue", "pack_int16_pairs", "pack_int16_pairs_plain",
+           "unpack_int16_pairs", "unpack_int16_pairs_plain",
+           "MODE_LEFT_SIDE", "MODE_RIGHT_SIDE", "MODE_MID_SIDE"]
 
 MODE_LEFT_SIDE = 1
 MODE_RIGHT_SIDE = 2
@@ -44,3 +55,85 @@ def apply_epilogue(samples, wasted, pair_modes):
     out1 = torch.where(m == MODE_LEFT_SIDE, c0 - c1,
                        torch.where(m == MODE_MID_SIDE, (mid2 - c1) >> 1, c1))
     return torch.stack([out0, out1], dim=1).reshape(L, T)
+
+
+def pack_int16_pairs_plain(out, per_lane=False):
+    """The plain PyTorch form of :func:`pack_int16_pairs`."""
+    lo = out[:, 0::2] & 0xFFFF
+    hi = out[:, 1::2] << 16
+    oob = (out > 32767) | (out < -32768)
+    overflow = oob.any(dim=1) if per_lane else oob.any()
+    return hi | lo, overflow.to(torch.int32)
+
+
+def _require_aligned(name, **tensors):
+    # The kernels move 16-byte vectors; torch allocations are aligned, a
+    # view at an odd offset into one may not be.
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+def pack_int16_pairs(out, per_lane=False):
+    """Pack (L, T) int32 samples, T even, into ((L, T // 2) int32 words,
+    overflow flag): word w of a lane is ``out[:, 2w + 1] << 16 |
+    out[:, 2w] & 0xFFFF`` (the shift wraps). The flag is a () int32, or
+    (L,) with ``per_lane``: 1 when any element, padding included, lies
+    outside int16 (only an invalid stream's garbage does; the caller then
+    fetches the int32 bucket instead), else 0.
+
+    The plain form for a CPU tensor; for a CUDA tensor the kernel
+    (``csrc/pack16.cu``), or an exception."""
+    if out.dim() != 2 or out.shape[1] % 2:
+        raise ValueError("pack_int16_pairs: expected (L, T) with T even, "
+                         f"got {tuple(out.shape)}")
+    if on_cpu(out):
+        return pack_int16_pairs_plain(out, per_lane)
+    dev = require_cuda_int32("pack_int16_pairs", out=out)
+    _require_aligned("pack_int16_pairs", out=out)
+    L, T = out.shape
+    words = torch.empty((L, T // 2), dtype=torch.int32, device=dev)
+    flag = torch.empty((L,) if per_lane else (), dtype=torch.int32,
+                       device=dev)
+    lib = _build.load()
+    _build.check(lib.cxk_pack_int16_pairs(
+        out.data_ptr(), L, T, int(per_lane), words.data_ptr(),
+        flag.data_ptr(), _build.stream_handle(dev)), "cxk_pack_int16_pairs")
+    pack_int16_pairs.launches += 1
+    return words, flag
+
+
+def unpack_int16_pairs_plain(w):
+    """The plain PyTorch form of :func:`unpack_int16_pairs`."""
+    lo = (w << 16) >> 16
+    hi = w >> 16
+    return torch.stack([lo, hi], dim=-1).reshape(w.shape[0],
+                                                 2 * w.shape[1])
+
+
+def unpack_int16_pairs(w):
+    """Inverse of the int16-pair packing: (L, W) int32 words -> (L, 2W)
+    int32, each half sign-extended, the low half first.
+
+    The plain form for a CPU tensor; for a CUDA tensor the kernel
+    (``csrc/pack16.cu``), or an exception."""
+    if w.dim() != 2:
+        raise ValueError("unpack_int16_pairs: expected (L, W) words, got "
+                         f"{tuple(w.shape)}")
+    if on_cpu(w):
+        return unpack_int16_pairs_plain(w)
+    dev = require_cuda_int32("unpack_int16_pairs", w=w)
+    _require_aligned("unpack_int16_pairs", w=w)
+    L, W = w.shape
+    out = torch.empty((L, 2 * W), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    _build.check(lib.cxk_unpack_int16_pairs(
+        w.data_ptr(), L * W, out.data_ptr(), _build.stream_handle(dev)),
+        "cxk_unpack_int16_pairs")
+    unpack_int16_pairs.launches += 1
+    return out
+
+
+#: kernel launches through each wrapper (CUDA tensors only).
+pack_int16_pairs.launches = 0
+unpack_int16_pairs.launches = 0

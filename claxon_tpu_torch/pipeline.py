@@ -8,14 +8,16 @@ batch into fixed (L, T) buckets (``pipeline_bits``), and runs the
 hand-written kernels on ``device``. With ``segmentation="device"`` the
 card finds the frames and walks the subframes itself instead
 (``pipeline_seg``). The result, :class:`DeviceDecoded`, keeps the decoded
-PCM on the device bucket by bucket; ``to_host()`` scatters it into
-per-stream interleaved PCM.
+PCM on the device bucket by bucket; ``to_host()`` fetches it (16-bit
+buckets as int16 pairs, K3b) and scatters it into per-stream interleaved
+PCM.
 
 Every call takes an explicit ``device`` (default ``"cuda"``): nothing
 probes for a GPU, and CPU tensors take the kernels' plain PyTorch forms.
 The C++ core is required.
 """
 
+import sys
 from dataclasses import dataclass
 from typing import List
 
@@ -34,6 +36,11 @@ __all__ = ["decode_stream", "decode_streams", "decode_streams_device",
 _T_BUCKETS = (64, 192, 256, 576, 1024, 1152, 2048, 2304, 4096, 4608,
               8192, 16384, 32768, 65535)
 _L_QUANTUM = 128  # lane-axis padding quantum (kept from the JAX package)
+
+# The int16-pair transfer packing reads int32 words as int16 pairs through
+# numpy views, which is right only on a little-endian host; elsewhere
+# nothing packs and the pipeline stays bit-exact.
+_LITTLE_ENDIAN = sys.byteorder == "little"
 
 
 def bucket_shape(n_lanes, block_size, lane_quantum=_L_QUANTUM):
@@ -61,10 +68,16 @@ class DecodedStream:
 
 @dataclass
 class _BucketDispatch:
-    """One bucket's decoded PCM on the device (and its host copy)."""
+    """One bucket's decoded PCM on the device (and its host copies)."""
     n_ch: int
     out_full: torch.Tensor      # (L, T) int32 on the device
-    host: torch.Tensor = None   # (L, T) int32 host copy once fetched
+    #: the bucket is fetched as int16 pairs (16-bit audio; the JAX
+    #: package's rule, set by the planners).
+    packed: bool = False
+    words: torch.Tensor = None  # packed: (L, T // 2) int32 host copy
+    flag: torch.Tensor = None   # packed: () int32 host overflow flag
+    host: torch.Tensor = None   # (L, T) int32 host copy (not packed, or
+    #                             refetched after the flag fired)
 
 
 class DeviceDecoded:
@@ -72,10 +85,16 @@ class DeviceDecoded:
 
     ``device_buckets()`` hands a consumer the (L, T) int32 buckets where
     they lie, and ``lane_plans()`` says which stream, frame and channel
-    each lane holds. Frame CRC-16 verification runs on the device, and its
-    verdict surfaces only through ``verify_crc()``, which ``sync()`` and
-    ``to_host()`` call: a consumer reading buckets directly calls
-    ``sync()`` before trusting them.
+    each lane holds. ``to_host()`` builds the per-stream PCM: a bucket of
+    16-bit audio crosses the host link as int16 pairs (half the bytes),
+    and as int32 when its overflow flag fired, which only an invalid
+    stream's garbage can cause. The JAX package packs inside each bucket's
+    device program; the port packs in ``start_fetch()``, so a consumer that
+    reads ``device_buckets()`` and never fetches pays neither the launch
+    nor the (L, T // 2) buffer. Frame CRC-16 verification runs on the
+    device, and its verdict surfaces only through ``verify_crc()``, which
+    ``sync()`` and ``to_host()`` call: a consumer reading buckets directly
+    calls ``sync()`` before trusting them.
     """
 
     def __init__(self, results, dispatches, plans, pcms):
@@ -131,7 +150,11 @@ class DeviceDecoded:
     def start_fetch(self):
         """Start the device-to-host copies of every bucket (into pinned
         memory, without waiting), so they overlap host work done before
-        ``to_host()``. Idempotent."""
+        ``to_host()``: a packed bucket's int16 pairs and overflow flag (K3b
+        pack runs here, on the current stream), another bucket's int32
+        samples. Idempotent."""
+        from .ops.epilogue import pack_int16_pairs
+
         if self._fetched is not None:
             return self
         cuda = None
@@ -146,7 +169,11 @@ class DeviceDecoded:
             return host
 
         for d in self.dispatches:
-            d.host = fetch(d.out_full)
+            if d.packed:
+                words, flag = pack_int16_pairs(d.out_full)
+                d.words, d.flag = fetch(words), fetch(flag)
+            else:
+                d.host = fetch(d.out_full)
         if isinstance(self.crc_check, list):
             self._crc_host = [fetch(vals) for vals, _n in self.crc_check]
         if cuda is None:
@@ -177,7 +204,13 @@ class DeviceDecoded:
         """Per-stream DecodedStreams with their PCM filled in."""
         self.start_fetch()._wait_fetched()
         for d, plan in zip(self.dispatches, self._plans):
-            out = d.host.numpy()
+            if d.packed and not bool(d.flag):
+                # (L, T // 2) int32 -> (L, T) int16, a little-endian view.
+                out = d.words.numpy().view(np.int16)
+            else:
+                if d.host is None:  # rare: an invalid stream's garbage
+                    d.host = d.out_full.cpu()
+                out = d.host.numpy()
             for si_idx, out0, nf, bs, n_ch, lane0 in plan:
                 pcm = self._pcms[si_idx]
                 # One strided copy per (run, channel): frames of a run are
@@ -291,32 +324,31 @@ def _frame_bound(si):
             + 7) // 8 + 64 + 2 * si.channels
 
 
-def _walk_chunks(data, native, limit):
-    """Walk one stream of ``limit`` bytes or more in chunks of whole
-    frames, each below ``limit`` bytes: the frame count per chunk comes
-    from STREAMINFO (:func:`_frame_bound`) and halves for a chunk that
-    overruns. Each chunk's bases and frame spans are relative to its own
-    payload, so they stay inside int32. Returns (streaminfo, [BitsBatch,
-    ...]). Before a walk error or a frame whose channel count disagrees
-    with STREAMINFO surfaces, the deferred CRCs of the chunks before it
-    are verified on the host, so an earlier CRC mismatch wins, as in
-    sequential decode."""
+def _walk_frames_chunked(si, payload, native, limit, max_frames=None):
+    """Walk a frame section (``payload``, a memoryview at its first frame)
+    in chunks of whole frames, each below ``limit`` bytes: the frame count
+    per chunk comes from STREAMINFO (:func:`_frame_bound`) and halves for
+    a chunk that overruns. The walk ends at the end of ``payload``, or
+    after ``max_frames`` frames (a container chunk declares its count).
+    Each chunk's bases and frame spans are relative to its own payload,
+    so they stay inside int32. Returns [BitsBatch, ...]. Before a walk
+    error surfaces, the deferred CRCs of the chunks before it are verified
+    on the host, so an earlier CRC mismatch wins, as in sequential
+    decode."""
     from .error import Error
-    from .native.binding import _read_metadata
     from .pipeline_bits import _host_verify_deferred
 
-    si, pos = _read_metadata(data)
-    payload = memoryview(data)[pos:]
     budget = limit - 5  # a chunk's padded words stay below the limit
     per_chunk = max(1, budget // _frame_bound(si))
-    chunks, off = [], 0
+    chunks, off, left = [], 0, max_frames
     try:
-        while off < len(payload):
+        while off < len(payload) and left != 0:
             used = []
+            n = per_chunk if left is None else min(per_chunk, left)
             bb = native.extract_frames_bits(
-                payload[off:], emit_slots=False, max_frames=per_chunk,
+                payload[off:], emit_slots=False, max_frames=n,
                 consumed=used, defer_crc=True)
-            if used[0] > budget and per_chunk > 1:
+            if used[0] > budget and n > 1:
                 per_chunk //= 2
                 continue
             if not len(bb.bframes):
@@ -324,26 +356,67 @@ def _walk_chunks(data, native, limit):
             bb.payload = payload[off:off + used[0]]
             chunks.append(bb)
             off += used[0]
+            if left is not None:
+                left -= len(bb.bframes)
     except Error:
         for bb in chunks:
             _host_verify_deferred(bb, len(bb.bframes))
         raise
-    # The planner raises the channel-count error, after the deferred CRCs
-    # of the frames before it in that chunk; these are the chunks before.
-    bad = [k for k, bb in enumerate(chunks)
+    return chunks
+
+
+def _verify_before_bad_channels(si, units):
+    """``units`` are one stream's walk units in order, planned apart. The
+    planner raises the channel-count error of a frame that disagrees with
+    STREAMINFO after the deferred CRCs of the frames before it in that
+    unit; this verifies the units before, so an earlier CRC mismatch
+    wins."""
+    from .pipeline_bits import _host_verify_deferred
+
+    bad = [k for k, bb in enumerate(units)
            if (bb.bframes["channels"] != si.channels).any()]
-    for bb in chunks[:bad[0] if bad else 0]:
+    for bb in units[:bad[0] if bad else 0]:
         _host_verify_deferred(bb, len(bb.bframes))
+
+
+def _walk_chunks(data, native, limit):
+    """Walk one stream of ``limit`` bytes or more in chunks of whole
+    frames (:func:`_walk_frames_chunked`). Returns (streaminfo,
+    [BitsBatch, ...])."""
+    from .native.binding import _read_metadata
+
+    si, pos = _read_metadata(data)
+    chunks = _walk_frames_chunked(si, memoryview(data)[pos:], native, limit)
+    _verify_before_bad_channels(si, chunks)
     return si, chunks
 
 
+def _unit_bytes(bb):
+    """Upload bytes of a walk unit: its payload padded to whole words."""
+    return len(bb.payload) + 4
+
+
+def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device):
+    """Decode walk units ``braws`` ([(streaminfo, BitsBatch), ...], unit u
+    a whole stream or a chunk of stream ``owners[u]``, in stream order,
+    of at most ``sizes[u]`` upload bytes). Chunk bases are int32 bit
+    positions into one plan's upload, so the units are planned as runs
+    below ``MAX_BATCH_BYTES`` and the runs' results merge, a stream's
+    chunks concatenating back into its one result."""
+    from . import pipeline_bits
+
+    parts = [([owners[u] for u in run], pipeline_bits.decode_raw_bits_device(
+        [braws[u] for u in run], lane_quantum, device=device))
+        for run in _split_batch(sizes, pipeline_bits.MAX_BATCH_BYTES)]
+    if len(parts) == 1 and len(braws) == n_streams:
+        return parts[0][1]
+    return merge_decoded(n_streams, parts)
+
+
 def _decode_host_walk(datas, lane_quantum, device):
-    """The host-walk bits path. Chunk bases are int32 bit positions into
-    one plan's upload, so a batch of ``MAX_BATCH_BYTES`` or more is
-    planned as runs below it: every stream is walked first (a stream that
-    large in chunks of frames, :func:`_walk_chunks`), the walked units are
-    split into runs, and the runs' results merge, a large stream's chunks
-    concatenating back into its one result."""
+    """The host-walk bits path: every stream is walked first (a stream of
+    ``MAX_BATCH_BYTES`` or more in chunks of frames, :func:`_walk_chunks`),
+    then the walked units are decoded (:func:`_decode_walked`)."""
     from . import pipeline_bits
 
     limit = pipeline_bits.MAX_BATCH_BYTES
@@ -357,16 +430,11 @@ def _decode_host_walk(datas, lane_quantum, device):
             sizes.append(len(d))
             continue
         si, chunks = _walk_chunks(d, native, limit)
-        for bb in chunks:
-            braws.append((si, bb))
-            owners.append(i)
-            sizes.append(len(bb.payload) + 4)
-    parts = [([owners[u] for u in run], pipeline_bits.decode_raw_bits_device(
-        [braws[u] for u in run], lane_quantum, device=device))
-        for run in _split_batch(sizes, limit)]
-    if len(parts) == 1 and len(braws) == len(datas):
-        return parts[0][1]
-    return merge_decoded(len(datas), parts)
+        braws.extend((si, bb) for bb in chunks)
+        owners.extend([i] * len(chunks))
+        sizes.extend(_unit_bytes(bb) for bb in chunks)
+    return _decode_walked(braws, owners, sizes, len(datas), lane_quantum,
+                          device)
 
 
 def _check_segmentation(segmentation):

@@ -6,14 +6,17 @@ of the JAX package's core) ships each stream's frame-section bytes and per-lane
 descriptors. :func:`plan_raw_bits` turns them, in numpy alone, into the
 device uploads: one stream of big-endian int32 words for the batch, one
 packed int32 ``mb`` array per (T, nch) bucket (the ``_MB_FIXED`` layout
-below), the fallback-frame buckets, and the frame CRC ranges ``se``. It
-produces the same bytes as the JAX package's planner, which a test holds
-it to. :func:`decode_raw_bits_device` uploads them and runs, per bucket,
-K2 -> K1 -> K3 (:func:`stream_step`), then K1 -> K3 for fallback frames,
-then K4 once per batch over every deferred frame CRC.
+below), the fallback-frame buckets (their residuals as int16 pairs where
+they fit), and the frame CRC ranges ``se``. It produces the same bytes as
+the JAX package's planner, which a test holds it to.
+:func:`decode_raw_bits_device` uploads them and runs, per bucket, K2 ->
+K1 -> K3 (:func:`stream_step`), then (K3b unpack ->) K1 -> K3 for
+fallback frames, then K4 once per batch over every deferred frame CRC.
+Each bucket also carries ``out_packed``, the JAX package's rule for
+fetching it as int16 pairs (``DeviceDecoded.start_fetch`` packs then).
 
 Not carried over: delta entropy mode, host CRC verification
-(``CLAXON_TPU_HOST_CRC``), the mesh, and int16 transfer packing.
+(``CLAXON_TPU_HOST_CRC``) and the mesh.
 """
 
 from dataclasses import dataclass
@@ -24,7 +27,7 @@ import torch
 from .error import fmt_err
 from .ops.crc import crc16_ranges
 from .ops.entropy import decode_residual_bits_stream
-from .ops.epilogue import apply_epilogue
+from .ops.epilogue import apply_epilogue, unpack_int16_pairs
 from .ops.predict import ORDER_MAX, synthesize
 
 __all__ = ["plan_raw_bits", "decode_raw_bits_device", "stream_step",
@@ -137,13 +140,14 @@ class BitsBucket:
     nc: int            # chunks per lane
     mb: np.ndarray     # (L, _mb_width(NC, P)) int32
     plan: list
+    out_packed: bool   # 16-bit audio: fetch the PCM as int16 pairs
 
 
 @dataclass
 class SampleBucket:
     """One fallback-frame bucket: host-decoded residuals for K1 + K3."""
     n_ch: int
-    x: np.ndarray          # (L, T) int32
+    x: np.ndarray          # (L, T) int32, or (L, T // 2) with in_packed
     coefs: np.ndarray      # (L, 32) int32
     shifts: np.ndarray     # (L,)
     orders: np.ndarray     # (L,)
@@ -151,6 +155,8 @@ class SampleBucket:
     pair_modes: np.ndarray  # (L//2,)
     lengths: np.ndarray    # (L,)
     plan: list
+    in_packed: bool = False   # x is int16 pairs (every residual fits)
+    out_packed: bool = False  # 16-bit audio: fetch the PCM as int16 pairs
 
 
 @dataclass
@@ -165,12 +171,21 @@ class BitsPlan:
     n_crc: int = 0         # valid ranges in se
 
 
+def _pack_input_i16(x):
+    """Host-side int16-pair packing of an (L, T) int32 bucket whose values
+    all fit int16 (T even): one copy, then a zero-copy int32 view."""
+    L, T = x.shape
+    x16 = np.ascontiguousarray(x.reshape(L, T // 2, 2).astype(np.int16))
+    return x16.view(np.int32).reshape(L, T // 2)
+
+
 def plan_raw_bits(braws, lane_quantum):
     """Plan a batch of [(streaminfo, BitsBatch), ...] (extracted with
     ``emit_slots=False``), in numpy alone. Raises the reference's
     ``FormatError`` for a frame whose channel count disagrees with
     STREAMINFO, after re-checking the CRCs of the frames before it."""
-    from .pipeline import DecodedStream, _T_BUCKETS, bucket_shape
+    from .pipeline import (DecodedStream, _LITTLE_ENDIAN, _T_BUCKETS,
+                           bucket_shape)
 
     t_buckets = np.asarray(_T_BUCKETS, dtype=np.int64)
 
@@ -243,6 +258,7 @@ def plan_raw_bits(braws, lane_quantum):
                 "bs": bs_v[idx], "lane0": lane0_v[idx],
                 "out0": out0_v[idx], "nc": nc_v[idx],
                 "mode": bf["mode"][idx].astype(np.int64),
+                "bps": bf["bps"][idx].astype(np.int64),
                 "sa": sa_v[idx],
                 "x0": x_off[lane0_v[idx]], "k0": k_off[lane0_v[idx]],
                 "b0": b_off[lane0_v[idx]], "np_max": np_max[idx],
@@ -254,8 +270,8 @@ def plan_raw_bits(braws, lane_quantum):
     bits = []
     for (t_bucket, n_ch), chunks in bit_groups.items():
         g = {f: np.concatenate([c[f] for c in chunks])
-             for f in ("si", "bs", "lane0", "out0", "nc", "mode", "sa",
-                       "k0", "b0", "np_max")}
+             for f in ("si", "bs", "lane0", "out0", "nc", "mode", "bps",
+                       "sa", "k0", "b0", "np_max")}
         L, T = bucket_shape(len(g["si"]) * n_ch, t_bucket, lane_quantum)
         NC = (T + 31) // 32
         P = _p_class(int(g["np_max"].max()))
@@ -302,13 +318,15 @@ def plan_raw_bits(braws, lane_quantum):
             _scatter_ks(mb16[:, 2 * (_MB_FIXED + BD):], lane, nl,
                         subs["n_parts"], bb.ks, int(g["k0"][st]))
             lane += nl
-        bits.append(BitsBucket(n_ch, P, SA, NC, mb, plan))
+        # The output is NC * 32 samples wide, so always even.
+        out_packed = _LITTLE_ENDIAN and int(g["bps"].max()) <= 16
+        bits.append(BitsBucket(n_ch, P, SA, NC, mb, plan, out_packed))
 
     # Fallback frames: the walker decoded their residuals on the host.
     samples = []
     for (t_bucket, n_ch), chunks in smp_groups.items():
         g = {f: np.concatenate([c[f] for c in chunks])
-             for f in ("si", "bs", "lane0", "out0", "mode", "x0")}
+             for f in ("si", "bs", "lane0", "out0", "mode", "bps", "x0")}
         L, T = bucket_shape(len(g["si"]) * n_ch, t_bucket, lane_quantum)
         sb = SampleBucket(
             n_ch, np.zeros((L, T), dtype=np.int32),
@@ -338,6 +356,12 @@ def plan_raw_bits(braws, lane_quantum):
             if n_ch == 2:
                 sb.pair_modes[lane // 2:lane // 2 + nf] = g["mode"][st:en]
             lane += nl
+        if _LITTLE_ENDIAN and T % 2 == 0:
+            sb.out_packed = int(g["bps"].max()) <= 16
+            sb.in_packed = bool(sb.x.min(initial=0) >= -32768
+                                and sb.x.max(initial=0) <= 32767)
+            if sb.in_packed:
+                sb.x = _pack_input_i16(sb.x)
         samples.append(sb)
 
     bp = BitsPlan(results, pcms, stream, bits, samples)
@@ -373,24 +397,20 @@ def inputs_from_numpy(stream, mb=None, se=None, device="cuda"):
                  for a in (stream, mb, se))
 
 
-def _unpack_i16(words, n):
-    """(L, W) int32 halfword pairs -> (L, n) int32, sign-extended."""
-    lo = (words << 16) >> 16
-    hi = words >> 16
-    L = words.shape[0]
-    return torch.stack([lo, hi], dim=-1).reshape(L, -1)[:, :n].contiguous()
-
-
 def unpack_mb(mb, n_parts_max, nc):
     """Unpack a bucket's (L, C) mb upload (``_MB_FIXED`` layout) into the
     per-lane tensors K2, K1 and K3 take, all contiguous int32."""
     L = mb.shape[0]
     bd = (nc - 1 + 1) // 2
-    kp = (n_parts_max + 1) // 2
     a = mb[:, 0]
     base0 = mb[:, 3]
+    # One K3b unpack of the whole int16 tail (coefficients, chunk-base
+    # deltas, Rice parameters); the fields are column ranges of its result.
+    h = unpack_int16_pairs(mb[:, 36:].contiguous())
+    d0 = 2 * (_MB_FIXED - 36)
+    k0 = d0 + 2 * bd
     if nc > 1:
-        deltas = _unpack_i16(mb[:, _MB_FIXED:_MB_FIXED + bd], nc - 1)
+        deltas = h[:, d0:d0 + nc - 1]
         bases = base0[:, None] + torch.cat(
             [torch.zeros((L, 1), dtype=torch.int32, device=mb.device),
              torch.cumsum(deltas, dim=1, dtype=torch.int32)], dim=1)
@@ -408,9 +428,8 @@ def unpack_mb(mb, n_parts_max, nc):
         "lengths": mb[:, 2].contiguous(),
         "bases": bases.contiguous(),
         "warm": mb[:, 4:36].contiguous(),
-        "coefs": _unpack_i16(mb[:, 36:52], ORDER_MAX),
-        "ks": _unpack_i16(mb[:, _MB_FIXED + bd:_MB_FIXED + bd + kp],
-                          n_parts_max),
+        "coefs": h[:, :ORDER_MAX].contiguous(),
+        "ks": h[:, k0:k0 + n_parts_max].contiguous(),
     }
 
 
@@ -439,7 +458,7 @@ def decode_raw_bits_device(braws, lane_quantum, device="cuda"):
         out = stream_step(stream_t, _to_device(b.mb, device),
                           b.n_parts_max, b.sa, b.nc)
         upload += b.mb.nbytes
-        dispatches.append(_BucketDispatch(b.n_ch, out))
+        dispatches.append(_BucketDispatch(b.n_ch, out, b.out_packed))
         plans.append(b.plan)
     for s in bp.samples:
         arrays = (s.x, s.coefs, s.shifts, s.orders, s.wasted, s.pair_modes,
@@ -447,9 +466,11 @@ def decode_raw_bits_device(braws, lane_quantum, device="cuda"):
         x, coefs, shifts, orders, wasted, pair_modes, lengths = (
             _to_device(a, device) for a in arrays)
         upload += sum(a.nbytes for a in arrays)
+        if s.in_packed:
+            x = unpack_int16_pairs(x)
         out = apply_epilogue(synthesize(x, coefs, shifts, orders, lengths),
                              wasted, pair_modes)
-        dispatches.append(_BucketDispatch(s.n_ch, out))
+        dispatches.append(_BucketDispatch(s.n_ch, out, s.out_packed))
         plans.append(s.plan)
     dd = DeviceDecoded(bp.results, dispatches, plans, bp.pcms)
     if bp.se is not None:

@@ -22,7 +22,7 @@ caps allow falls back as a group, and a batch of ``MAX_BATCH_BYTES`` or
 more goes to the host walk whole. Every route is bit-exact.
 
 Not carried over from the JAX package: the delta and scan entropy modes,
-int16 transfer packing, the mesh, and the ``CLAXON_TPU_SEG_DEBUG`` prints
+the mesh, and the ``CLAXON_TPU_SEG_DEBUG`` prints
 (the host stage times are kept in ``DeviceDecoded.stage_seconds``).
 """
 
@@ -248,7 +248,8 @@ def finish_segmented(pending):
     from .ops.crc import crc16_ranges
     from .ops.seg_parse import SUMMARY_COLS, DemuxOverflow
     from .pipeline import (DecodedStream, DeviceDecoded, _BucketDispatch,
-                           _T_BUCKETS, bucket_shape, merge_decoded)
+                           _LITTLE_ENDIAN, _T_BUCKETS, bucket_shape,
+                           merge_decoded)
 
     datas = pending.datas
     lane_quantum = pending.lane_quantum
@@ -361,7 +362,10 @@ def finish_segmented(pending):
                     pend.walk, rows, lengths, modes, (Tb + 31) // 32 * 32,
                     device)
                 upload_bytes += nbytes
-                dispatches.append(_BucketDispatch(nch, out))
+                # 16-bit audio fetches as int16 pairs (start_fetch packs).
+                out_packed = (_LITTLE_ENDIAN and Tb % 2 == 0
+                              and int(cols["bps"][sub].max()) <= 16)
+                dispatches.append(_BucketDispatch(nch, out, out_packed))
                 plans.append(plan)
 
         if crc_starts:

@@ -1,11 +1,13 @@
 """Test and smoke utilities of the port (a copy of ``claxon_tpu.testing``'s
-encoder and MD5 helper). Not part of the decoder API surface.
+encoder, container muxers and MD5 helper). Not part of the decoder API
+surface.
 
 ``flacgen`` is a spec-derived FLAC *encoder* that generates corpora with
 known PCM and a genuine STREAMINFO MD5, so a decode that reproduces the
 MD5 is bit-exact.
 """
 
+from .containers_gen import mux_mp4_flac, mux_ogg_flac, split_flac
 from .flacgen import encode_flac, synth_music
 
 
@@ -23,4 +25,5 @@ def pcm_md5(samples_interleaved, bits_per_sample):
     return hashlib.md5(arr.tobytes()).digest()
 
 
-__all__ = ["encode_flac", "synth_music", "pcm_md5"]
+__all__ = ["encode_flac", "synth_music", "pcm_md5", "split_flac",
+           "mux_ogg_flac", "mux_mp4_flac"]

@@ -128,6 +128,112 @@ def test_crc_kernel_matches_plain_and_host(cuda):
                             for a, b in zip(s, e)]
 
 
+def _pack16_case(case):
+    rng = np.random.default_rng(8)
+    i32 = np.iinfo(np.int32)
+    if case == "headline_bucket":
+        return rng.integers(-32768, 32768, (6912, 4096))
+    if case == "boundary_values":
+        x = rng.integers(-32768, 32768, (64, 576))
+        x[:4, :4] = [[-32768, 32767, -32769, 32768]] * 4
+        return x
+    if case == "int32_extremes":
+        x = rng.integers(-32768, 32768, (37, 192))
+        x[5, 1], x[20, 190] = i32.max, i32.min
+        return x
+    if case == "last_element_only":
+        x = rng.integers(-32768, 32768, (130, 1152))
+        x[-1, -1] = 32768
+        return x
+    if case == "garbage":
+        return rng.integers(i32.min, i32.max + 1, (100, 4608),
+                            dtype=np.int64)
+    if case == "T2":
+        return np.array([[5, -7], [-32768, 32767], [0, 70000]])
+    if case == "T6_three_lanes":  # T % 4 == 2: the narrow-vector kernels
+        return rng.integers(-40000, 40000, (3, 6))
+    if case == "no_lanes":
+        return np.zeros((0, 64), np.int64)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "headline_bucket", "boundary_values", "int32_extremes",
+    "last_element_only", "garbage", "T2", "T6_three_lanes", "no_lanes"])
+def test_pack16_kernels_match_plain(cuda, case):
+    """K3b on the card: pack (scalar and per-lane flags) and unpack equal
+    their plain forms on every element, and pack -> unpack gives the
+    samples back where they fit int16."""
+    from claxon_tpu_torch.ops import epilogue
+
+    x = _c(_pack16_case(case), cuda)
+    n_pack = epilogue.pack_int16_pairs.launches
+    n_unpack = epilogue.unpack_int16_pairs.launches
+    for per_lane in (False, True):
+        words, flag = epilogue.pack_int16_pairs(x, per_lane=per_lane)
+        p_words, p_flag = epilogue.pack_int16_pairs_plain(x, per_lane)
+        assert words.dtype == flag.dtype == torch.int32
+        assert flag.shape == p_flag.shape
+        assert torch.equal(words, p_words) and torch.equal(flag, p_flag)
+    back = epilogue.unpack_int16_pairs(words)
+    assert torch.equal(back, epilogue.unpack_int16_pairs_plain(words))
+    if not bool(flag.any()):
+        assert torch.equal(back, x)
+    # Any int32 words unpack, an odd count of them too.
+    assert torch.equal(epilogue.unpack_int16_pairs(x),
+                       epilogue.unpack_int16_pairs_plain(x))
+    odd = x[:, :1].contiguous()
+    assert torch.equal(epilogue.unpack_int16_pairs(odd),
+                       epilogue.unpack_int16_pairs_plain(odd))
+    assert epilogue.pack_int16_pairs.launches == n_pack + 2
+    assert epilogue.unpack_int16_pairs.launches == n_unpack + 3
+    torch.cuda.synchronize()
+
+
+def test_pack16_wrappers_refuse_misaligned_views(cuda):
+    from claxon_tpu_torch.ops import epilogue
+
+    base = torch.zeros(4 * 8 + 1, dtype=torch.int32, device=cuda)
+    view = base[1:].reshape(4, 8)  # contiguous, 4 bytes off alignment
+    for fn in (epilogue.pack_int16_pairs, epilogue.unpack_int16_pairs):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(view)
+
+
+def test_to_host_on_the_card_packs_and_refetches(cuda):
+    """On the card the 16-bit buckets come back as int16 pairs through
+    the pack kernel; device_buckets(), lane_plans() and sync() launch
+    none; a bucket whose values leave int16 sets the flag and comes back
+    as int32."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch.ops import epilogue
+    from claxon_tpu_torch.pipeline import (DecodedStream, DeviceDecoded,
+                                           _BucketDispatch)
+
+    datas = _small_streams()
+    n0 = epilogue.pack_int16_pairs.launches
+    dd = ct.decode_streams_device(datas, device=cuda).sync()
+    dd.device_buckets()
+    dd.lane_plans()
+    assert epilogue.pack_int16_pairs.launches == n0
+    out = dd.to_host()
+    assert epilogue.pack_int16_pairs.launches == n0 + len(dd.dispatches)
+    assert all(d.packed and d.words.is_pinned() and int(d.flag) == 0
+               for d in dd.dispatches)
+    for data, dec in zip(datas, out):
+        assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
+
+    vals = np.arange(8 * 64, dtype=np.int32).reshape(8, 64) * 300 - 70000
+    pcm = np.zeros((3 * 50, 2), np.int32)
+    d = _BucketDispatch(2, _c(vals, cuda), True)
+    dd = DeviceDecoded([DecodedStream(None, pcm, [0, 50, 100], [50] * 3)],
+                       [d], [[(0, 0, 3, 50, 2, 0)]], [pcm])
+    got = dd.to_host()[0].pcm
+    assert int(d.flag) == 1
+    assert np.array_equal(got[:50, 0], vals[0, :50])
+    assert np.array_equal(got[100:, 1], vals[5, :50])
+
+
 def fuzzed_streams(n=24, seed=7):
     """``n`` small valid streams with seeded damage in their frame
     sections: 1-4 flipped bytes, or a truncation. Shared with the CPU

@@ -1,8 +1,9 @@
 """The port's own copy of the host layer (``claxon_tpu_torch.native``,
-``metadata``, ``error`` and ``testing``) against the JAX package's
-originals: the C++ boundary walk field by field, the scalar decoder, the
-bulk CRC-16 and the metadata parse on the generated corpus and encoded
-streams; the encoder byte for byte; and the errors of malformed inputs by
+``metadata``, ``containers``, ``error`` and ``testing``) against the JAX
+package's originals: the C++ boundary walk field by field, the scalar
+decoder, the bulk CRC-16 and the metadata parse on the generated corpus
+and encoded streams; the batch merge and the container demuxers field by field; the
+encoder byte for byte; and the errors of malformed inputs by
 class name and message. Equality is exact."""
 
 import dataclasses
@@ -160,3 +161,88 @@ def test_malformed_inputs_raise_the_same_errors(make):
     for got in (scalar.value, device.value):
         assert type(got).__name__ == type(ref.value).__name__
         assert str(got) == str(ref.value)
+
+
+@pytest.mark.parametrize("split", [(3,), (1, 2, 5)], ids=["two", "four"])
+def test_merge_bits_batches_matches_jax(split):
+    """A frame section walked in bounded pieces and merged: every array of
+    the port's merged batch equals the JAX package's, and the single-walk
+    arrays apart from the rebased positions."""
+    data = _stream("encoded_lpc12_1152")
+    pos = t_read_metadata(data)[1]
+    section = memoryview(data)[pos:]
+
+    def pieces(mod):
+        out, off = [], 0
+        for n in split + (None,):
+            used = []
+            bb = mod.extract_frames_bits(section[off:], emit_slots=False,
+                                         max_frames=n, consumed=used,
+                                         defer_crc=True)
+            bb.payload = section[off:off + used[0]]
+            out.append(bb)
+            off += used[0]
+        return out
+
+    jbb = jnative.merge_bits_batches(pieces(jnative))
+    tbb = tnative.merge_bits_batches(pieces(tnative))
+    whole = tnative.extract_frames_bits(section, emit_slots=False,
+                                        defer_crc=True)
+    for field in ("bframes", "bsubs", "ks", "bases", "deltas", "samples"):
+        assert np.array_equal(getattr(jbb, field), getattr(tbb, field)), field
+        assert np.array_equal(getattr(whole, field),
+                              getattr(tbb, field)), field
+    assert bytes(jbb.payload) == bytes(tbb.payload) == bytes(section)
+    one = pieces(tnative)[:1]
+    assert tnative.merge_bits_batches(one) is one[0]
+
+
+def test_container_demuxers_match_jax():
+    """read_metadata_block_with_header, read_flac_from_ogg and
+    read_flac_from_mp4: the copies parse what the originals parse."""
+    import io
+
+    from claxon_tpu import containers as jc
+    from claxon_tpu.io.readers import MemReader as JMemReader
+    from claxon_tpu.metadata import read_metadata_block_with_header as jread
+
+    from claxon_tpu_torch import containers as tc
+    from claxon_tpu_torch.io import MemReader
+    from claxon_tpu_torch.metadata import \
+        read_metadata_block_with_header as tread
+
+    pcm = jtesting.synth_music(5000, channels=2, bps=16, seed=9)
+    flac = jtesting.encode_flac(pcm, 44100, 16, block_size=1024,
+                                tags=[("TITLE", "x"), ("ARTIST", "y")],
+                                padding=9)
+    blocks, _frames = jtesting.split_flac(flac)
+    assert len(blocks) >= 3
+    for raw in blocks:
+        jb, tb = jread(JMemReader(raw)), tread(MemReader(raw))
+        assert jb.kind == tb.kind
+        if jb.kind == "streaminfo":
+            assert dataclasses.astuple(jb.streaminfo) == \
+                dataclasses.astuple(tb.streaminfo)
+    with pytest.raises(RefError) as ref:
+        jread(JMemReader(blocks[0][:9]))  # a truncated STREAMINFO block
+    with pytest.raises(ct.Error) as got:
+        tread(MemReader(blocks[0][:9]))
+    assert type(got.value).__name__ == type(ref.value).__name__
+    assert str(got.value) == str(ref.value)
+
+    ogg = jtesting.mux_ogg_flac(flac)
+    jsi, jhead, jaudio = jc.read_flac_from_ogg(io.BytesIO(ogg))
+    tsi, thead, taudio = tc.read_flac_from_ogg(io.BytesIO(ogg))
+    assert dataclasses.astuple(jsi) == dataclasses.astuple(tsi)
+    assert list(jhead) == list(thead) == blocks[1:]
+    assert list(jaudio) == list(taudio)
+    assert list(jc.OggPacketReader(io.BytesIO(ogg))) == \
+        list(tc.OggPacketReader(io.BytesIO(ogg)))
+
+    mp4 = jtesting.mux_mp4_flac(flac, frames_per_chunk=2)
+    jt, tt = jc.read_flac_from_mp4(mp4), tc.read_flac_from_mp4(mp4)
+    assert jt.flac_specific == tt.flac_specific
+    assert dataclasses.astuple(jt.streaminfo) == \
+        dataclasses.astuple(tt.streaminfo)
+    assert jt.chunk_offsets == tt.chunk_offsets
+    assert jt.samples_per_chunk == tt.samples_per_chunk == [2, 2, 1]

@@ -2,8 +2,9 @@
 on the machine with the card): in a fresh interpreter whose imports of
 ``jax``/``jaxlib`` and of ``claxon_tpu`` fail (the top-level name exactly,
 not ``claxon_tpu_torch``), ``claxon_tpu_torch`` and ``chip_smoke`` import,
-the port's own encoder and C++ core work, and small streams decode on the
-CPU bit-exactly through the host-walk and the segmented paths."""
+the port's own encoder, muxers and C++ core work, and small streams decode
+on the CPU bit-exactly through the host-walk and the segmented paths and
+from Ogg and MP4 containers."""
 
 import pathlib
 import subprocess
@@ -42,8 +43,13 @@ _SCRIPT = textwrap.dedent("""
 
     import chip_smoke
     import claxon_tpu_torch as ct
+    import claxon_tpu_torch.containers.mp4
+    import claxon_tpu_torch.containers.ogg
+    import claxon_tpu_torch.containers.pipeline
+    import claxon_tpu_torch.testing.containers_gen
     from claxon_tpu_torch import native
-    from claxon_tpu_torch.testing import encode_flac, pcm_md5, synth_music
+    from claxon_tpu_torch.testing import (encode_flac, mux_mp4_flac,
+                                          mux_ogg_flac, pcm_md5, synth_music)
 
     pcm = synth_music(3000, channels=2, bps=16, seed=5)
     data = encode_flac(pcm, 44100, 16, block_size=1152)
@@ -58,6 +64,9 @@ _SCRIPT = textwrap.dedent("""
     out = dd.to_host()
     assert np.array_equal(out[0].pcm, pcm)
     assert np.array_equal(out[1].pcm, pcm[:, :1])
+    ogg = ct.decode_ogg_stream(mux_ogg_flac(data), device="cpu")
+    mp4 = ct.decode_mp4_stream(mux_mp4_flac(data, 2), device="cpu")
+    assert np.array_equal(ogg.pcm, pcm) and np.array_equal(mp4.pcm, pcm)
     try:
         ct.decode_streams_device([data[:4] + b"!" + data[5:]], device="cpu")
     except ct.FormatError as e:

@@ -16,7 +16,8 @@ from claxon_tpu.crc import crc16
 from claxon_tpu.ops.crc import crc16_ranges_device
 from claxon_tpu.ops.entropy import (decode_residual_bits_stream,
                                     decode_residual_bits_stream_reference)
-from claxon_tpu.ops.epilogue import apply_epilogue
+from claxon_tpu.ops.epilogue import (apply_epilogue, pack_int16_pairs,
+                                     unpack_int16_pairs)
 from claxon_tpu.ops.pallas_synth import synthesize_pallas
 from claxon_tpu.ops.predict import synthesize, synthesize_reference
 from claxon_tpu.testing import encode_flac, synth_music
@@ -155,6 +156,94 @@ def test_epilogue_golden():
                             [2, 5, 83, 113], [-5, -33, -59, -125],
                             [2, 5, 83, 113], [-5, -33, -59, -125],
                             [16, -32, 48, -64], [0, 0, 0, 0]]
+
+
+def _pack_case(case):
+    """(L, T) int32 inputs for K3b, made from a seed."""
+    rng = np.random.default_rng(51)
+    i32 = np.iinfo(np.int32)
+    if case == "in_range":
+        return rng.integers(-32768, 32768, (6, 64)).astype(np.int32)
+    if case == "boundary":  # the last values inside int16, nothing outside
+        x = np.zeros((4, 8), np.int32)
+        x[0, :4] = [32767, -32768, -1, 1]
+        x[3, -2:] = [-32768, 32767]
+        return x
+    if case == "just_outside":  # one lane each of 32768 and -32769
+        x = rng.integers(-32768, 32768, (4, 8)).astype(np.int32)
+        x[1, 3] = 32768
+        x[2, 0] = -32769
+        return x
+    if case == "last_element":  # only the last column of the last lane
+        x = np.zeros((5, 6), np.int32)
+        x[-1, -1] = 40000
+        return x
+    if case == "int32_extremes":
+        x = rng.integers(-32768, 32768, (4, 4)).astype(np.int32)
+        x[0, :2] = [i32.max, i32.min]
+        x[2, 2:] = [i32.min, i32.max]
+        return x
+    if case == "garbage":
+        return rng.integers(i32.min, i32.max + 1, (8, 32),
+                            dtype=np.int64).astype(np.int32)
+    if case == "T2":
+        return np.array([[5, -7], [-32768, 32767], [0, 70000]], np.int32)
+    raise AssertionError(case)
+
+
+PACK_CASES = ["in_range", "boundary", "just_outside", "last_element",
+              "int32_extremes", "garbage", "T2"]
+
+
+@pytest.mark.parametrize("per_lane", [False, True],
+                         ids=["scalar_flag", "per_lane"])
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_int16_pairs_matches_jax(case, per_lane):
+    x = _pack_case(case)
+    words, flag = tepilogue.pack_int16_pairs(_t(x), per_lane=per_lane)
+    j_words, j_flag = pack_int16_pairs(jnp.asarray(x), per_lane=per_lane)
+    assert words.dtype == flag.dtype == torch.int32
+    assert words.shape == (x.shape[0], x.shape[1] // 2)
+    assert flag.shape == ((x.shape[0],) if per_lane else ())
+    assert np.array_equal(words.numpy(), np.asarray(j_words))
+    assert np.array_equal(flag.numpy(), np.asarray(j_flag))
+    oob = (x > 32767) | (x < -32768)
+    assert np.array_equal(flag.numpy() != 0,
+                          oob.any(axis=1) if per_lane else oob.any())
+    if not oob.any():
+        # A little-endian host reads the words back as the int16 samples.
+        assert np.array_equal(words.numpy().view(np.int16), x)
+        assert np.array_equal(
+            tepilogue.unpack_int16_pairs(words).numpy(), x)
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_unpack_int16_pairs_matches_jax(case):
+    """Any int32 words unpack as the JAX function unpacks them: each half
+    sign-extended, the low half first."""
+    w = _pack_case(case)
+    got = tepilogue.unpack_int16_pairs(_t(w)).numpy()
+    assert got.shape == (w.shape[0], 2 * w.shape[1])
+    assert np.array_equal(got, np.asarray(unpack_int16_pairs(
+        jnp.asarray(w))))
+    assert np.array_equal(got, w.view(np.int16).astype(np.int32))
+
+
+@pytest.mark.parametrize("name", ["pack_int16_pairs", "unpack_int16_pairs"])
+def test_pack16_wrappers_check_their_input(name):
+    """An odd T or a tensor that is not 2-D raises; for a tensor that is
+    not on the CPU the wrapper launches its kernel or raises, and never
+    takes the plain form."""
+    fn = getattr(tepilogue, name)
+    with pytest.raises(ValueError, match="expected"):
+        fn(torch.zeros(8, dtype=torch.int32))
+    if name == "pack_int16_pairs":
+        with pytest.raises(ValueError, match="T even"):
+            fn(torch.zeros((2, 3), dtype=torch.int32))
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(torch.empty((4, 8), dtype=torch.int32, device="meta"))
+    assert fn.launches == before
 
 
 def _captured_bucket():

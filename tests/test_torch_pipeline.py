@@ -69,17 +69,17 @@ def _capture_jax_uploads(monkeypatch, datas, lane_quantum):
     def stream_program(P, SA, NC, out_packed, **_kw):
         def run(stream, mb):
             got["bits"].append((P, SA, NC, np.asarray(stream),
-                                np.asarray(mb)))
+                                np.asarray(mb), out_packed))
             return result(out_packed, mb.shape[0], NC * 32)
         return run
 
     def decode_program(in_packed, out_packed, chunked=True):
         def run(x, *rest):
-            x = np.asarray(x)
-            if in_packed:  # int16 pairs -> int32
-                x = x.view(np.int16).astype(np.int32)
-            got["samples"].append((x,) + tuple(np.asarray(a) for a in rest))
-            return result(out_packed, *x.shape)
+            x = np.asarray(x)  # int16 pairs when in_packed
+            got["samples"].append((x,) + tuple(np.asarray(a) for a in rest)
+                                  + (in_packed, out_packed))
+            return result(out_packed, x.shape[0],
+                          x.shape[1] * (2 if in_packed else 1))
         return run
 
     def crc_program(mesh=None):
@@ -101,7 +101,9 @@ def _capture_jax_uploads(monkeypatch, datas, lane_quantum):
 def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum):
     """The port's numpy planner builds exactly the uploads the JAX
     package's programs receive: stream words, packed mb per bucket (same
-    order, same static P/SA/NC), fallback buckets, and CRC ranges se."""
+    order, same static P/SA/NC), fallback buckets (their residuals as the
+    same int16 pairs), CRC ranges se, and the int16 packing flags the JAX
+    programs were built with."""
     datas = _generated() + _configs() + [_fallback_stream()]
     jax_up, jax_plans = _capture_jax_uploads(monkeypatch, datas,
                                              lane_quantum)
@@ -109,13 +111,18 @@ def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum):
                            lane_quantum)
 
     assert len(bp.bits) == len(jax_up["bits"]) > 1
-    for b, (P, SA, NC, stream, mb) in zip(bp.bits, jax_up["bits"]):
+    for b, (P, SA, NC, stream, mb, out_packed) in zip(bp.bits,
+                                                      jax_up["bits"]):
         assert (b.n_parts_max, b.sa, b.nc) == (P, SA, NC)
+        assert b.out_packed is out_packed
         assert np.array_equal(bp.stream, stream)
         assert b.mb.dtype == mb.dtype and np.array_equal(b.mb, mb)
     assert len(bp.samples) == len(jax_up["samples"]) == 1
-    for s, (x, coefs, shifts, orders, wasted, pair_modes, lengths) in zip(
-            bp.samples, jax_up["samples"]):
+    for s, (x, coefs, shifts, orders, wasted, pair_modes, lengths,
+            in_packed, out_packed) in zip(bp.samples, jax_up["samples"]):
+        assert (s.in_packed, s.out_packed) == (in_packed, out_packed)
+        assert s.in_packed and s.x.shape[1] * 2 == 16384  # int16 pairs
+        assert s.x.dtype == x.dtype and s.x.tobytes() == x.tobytes()
         for mine, theirs in ((s.x, x), (s.coefs, coefs), (s.shifts, shifts),
                              (s.orders, orders), (s.wasted, wasted),
                              (s.pair_modes, pair_modes),
@@ -126,9 +133,11 @@ def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum):
     assert bp.se.dtype == se.dtype and np.array_equal(bp.se, se)
     assert [b.plan for b in bp.bits] + [s.plan for s in bp.samples] == \
         jax_plans
+    # 16-bit buckets pack, the 24- and 32-bit ones do not.
+    assert {b.out_packed for b in bp.bits} == {True, False}
 
     # inputs_from_numpy turns the captured arrays into the port's tensors.
-    P, SA, NC, stream, mb = jax_up["bits"][0]
+    P, SA, NC, stream, mb, _packed = jax_up["bits"][0]
     s_t, mb_t, se_t = tpb.inputs_from_numpy(stream, mb, se, device="cpu")
     assert s_t.dtype == mb_t.dtype == se_t.dtype == torch.int32
     assert np.array_equal(mb_t.numpy(), mb)
@@ -144,10 +153,26 @@ def _assert_oracle(datas, results):
 
 
 def test_slice_matches_jax_and_oracle():
+    """The whole slice, to host through the int16 transfer: the port packs
+    exactly the buckets the JAX package packs (16-bit audio), fetches
+    those as int16 pairs and the others as int32, and gives the same
+    PCM."""
     datas = _generated() + _configs()
-    port = ct.decode_streams(datas, device="cpu")
+    dd = ct.decode_streams_device(datas, device="cpu")
+    port = dd.to_host()
     _assert_oracle(datas, port)
-    ref = jpipe.decode_streams_device(datas, segmentation="host").to_host()
+    ref_dd = jpipe.decode_streams_device(datas, segmentation="host")
+    assert [d.packed for d in dd.dispatches] == \
+        [d.packed for d in ref_dd.dispatches]
+    assert {d.packed for d in dd.dispatches} == {True, False}
+    for d in dd.dispatches:
+        if d.packed:
+            L, T = d.out_full.shape
+            assert d.words.shape == (L, T // 2) and int(d.flag) == 0
+            assert d.host is None  # no int32 copy was made
+        else:
+            assert d.words is None and d.host.shape == d.out_full.shape
+    ref = ref_dd.to_host()
     for a, b in zip(port, ref):
         assert np.array_equal(a.pcm, b.pcm)
         assert a.frame_times == b.frame_times
@@ -174,6 +199,132 @@ def test_device_resident_api():
     _assert_oracle(datas, dd.start_fetch().to_host())
 
 
+def _count_calls(monkeypatch, name):
+    """Count calls of ``claxon_tpu_torch.ops.epilogue.<name>`` (the
+    wrappers look it up there at each call)."""
+    from claxon_tpu_torch.ops import epilogue
+
+    calls = []
+    fn = getattr(epilogue, name)
+    monkeypatch.setattr(epilogue, name,
+                        lambda *a, **kw: calls.append(1) or fn(*a, **kw))
+    return calls
+
+
+def test_packing_happens_at_fetch_time_only(monkeypatch):
+    """device_buckets(), lane_plans() and sync() pack nothing;
+    start_fetch() packs each 16-bit bucket once, however often it and
+    to_host() are called."""
+    packs = _count_calls(monkeypatch, "pack_int16_pairs")
+    datas = _configs()
+    dd = ct.decode_streams_device(datas, device="cpu")
+    dd.device_buckets()
+    dd.lane_plans()
+    dd.sync()
+    assert not packs and all(d.words is None for d in dd.dispatches)
+    assert dd.start_fetch() is dd
+    n = len(dd.dispatches)
+    assert len(packs) == n > 0 and all(d.packed for d in dd.dispatches)
+    words = [d.words for d in dd.dispatches]
+    dd.start_fetch()
+    first = [r.pcm.copy() for r in dd.to_host()]
+    again = dd.to_host()
+    assert len(packs) == n
+    assert all(d.words is w for d, w in zip(dd.dispatches, words))
+    assert all(np.array_equal(a, b.pcm) for a, b in zip(first, again))
+    _assert_oracle(datas, again)
+
+
+def test_int16_overflow_flag_refetches_int32():
+    """A bucket marked packed whose values leave int16 (only an invalid
+    stream's garbage can) sets the flag; to_host() then fetches the int32
+    bucket and scatters that: the same PCM as an unpacked bucket gives."""
+    from claxon_tpu_torch.pipeline import (DecodedStream, DeviceDecoded,
+                                           _BucketDispatch)
+
+    rng = np.random.default_rng(91)
+    L, T, bs, nf = 8, 64, 50, 3
+    out = rng.integers(-32768, 32768, (L, T)).astype(np.int32)
+    out[3, 7] = 40000
+    out[4, bs - 1] = -(1 << 31)
+    plan = [[(0, 0, nf, bs, 2, 0)]]
+
+    def build(packed):
+        pcm = np.zeros((nf * bs, 2), np.int32)
+        res = DecodedStream(None, pcm, [0, bs, 2 * bs], [bs] * nf)
+        d = _BucketDispatch(2, torch.from_numpy(out.copy()), packed)
+        return DeviceDecoded([res], [d], plan, [pcm]), d
+
+    dd, d = build(True)
+    got = dd.to_host()[0].pcm
+    assert int(d.flag) == 1 and d.host is not None
+    want = build(False)[0].to_host()[0].pcm
+    assert np.array_equal(got, want)
+    # Lane 3 is frame 1, channel 1; lane 4 is frame 2, channel 0.
+    assert got[bs + 7, 1] == 40000 and got[3 * bs - 1, 0] == -(1 << 31)
+    # In range, the same bucket goes through the int16 view.
+    out[3, 7], out[4, bs - 1] = 32767, -32768
+    dd, d = build(True)
+    got = dd.to_host()[0].pcm
+    assert int(d.flag) == 0 and d.host is None
+    assert np.array_equal(got, build(False)[0].to_host()[0].pcm)
+
+
+@pytest.mark.parametrize("segmentation", ["host", "device"])
+def test_damaged_stream_leaving_int16_refetches_int32(segmentation):
+    """A 16-bit stream with one damaged byte and its frame CRC repaired
+    decodes to garbage outside int16: the bucket's flag fires, as in the
+    JAX package, and the int32 refetch gives the scalar decoder's PCM."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    bad = chip_smoke.overflow_stream()
+    want = native.decode_stream_scalar(bad)[1]
+    assert np.abs(want.astype(np.int64)).max() > 32767
+    dd = ct.decode_streams_device([bad], segmentation=segmentation,
+                                  device="cpu")
+    got = dd.to_host()[0]
+    assert dd.fallback_streams == []
+    assert [(d.packed, int(d.flag)) for d in dd.dispatches] == [(True, 1)]
+    assert dd.dispatches[0].host is not None
+    assert np.array_equal(got.pcm, want)
+    if segmentation == "host":
+        ref_dd = jpipe.decode_streams_device([bad], segmentation="host")
+        assert [(d.packed, int(d.flag)) for d in ref_dd.dispatches] == \
+            [(True, 1)]
+        assert np.array_equal(got.pcm, ref_dd.to_host()[0].pcm)
+
+
+@pytest.mark.parametrize("segmentation", ["host", "device"])
+def test_padding_never_trips_int16_flag(segmentation):
+    """A short tail frame lies in a bucket wider than itself, beside
+    padding lanes: neither the columns past a frame's length nor the
+    padding lanes leave int16 (K1 zeroes them), so the flag, taken over
+    every element, stays clear on a loud stream."""
+    from claxon_tpu_torch.ops.epilogue import pack_int16_pairs
+
+    pcm = np.linspace(20000, 32000, 5000).astype(np.int64).reshape(2500, 2)
+    data = encode_flac(pcm, 44100, 16, block_size=1024)
+    dd = ct.decode_streams_device([data], segmentation=segmentation,
+                                  device="cpu").start_fetch()
+    assert dd.fallback_streams == []
+    tails = 0
+    for d, plan in zip(dd.dispatches, dd.lane_plans()):
+        assert d.packed, "a 16-bit stream fetches as int16 pairs"
+        assert int(d.flag) == 0
+        assert not pack_int16_pairs(d.out_full, per_lane=True)[1].any()
+        used = 0
+        for _si, _out0, nf, bs, nch, lane0 in plan:
+            used = max(used, lane0 + nf * nch)
+            assert d.out_full[lane0:lane0 + nf * nch, :bs].abs().max() > 20000
+            assert not d.out_full[lane0:lane0 + nf * nch, bs:].any()
+            tails += bs < d.out_full.shape[1]
+        assert used < d.out_full.shape[0]
+        assert not d.out_full[used:].any()  # padding lanes
+    assert tails == 1
+    assert np.array_equal(dd.to_host()[0].pcm, pcm)
+
+
 def test_single_stream_and_pipelined():
     datas = _configs()
     _assert_oracle(datas[:1], [ct.decode_stream(datas[0], device="cpu")])
@@ -186,6 +337,37 @@ def test_fallback_many_partitions():
     _si, bb = native.extract_stream_bits(data)
     assert np.any(bb.bframes["flags"] & 1), "expected fallback frames"
     _assert_oracle([data], ct.decode_streams([data], device="cpu"))
+
+
+def test_fallback_bucket_uploads_int16_pairs(monkeypatch):
+    """A fallback bucket whose residuals fit int16 uploads them as int16
+    pairs (half the bytes, counted in upload_bytes) and unpacks them on
+    the device before K1; one that does not fit uploads int32."""
+    data = _fallback_stream()
+    bp = tpb.plan_raw_bits(extract_streams_bits([data], native), 128)
+    [sb] = bp.samples
+    assert sb.in_packed and sb.out_packed and not bp.bits
+    L, T = sb.lengths.shape[0], 16384
+    assert sb.x.shape == (L, T // 2)
+    unpacks, unpack = [], tpb.unpack_int16_pairs
+    monkeypatch.setattr(tpb, "unpack_int16_pairs",
+                        lambda w: unpacks.append(tuple(w.shape)) or unpack(w))
+    dd = ct.decode_streams_device([data], device="cpu")
+    assert unpacks == [(L, T // 2)]
+    small = sum(a.nbytes for a in (sb.coefs, sb.shifts, sb.orders,
+                                   sb.wasted, sb.pair_modes, sb.lengths))
+    assert dd.upload_bytes == bp.stream.nbytes + L * T * 2 + small \
+        + bp.se.nbytes
+    _assert_oracle([data], dd.to_host())
+
+    # Verbatim 24-bit samples do not fit: the bucket stays int32.
+    wide = encode_flac(synth_music(16384, channels=2, bps=24, seed=45),
+                       44100, 24, block_size=16384, max_lpc_order=4,
+                       partition_order=7)
+    bp = tpb.plan_raw_bits(extract_streams_bits([wide], native), 128)
+    assert [(s.in_packed, s.out_packed, s.x.shape[1])
+            for s in bp.samples] == [(False, False, 16384)]
+    _assert_oracle([wide], ct.decode_streams([wide], device="cpu"))
 
 
 def _first_frame_span(data):

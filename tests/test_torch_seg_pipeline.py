@@ -113,12 +113,20 @@ def test_fused_demux_matches_jax():
 
 def test_slice_matches_jax():
     """The whole slice against the JAX package's segmented decode: the
-    same PCM, frame times and sizes, and the same fallback streams."""
+    same PCM, frame times and sizes, the same fallback streams, and to
+    host through the same int16 transfer (the 16-bit dispatches pack, the
+    host-walked 24-bit stream's bucket does not)."""
     datas = _group_batch()
     ref_dd = jseg.decode_streams_segmented(datas)
     ref = ref_dd.to_host()
     dd = tseg.decode_streams_segmented(datas, device="cpu")
     got = dd.to_host()
+    packed = [d.packed for d in dd.dispatches]
+    assert packed == [d.packed for d in ref_dd.dispatches]
+    assert packed == [True] * (len(packed) - 1) + [False]
+    for d in dd.dispatches:
+        assert (d.words is not None and int(d.flag) == 0) if d.packed \
+            else d.host is not None
     assert dd.fallback_streams == ref_dd.fallback_streams == [2]
     assert dd.segmented and ref_dd.segmented and dd.seg_engaged
     for g, r in zip(got, ref):

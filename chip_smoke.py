@@ -27,6 +27,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
       K7 subframe walk and K8 values gather on every group the segmented
       path builds for the headline and mixed corpora, and on every K8
       dispatch of those decodes, and K4 on the segmented groups' ranges;
+      at each of those groups K7's time beside its parent kernel's (when
+      build/k7_parent/demux.cu holds the parent's source), its bound and
+      cycles per step, with the ptxas report of both sources; and the byte
+      bounds of the device functions still to port;
   (c) decode the headline corpus (8 x 10 s of 16-bit 44.1 kHz stereo,
       block size 4096, seeds 1000-1007, replicated x4 into one batch of
       32 streams), the mixed corpus (8 specs, seeds 2000-2007) and
@@ -56,7 +60,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
   (f) decode one stream of at least 2^27 bytes (8 channels of 24-bit
       audio, FIXED subframes) on both paths: it walks in chunks of frames
       below the int32 limit, bit-exact against the scalar decoder and the
-      STREAMINFO MD5;
+      STREAMINFO MD5; K7 against its plain form on its distinct frames as
+      one 8-channel group;
   (g) mux each of the 8 headline streams, and the mixed 24-bit stream
       (whose bucket must not pack), into Ogg and into MP4 (3 frames per
       chunk) and decode them with decode_ogg_stream / decode_mp4_stream
@@ -120,6 +125,11 @@ SCALAR_OPS_PER_S = 67e12
 #: K1's first design on the headline bucket (PERF.md, measured on one
 #: NVIDIA H100 80GB HBM3 at 700 W), printed beside the new time.
 K1_OLD_MS = 1.181
+#: K7's parent design, timed beside the new one on the same inputs when its
+#: source is here (a build directory, never committed): made with
+#: ``mkdir -p build/k7_parent && git show <parent commit>:claxon_tpu_torch/
+#: csrc/demux.cu > build/k7_parent/demux.cu``.
+K7_PARENT_SRC = REPO / "build" / "k7_parent" / "demux.cu"
 
 
 def log(msg):
@@ -203,22 +213,27 @@ def synth_ops(orders, lengths):
     return int((2 * o * steps).sum())
 
 
+def flat_tensors(x):
+    """The tensors of ``x`` (a tensor, or a tuple, list or dict of them;
+    dicts in key order), flattened."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in flat_tensors(x[k])]
+    return [t for v in x for t in flat_tensors(v)]
+
+
 def compare(name, kernel_fn, plain_fn, reps=20):
     """Run kernel and plain form on the card; exact equality of every
     tensor they return (one, or a tuple or dict of them), or raise.
     Returns (max_abs_err, kernel_ms, plain_ms)."""
     import torch
 
-    def flat(x):
-        if isinstance(x, torch.Tensor):
-            return [x]
-        if isinstance(x, dict):
-            return [t for k in sorted(x) for t in flat(x[k])]
-        return [t for v in x for t in flat(v)]
-
-    got = flat(kernel_fn())
+    got = flat_tensors(kernel_fn())
     torch.cuda.synchronize()
-    want = flat(plain_fn())
+    want = flat_tensors(plain_fn())
     torch.cuda.synchronize()
     err = 0
     for g, w in zip(got, want):
@@ -373,6 +388,11 @@ def phase_b(datas4, mixed):
                 bounds["K1"] = bound(2 * tensor_bytes(x) + tensor_bytes(
                     k1_args[1:]), synth_ops(u["orders"], u["lengths"]))
                 main_shape = shape
+                n = bp.n_crc
+                rows["main_dims"] = dict(
+                    L=b.mb.shape[0], T=b.nc * 32, P=b.n_parts_max, SA=b.sa,
+                    W=len(bp.stream), F=n,
+                    B=int((bp.se[1][:n] - bp.se[0][:n]).max()))
                 # K1's per-warp latency: the bucket's first 32 lanes alone
                 # (one warp on the card) against the whole bucket.
                 one = [t[:32].contiguous() for t in k1_args]
@@ -541,6 +561,10 @@ def phase_b_seg(datas4, mixed):
         return o.to(torch.int16).view(torch.int32)
 
     rows, bounds, library = {}, {}, {}
+    parent = k7_parent_walk()
+    log("(b) K7 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
+                                 "demux.cu"))
+    clock = None
     for label, datas in (("headline", datas4), ("mixed", mixed)):
         k8_calls, k1_calls, k4_calls = [], [], []
         dispatch = pipeline_seg._dispatch_values
@@ -614,9 +638,13 @@ def phase_b_seg(datas4, mixed):
             r7 = compare(
                 f"K7 {tag}",
                 lambda: demux.walk_frames(stream, *walk_in, T, nch),
-                lambda: demux.walk_frames_plain(stream, *walk_in, T, nch),
-                reps=5)
+                lambda: demux.walk_frames_plain(stream, *walk_in, T, nch))
             walk, end_bits, ok = demux.walk_frames(stream, *walk_in, T, nch)
+            if clock is None:
+                clock = sm_clock_under(
+                    lambda: demux.walk_frames(stream, *walk_in, T, nch))
+            k7 = k7_report(tag, stream, walk_in, T, nch, r7, parent, clock)
+            rows.setdefault("K7_groups", []).append(dict(k7, group=tag))
             sargs = (pos, fields, lane_of, end_bits, ok, walk["n_parts"],
                      walk["sa_words"], nch)
             r6c = compare(
@@ -634,6 +662,7 @@ def phase_b_seg(datas4, mixed):
                 f"fields {r6b[1]:.3f}, summary {r6c[1]:.3f}), K7 == plain "
                 f"({r7[1]:.3f} ms vs {r7[2]:.1f} ms)")
             if label == "headline" and gi == 0:
+                rows["seg_W"] = stream.shape[0]
                 rows.update(K5=r5, K6=r6, K7=r7)
                 rows["seg_shape"] = shape
                 bounds["K5"] = bound(tensor_bytes(
@@ -711,6 +740,157 @@ def corrupt_first_frame_crc(data):
     return bytes(bad)
 
 
+def queued_bounds(L, T, P, SA, W, F, B, W_seg):
+    """Byte bounds (ms) of the device functions still to port, at the
+    headline x4 shapes: the host-walk bucket (L lanes, T, P partitions,
+    SA, its stream of W words and F frames of at most B bytes) and the
+    segmented group's stream of W_seg words. Each input read once, each
+    output written once, in the JAX package's dtypes."""
+    NC = T // 32
+    out = L * T * 4  # (L, T) int32
+    lane = L * 4  # one int32 per lane
+    common = L * P * 4 + L * 32 * 4 + out  # ks, warm, the output
+    nbytes = {
+        "claxon_tpu/ops/entropy.py:54 decode_residual_bits":
+            # slots, uint8 deltas, ps/orders/pbits/vflags
+            L * NC * SA * 4 + L * T + 4 * lane + common,
+        "claxon_tpu/ops/entropy.py:279 decode_residual_bits_stream_delta":
+            # stream, bases, int8 deltas, ps/orders/pbits/flags/lengths
+            W_seg * 4 + L * NC * 4 + L * T + 5 * lane + common,
+        "claxon_tpu/pipeline_seg.py:225-230 scan body (K2 on the walk)":
+            W_seg * 4 + L * NC * 4 + 5 * lane + common,
+        "claxon_tpu/ops/rice.py:126 rice_decode":
+            # one partition a lane: start_bits/params/counts, end_bits
+            W * 4 + 4 * L * P * 4 + out,
+        "claxon_tpu/ops/crc.py:33 crc16_device":
+            # (F, B) int32 byte values, lengths, CRCs
+            F * B * 4 + 2 * F * 4,
+        "claxon_tpu/ops/crc.py:284 crc16_frames_device":
+            W * 4 + 3 * F * 4,
+    }
+    return {k: bound(v)[0] for k, v in nbytes.items()}
+
+
+def k7_parent_walk():
+    """K7's parent kernel as a callable with walk_frames' arguments and
+    results, built from ``K7_PARENT_SRC``; None when that file is absent.
+    Its ptxas report is printed."""
+    import ctypes
+
+    import torch
+
+    from claxon_tpu_torch.ops import _build, demux
+
+    if not K7_PARENT_SRC.exists():
+        return None
+    so = K7_PARENT_SRC.with_name("libk7_parent.so")
+    subprocess.run([_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v",
+                    "-shared", "-o", str(so), str(K7_PARENT_SRC)],
+                   check=True, timeout=600, capture_output=True)
+    log("(b) K7 parent kernel built from " + str(K7_PARENT_SRC.relative_to(
+        REPO)) + "; " + ptxas_report(K7_PARENT_SRC))
+    fn = ctypes.CDLL(str(so)).cxk_walk_frames
+    P, N = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [P, N, P, P, P, P, N, N, N] + [P] * 16
+    fn.restype = ctypes.c_int
+
+    def walk(stream, start_bits, bs, modes, bps0, T, nch):
+        dev = stream.device
+        F = start_bits.shape[0]
+        out = {k: torch.empty(sh, dtype=torch.int32, device=dev)
+               for k, sh in demux._lane_shapes(F * nch, T).items()}
+        end_bits = torch.empty((F,), dtype=torch.int32, device=dev)
+        ok = torch.empty((F,), dtype=torch.bool, device=dev)
+        _build.check(fn(stream.data_ptr(), stream.shape[0],
+                        start_bits.data_ptr(), bs.data_ptr(), modes.data_ptr(),
+                        bps0.data_ptr(), F, T, nch,
+                        *(out[k].data_ptr() for k in demux.WALK_KEYS),
+                        end_bits.data_ptr(), ok.data_ptr(),
+                        _build.stream_handle(dev)), "parent cxk_walk_frames")
+        return out, end_bits, ok
+
+    return walk
+
+
+def ptxas_report(src):
+    """Registers, shared memory and spills of each kernel in ``src``, from
+    ``nvcc -Xptxas -v`` (one line per kernel)."""
+    from claxon_tpu_torch.ops import _build
+
+    err = subprocess.run([_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v",
+                          "-c", "-o", "/dev/null", str(src)], check=True,
+                         timeout=600, capture_output=True, text=True).stderr
+    lines, name = [], None
+    for line in err.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("Used" in line or "spill" in line):
+            lines.append(f"{name}: {line.split(' : ')[-1].strip()}")
+    return "ptxas: " + "; ".join(lines)
+
+
+def sm_clock_under(fn, calls=1500):
+    """(clocks.sm, clocks.max.sm) in MHz from nvidia-smi, read while the
+    card runs ``calls`` queued calls of ``fn``."""
+    import torch
+
+    proc = None
+    for i in range(calls):
+        fn()
+        if i == calls // 5:
+            proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                 "--format=csv,noheader,nounits"], stdout=subprocess.PIPE,
+                text=True)
+    out = proc.communicate(timeout=60)[0]
+    torch.cuda.synchronize()
+    cur, mx = out.strip().splitlines()[0].split(",")
+    return int(cur), int(mx)
+
+
+def k7_report(tag, stream, walk_in, T, nch, r7, parent, clock):
+    """K7 at one segmented group: its time beside the parent kernel's on
+    the same inputs (outputs equal), its byte bound, cycles per step (of
+    the longest frame's codes, at the SM clock read under load). Returns a
+    dict of the numbers."""
+    import torch
+
+    from claxon_tpu_torch.ops import demux
+
+    def new():
+        return demux.walk_frames(stream, *walk_in, T, nch)
+
+    got = new()
+    nb = bound(tensor_bytes(stream, walk_in, got))
+    nc32 = (T + 31) // 32 * 32
+    steps = nch * int(walk_in[1].clamp(0, nc32).max())
+    rep = {"ms": r7[1], "bound_ms": nb[0], "steps": steps,
+           "sm_clock_mhz": clock[0], "sm_clock_max_mhz": clock[1],
+           "cycles_per_step": r7[1] * 1e3 * clock[0] / max(steps, 1),
+           "parent_ms": None}
+    if parent is not None:
+        old = parent(stream, *walk_in, T, nch)
+        for a, b in zip(flat_tensors(old), flat_tensors(got)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K7 {tag}: parent != new kernel")
+        # parent, new, new, parent
+        t_old = cuda_ms(lambda: parent(stream, *walk_in, T, nch), 5)
+        t_new = cuda_ms(new, 20)
+        t_new2 = cuda_ms(new, 20)
+        t_old2 = cuda_ms(lambda: parent(stream, *walk_in, T, nch), 5)
+        rep.update(parent_ms=(t_old + t_old2) / 2, ms=(t_new + t_new2) / 2,
+                   parent_runs=[t_old, t_old2], new_runs=[t_new, t_new2])
+        rep["cycles_per_step"] = rep["ms"] * 1e3 * clock[0] / max(steps, 1)
+    old_s = ("not built (no parent source)" if rep["parent_ms"] is None
+             else f"{rep['parent_ms']:.4f} ms (runs {t_old:.4f}, "
+             f"{t_old2:.4f}; new {t_new:.4f}, {t_new2:.4f}), outputs equal")
+    log(f"(b) K7 {tag}: new {rep['ms']:.4f} ms; parent {old_s}; bound "
+        f"{nb[0]:.4f} ms ({nb[1]}); {rep['cycles_per_step']:.1f} cycles per "
+        f"step ({steps} steps in the longest frame, SM clock {clock[0]} MHz "
+        f"under load, max {clock[1]})")
+    return rep
+
+
 def device_idle_share(fn):
     """(device busy ms, wall ms) of one ``fn()`` under torch.profiler
     (kernels and copies, summed by their own device time), or None when the
@@ -777,27 +957,37 @@ def fetch_stats(dd):
     return len(dd.dispatches), packed, refetched, nbytes
 
 
+def large_source():
+    """(stream, pcm): the LARGE_SOURCE_FRAMES distinct frames of the large
+    stream as a stream of their own (8 channels, 24-bit, 96 kHz, FIXED
+    subframes, rice2, block size 4096), from the port's encoder."""
+    import numpy as np
+
+    from claxon_tpu_torch.testing import encode_flac, synth_music
+
+    bs, nch, bps, rate = 4096, 8, 24, 96000
+    pcm = synth_music(bs * LARGE_SOURCE_FRAMES, channels=nch, bps=bps,
+                      seed=4000, sample_rate=rate).astype(np.int32)
+    return encode_flac(pcm, rate, bps, block_size=bs, force_subframe="fixed",
+                       rice2=True, partition_order=2), pcm
+
+
 def large_stream():
     """(stream, pcm): one valid FLAC stream of at least LARGE_MIN_BYTES
-    bytes and its PCM. The port's encoder writes LARGE_SOURCE_FRAMES
-    distinct frames (8 channels, 24-bit, 96 kHz, FIXED subframes, rice2,
-    block size 4096: poor compression, every frame on the bits path, so
-    through K2); they repeat in order under new frame numbers, each with
-    its CRC-8 and CRC-16 recomputed, and STREAMINFO gets the new sample
-    count, frame sizes and PCM MD5."""
+    bytes and its PCM. The frames of ``large_source()`` (poor compression,
+    every frame on the bits path, so through K2) repeat in order under new
+    frame numbers, each with its CRC-8 and CRC-16 recomputed, and
+    STREAMINFO gets the new sample count, frame sizes and PCM MD5."""
     import numpy as np
 
     from claxon_tpu_torch import native
     from claxon_tpu_torch.crc import crc8
     from claxon_tpu_torch.native.binding import _read_metadata
-    from claxon_tpu_torch.testing import encode_flac, pcm_md5, synth_music
+    from claxon_tpu_torch.testing import pcm_md5
     from claxon_tpu_torch.testing.flacgen import _utf8_like
 
     bs, nch, bps, rate = 4096, 8, 24, 96000
-    pcm = synth_music(bs * LARGE_SOURCE_FRAMES, channels=nch, bps=bps,
-                      seed=4000, sample_rate=rate).astype(np.int32)
-    src = encode_flac(pcm, rate, bps, block_size=bs, force_subframe="fixed",
-                      rice2=True, partition_order=2)
+    src, pcm = large_source()
     _si, pos = _read_metadata(src)
     _si, bb = native.extract_stream_bits(src, emit_slots=False)
     if (bb.bframes["flags"] & 1).any():
@@ -836,9 +1026,11 @@ def phase_f():
     walk whole), bit-exact against the scalar decoder and the MD5."""
     import numpy as np
 
+    import torch
+
     import claxon_tpu_torch as ct
     from claxon_tpu_torch import native
-    from claxon_tpu_torch.ops import entropy
+    from claxon_tpu_torch.ops import demux, entropy, seg_parse, segment
     from claxon_tpu_torch.pipeline_bits import MAX_BATCH_BYTES
     from claxon_tpu_torch.testing import pcm_md5
 
@@ -878,6 +1070,33 @@ def phase_f():
             f"decoder and the MD5; {runs} runs below the "
             f"{MAX_BATCH_BYTES}-byte limit, {k2} K2 launches, "
             f"{dt:.1f} s to host")
+    # The segmented path hands this stream to the host walk whole (past
+    # the byte limit, and more than 2 channels, as the JAX package does),
+    # so K7 is held to its plain form on its frames directly: the source
+    # frames' sync scan and header parse (K5, K6) as one 8-channel group.
+    src, _pcm = large_source()
+    words_le = torch.from_numpy(np.frombuffer(
+        src + bytes(-len(src) % 4), "<i4").copy()).to(DEVICE)
+    i32 = dict(dtype=torch.int32, device=DEVICE)
+    ends = torch.full((8,), len(src), **i32)
+    stream = seg_parse.bswap_words(words_le)
+    cap, wcap = seg_parse.pick_cap(len(src)), 64
+    pos, valid, count, win = segment.find_frame_headers(stream, len(src),
+                                                        cap)
+    _f, _l, walk_in, counts = seg_parse.parse_candidates(
+        pos, valid, win, count, ends, torch.full((8,), 24, **i32), 4096, 8,
+        wcap)
+    n = int(counts[1])  # the frames, and any sync mimic that parses
+    if int(count) > cap or not LARGE_SOURCE_FRAMES <= n <= wcap:
+        raise AssertionError(f"large stream's frames: {int(count)} sync "
+                             f"hits (cap {cap}), {n} walked (wcap {wcap})")
+    r7 = compare("K7 large stream's frames",
+                 lambda: demux.walk_frames(stream, *walk_in, 4096, 8),
+                 lambda: demux.walk_frames_plain(stream, *walk_in, 4096, 8))
+    ok = demux.walk_frames(stream, *walk_in, 4096, 8)[2]
+    log(f"(f) large stream's {LARGE_SOURCE_FRAMES} distinct frames as one "
+        f"8-channel group, T=4096, {n} walk lanes: K7 == plain ({r7[1]:.3f} "
+        f"ms vs {r7[2]:.1f} ms); {int(ok.sum())} accepted by the walk")
 
 
 def phase_g(base, wide):
@@ -1017,6 +1236,10 @@ def main():
     seg_rows, seg_bounds = phase_b_seg(datas4, mixed)
     rows.update(seg_rows)
     bounds.update(seg_bounds)
+    queued = queued_bounds(**rows["main_dims"], W_seg=rows["seg_W"])
+    log("(b) byte bounds at the headline x4 shapes of the functions still "
+        f"to port ({rows['main_dims']}, W_seg={rows['seg_W']}): " +
+        "; ".join(f"{k} {v:.4f} ms" for k, v in queued.items()))
 
     # (c) each path, through the public calls.
     seg_wrappers = {
@@ -1340,6 +1563,12 @@ def main():
             k["bound_ms_segmented"] = bounds["K4_seg"][0]
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
+        if k["name"] == "K7":
+            # "launches" counts wrapper calls, each two kernel launches
+            # (walk, then values). Each segmented group: new and parent
+            # time, bound, cycles per step.
+            k["kernel_launches_per_call"] = 2
+            k["groups"] = rows["K7_groups"]
     torch_ops = [{"name": k, "source": src, "ms": rows[k][1],
                   "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
                  for k, src in (
@@ -1351,6 +1580,7 @@ def main():
     log(f"total {time.perf_counter() - t_start:.0f} s after the corpora "
         "were encoded")
     print(json.dumps({"kernels": kernels, "torch_ops": torch_ops,
+                      "queued_bounds_ms": queued,
                       "to_host_tail": to_host_tail,
                       "device_idle": {p: (None if v is None else
                                           {"busy_ms": v[0], "wall_ms": v[1]})

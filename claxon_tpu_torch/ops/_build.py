@@ -64,9 +64,10 @@ _SIGNATURES = {
     "cxk_seg_compact": [_P, _P, _N, _P, _N, _P, _P, _P, _P, _P, _P, _P],
     "cxk_seg_summary": [_P, _P, _P, _N, _P, _P, _P, _P, _N, _P, _P],
     # K7 -- stream, W, start_bits, bs, modes, bps0, F, T, nch, then the
-    # 13 per-lane outputs (demux.WALK_KEYS order), end_bits, ok, stream
+    # 13 per-lane outputs (demux.WALK_KEYS order), end_bits, ok, the
+    # scratch state and desc, stream
     "cxk_walk_frames": [_P, _N, _P, _P, _P, _P, _N, _N, _N] + [_P] * 13
-                       + [_P, _P, _P],
+                       + [_P] * 5,
     # K8 -- values, warm, order, rows, R, row_words, L, Tb32, out, stream
     "cxk_seg_gather": [_P, _P, _P, _P, _N, _N, _N, _N, _P, _P],
     # K3b -- x, L, T, per_lane, words, flag, stream; words, n_words, out,

@@ -291,14 +291,20 @@ def walk_frames(stream, start_bits, bs, modes, bps0, T, nch):
            for k, s in _lane_shapes(F * nch, T).items()}
     end_bits = torch.empty((F,), dtype=torch.int32, device=dev)
     ok = torch.empty((F,), dtype=torch.bool, device=dev)
+    # Scratch: each chunk's cursor and Rice parameter, each lane's shape.
+    state = torch.empty((F * nch * ((T + 31) // 32),), dtype=torch.int64,
+                        device=dev)
+    desc = torch.empty((F * nch, 4), dtype=torch.int32, device=dev)
     _build.check(lib.cxk_walk_frames(
         stream.data_ptr(), stream.shape[0], start_bits.data_ptr(),
         bs.data_ptr(), modes.data_ptr(), bps0.data_ptr(), F, T, nch,
         *(out[k].data_ptr() for k in WALK_KEYS), end_bits.data_ptr(),
-        ok.data_ptr(), _build.stream_handle(dev)), "cxk_walk_frames")
+        ok.data_ptr(), state.data_ptr(), desc.data_ptr(),
+        _build.stream_handle(dev)), "cxk_walk_frames")
     walk_frames.launches += 1
     return out, end_bits, ok
 
 
-#: kernel launches through the wrapper (CUDA tensors only).
+#: launches through the wrapper (CUDA tensors only); each is one call of
+#: ``cxk_walk_frames``, which runs the walk kernel, then the values kernel.
 walk_frames.launches = 0

@@ -485,3 +485,173 @@ def test_segmented_65535_bucket_on_the_card(cuda):
     assert dd.segmented and dd.fallback_streams == []
     assert np.array_equal(dd.to_host()[0].pcm,
                           native.decode_stream_scalar(data)[1])
+
+
+class _BitWriter:
+    """Big-endian bit writer for hand-made subframes."""
+
+    def __init__(self, n_bits=0):
+        self.bits = [0] * n_bits
+
+    def put(self, v, n):
+        self.bits.extend((v >> (n - 1 - i)) & 1 for i in range(n))
+
+    def rice(self, v, k):
+        u = (v << 1) ^ (v >> 63)  # zig-zag
+        self.bits.extend([0] * (u >> k) + [1])
+        self.put(u & ((1 << k) - 1), k)
+
+    def words(self, n_words=None):
+        bits = self.bits + [0] * ((-len(self.bits)) % 32)
+        w = np.packbits(np.array(bits, np.uint8)).view(">u4")
+        if n_words is not None:
+            w = np.concatenate([w, np.zeros(max(0, n_words - len(w)),
+                                            ">u4")])[:n_words]
+        return w.astype(np.int64).astype(np.uint32).view(np.int32)
+
+
+def _subframe(bw, rng, kind, bs, bps, porder=0, k=None, code_bits=None):
+    """Append one subframe: ("fixed", order) with a Rice residual (each
+    partition's k given, or random small residuals; ``code_bits`` makes
+    every code that long), ("verbatim",) or ("constant",)."""
+    if kind[0] == "constant":
+        bw.put(0, 8)
+        bw.put(int(rng.integers(0, 1 << bps)), bps)
+        return
+    if kind[0] == "verbatim":
+        bw.put(1 << 1, 8)
+        for _ in range(bs):
+            bw.put(int(rng.integers(0, 1 << bps)), bps)
+        return
+    order = kind[1]
+    bw.put((8 + order) << 1, 8)
+    for _ in range(order):
+        bw.put(int(rng.integers(0, 1 << bps)), bps)
+    bw.put(0, 2)
+    bw.put(porder, 4)
+    ps = bs >> porder
+    for p in range(1 << porder):
+        kp = int(rng.integers(0, 15)) if k is None else k
+        bw.put(kp, 4)
+        for _ in range(ps - (order if p == 0 else 0)):
+            if code_bits is not None:  # unary 0, then code_bits - 1 bits
+                bw.put(1, 1)
+                bw.put(int(rng.integers(0, 1 << kp)) if kp else 0, kp)
+            else:
+                bw.rice(int(rng.integers(-(1 << kp) * 3, (1 << kp) * 3 + 1)),
+                        kp)
+
+
+def _synthetic_group(rng, frames, nch, lead_bits=0, n_words=None):
+    """One stream of back-to-back hand-made frames (no frame headers: each
+    walk starts at its first subframe) and their walk lanes. ``frames`` is
+    a list of (bs, mode, bps, [per-channel subframe kwargs]) or None for a
+    padding lane (bs 0, start 0, bps 1)."""
+    bw = _BitWriter(lead_bits)
+    lanes = []
+    for fr in frames:
+        if fr is None:
+            lanes.append((0, 0, 0, 1))
+            continue
+        bs, mode, bps, chans = fr
+        lanes.append((len(bw.bits), bs, mode, bps))
+        for ch, kw in enumerate(chans):
+            side = nch == 2 and ((ch == 1 and mode in (1, 3)) or
+                                 (ch == 0 and mode == 2))
+            _subframe(bw, rng, bps=bps + side, bs=bs, **kw)
+        bw.put(0, (-len(bw.bits)) % 8)
+    return bw.words(n_words), tuple(np.array(c) for c in zip(*lanes))
+
+
+def _walk_edge_cases(rng):
+    """(name, stream words, (start_bits, bs, modes, bps), T, nch): the
+    redesigned walk's edges (ring refills, 32-bit verbatim lanes, block
+    sizes 1, 31, 33 and T, padding lanes, 8 channels, T = 65535, streams
+    whose word count is not a multiple of 4)."""
+    fx = dict(kind=("fixed", 0), porder=4, k=3, code_bits=4)
+    # 16 partitions of 255 4-bit codes: 1024 bits each, so every partition
+    # starts on a 16-byte unit once the residual does (lead bits 114 put
+    # the residual start at bit 128), or half a unit later (lead 50).
+    refill = [(4080, 0, 16, [fx, fx])]
+    cases = [(f"refills, lead {lead}", lead, refill * 3, 4096, 2)
+             for lead in (114, 50, 3)]
+    cases.append(("random Rice partitions", 0, [
+        (4096, m, 16, [dict(kind=("fixed", o), porder=po)] * 2)
+        for m, o, po in ((0, 2, 5), (1, 4, 6), (3, 1, 0), (2, 0, 3))],
+        4096, 2))
+    cases.append(("32-bit verbatim", 0, [
+        (256, 0, 32, [dict(kind=("verbatim",))] * 2),
+        (256, 0, 32, [dict(kind=("verbatim",)),
+                      dict(kind=("fixed", 2), porder=2)]),
+        (256, 1, 31, [dict(kind=("verbatim",))] * 2)], 256, 2))
+    for T in (32, 64, 256):
+        cases.append((f"block sizes 1, 31, 33, T at T={T}", 0, [
+            (bs, 0, 16, [dict(kind=kind)] * 2)
+            for bs in (1, 31, 33, T) if bs <= T
+            for kind in (("fixed", 0), ("verbatim",), ("constant",),
+                         ("fixed", 1))], T, 2))
+    real = (512, 3, 16, [dict(kind=("fixed", 2), porder=3)] * 2)
+    cases.append(("padding lanes between real lanes", 0,
+                  [real, None, real, None, None, real, None], 512, 2))
+    cases.append(("8 channels", 0, [
+        (1024, 0, 24, [dict(kind=("fixed", c % 5), porder=c % 4)
+                       for c in range(8)])] * 3, 1024, 8))
+    cases.append(("T = 65535", 0, [
+        (65535, 0, 16, [dict(kind=("fixed", 1), porder=0, k=2)]),
+        (40000, 0, 16, [dict(kind=("fixed", 3), porder=6)])], 65535, 1))
+    out = []
+    for name, lead, frames, T, nch in cases:
+        words, lanes = _synthetic_group(rng, frames, nch, lead)
+        out.append((name, words, lanes, T, nch))
+        if name == "random Rice partitions":
+            # The stream cut to word counts 4n + 1, 4n + 2, 4n + 3 inside
+            # the last frame: the last copies are partial, the rest reads
+            # as zero bits.
+            n = (len(words) - 40) // 4 * 4
+            for r in (1, 2, 3):
+                out.append((f"{name}, {n + r} words", words[:n + r], lanes,
+                            T, nch))
+    return out
+
+
+def _assert_walk_equal(got, want, label):
+    out, end, ok = got
+    p_out, p_end, p_ok = want
+    assert torch.equal(ok, p_ok) and torch.equal(end, p_end), label
+    for k in p_out:
+        assert torch.equal(out[k], p_out[k]), (label, k)
+
+
+@pytest.mark.parametrize("case", range(14))
+def test_walk_kernel_edges(cuda, case):
+    """Every output of the redesigned walk equals the plain form's on the
+    cases it was designed around (``_walk_edge_cases``)."""
+    from claxon_tpu_torch.ops import demux
+
+    name, words, lanes, T, nch = _walk_edge_cases(
+        np.random.default_rng(9))[case]
+    args = [_c(words, cuda)] + [_c(a, cuda) for a in lanes]
+    got = demux.walk_frames(*args, T, nch)
+    _assert_walk_equal(got, demux.walk_frames_plain(*args, T, nch), name)
+    if name.startswith(("refills", "8 channels", "T = ", "padding")) or \
+            name == "random Rice partitions":
+        real = torch.from_numpy(lanes[1] > 0)
+        assert bool(got[2].cpu()[real].all()), name
+
+
+def test_walk_kernel_misaligned_stream(cuda):
+    """A stream view that is not 16-byte aligned: the walk copies 4 bytes
+    at a time and gives the plain form's outputs."""
+    from claxon_tpu_torch.ops import demux
+
+    _name, words, lanes, T, nch = _walk_edge_cases(
+        np.random.default_rng(9))[3]
+    big = _c(np.concatenate([[0], words]), cuda)
+    stream = big[1:]
+    assert stream.data_ptr() % 16 != 0
+    args = [stream] + [_c(a, cuda) for a in lanes]
+    _assert_walk_equal(demux.walk_frames(*args, T, nch),
+                       demux.walk_frames_plain(*args, T, nch), "misaligned")
+    _assert_walk_equal(demux.walk_frames(*args, T, nch),
+                       demux.walk_frames(stream.clone(), *args[1:], T, nch),
+                       "misaligned vs aligned")

@@ -21,12 +21,24 @@ Phases, each of which raises on failure (so the script exits non-zero):
       of the headline bucket and of every mixed bucket that packs, plus
       their edge cases (the int16 boundaries, int32 extremes, one
       out-of-range value in the last column of the last lane, per-lane
-      flags, T = 2, pack -> unpack); K3 (torch ops, held to its CPU
-      result) and the mb unpack timed alone there; then K5 sync scan,
+      flags, T = 2, pack -> unpack); K1 + K3 fused against its plain form
+      and against K1 followed by K3's torch ops on every bucket, and timed
+      against them at the headline bucket; K3 alone (torch ops, held to
+      its CPU result) and the mb unpack timed alone there; K1 + K3 on the
+      fallback-frame buckets of a corpus whose frames the device decoder
+      cannot take (an int16 and an int32 upload); K4 against its plain
+      form, the host's crc16 and, when build/k4_parent/crc.cu holds the
+      parent's source, the parent kernel (timed parent, new, new, parent)
+      on the headline and mixed ranges and on edge inputs (one range over
+      the whole upload, 100,000 ranges of 0-3 bytes at every byte
+      offset, ranges straddling every step and item boundary, clamped
+      garbage), with the ptxas report of crc.cu and synth.cu; then K5
+      sync scan,
       K6 fused-demux body (bswap, header fields and compaction, summary),
       K7 subframe walk and K8 values gather on every group the segmented
       path builds for the headline and mixed corpora, and on every K8
-      dispatch of those decodes, and K4 on the segmented groups' ranges;
+      dispatch of those decodes (K1 + K3 there too), and K4 on the
+      segmented groups' ranges (beside its parent);
       at each of those groups K7's time beside its parent kernel's (when
       build/k7_parent/demux.cu holds the parent's source), its bound and
       cycles per step, with the ptxas report of both sources; and the byte
@@ -44,7 +56,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
       (its frame CRC repaired) must set the overflow flag and come back
       through the int32 refetch with the scalar decoder's PCM; each
       path's kernel launch counts are reset just before its headline
-      decode and read just after it; sync(), device_buckets() and
+      decode and read just after it (K1 alone and K3's torch ops must not
+      run on the card); the fallback corpus decodes through K1 + K3
+      alone; sync(), device_buckets() and
       lane_plans() must launch no K3b kernel; the segmented headline
       decode must not fall back, and the mixed 24-bit and generated
       6-channel streams must;
@@ -60,8 +74,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
   (f) decode one stream of at least 2^27 bytes (8 channels of 24-bit
       audio, FIXED subframes) on both paths: it walks in chunks of frames
       below the int32 limit, bit-exact against the scalar decoder and the
-      STREAMINFO MD5; K7 against its plain form on its distinct frames as
-      one 8-channel group;
+      STREAMINFO MD5; K4 against its plain form (and parent) on the
+      frame ranges of each run; K7 against its plain form on its distinct
+      frames as one 8-channel group;
   (g) mux each of the 8 headline streams, and the mixed 24-bit stream
       (whose bucket must not pack), into Ogg and into MP4 (3 frames per
       chunk) and decode them with decode_ogg_stream / decode_mp4_stream
@@ -70,14 +85,17 @@ Phases, each of which raises on failure (so the script exits non-zero):
       reference's errors.
 
 The last three lines are the kernels' JSON summary (time, plain time,
-bound and launches of each; K3 and the mb unpack, which are torch ops,
-under "torch_ops"), the card's name and power limit, and the
+bound and launches of each on each path; K1 alone, an entry point that
+no decode path runs, under "off_path_kernels"; K3 and the mb unpack,
+which are torch ops, under "torch_ops", K3 with its calls on the card),
+the card's name and power limit, and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result. It imports neither JAX nor
 the JAX package: the encoder, the C++ core and the errors are the
 port's own.
 """
 
+import functools
 import json
 import pathlib
 import statistics
@@ -122,14 +140,15 @@ LARGE_SOURCE_FRAMES = 31  # distinct frames, repeated with new numbers
 #: the kernels' integer multiply-adds.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-#: K1's first design on the headline bucket (PERF.md, measured on one
-#: NVIDIA H100 80GB HBM3 at 700 W), printed beside the new time.
-K1_OLD_MS = 1.181
 #: K7's parent design, timed beside the new one on the same inputs when its
 #: source is here (a build directory, never committed): made with
 #: ``mkdir -p build/k7_parent && git show <parent commit>:claxon_tpu_torch/
 #: csrc/demux.cu > build/k7_parent/demux.cu``.
 K7_PARENT_SRC = REPO / "build" / "k7_parent" / "demux.cu"
+#: K4's parent design (one thread per range), the same way: ``mkdir -p
+#: build/k4_parent && git show <parent commit>:claxon_tpu_torch/csrc/
+#: crc.cu > build/k4_parent/crc.cu``.
+K4_PARENT_SRC = REPO / "build" / "k4_parent" / "crc.cu"
 
 
 def log(msg):
@@ -165,18 +184,50 @@ def mixed_corpus():
     return datas
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
+def fallback_corpus():
+    """Two streams whose frames the device decoder cannot take
+    (partition order 7: more than its 64 partitions), so the host walk
+    decodes their residuals and the planner puts them in fallback-frame
+    buckets: 16-bit (uploaded as int16 pairs) and 24-bit (as int32)."""
+    from claxon_tpu_torch.testing import encode_flac, synth_music
+
+    return [encode_flac(synth_music(16384 * 3, channels=2, bps=bps,
+                                    seed=5000 + bps), 44100, bps,
+                        block_size=16384, max_lpc_order=4,
+                        partition_order=7) for bps in (16, 24)]
+
+
+def cuda_ms(fn, reps, queued=True):
+    """Mean milliseconds of ``fn()`` over ``reps`` runs, CUDA events.
+
+    Queued (the default, for kernels: ``fn`` must not wait for the card),
+    the runs are enqueued behind a sleep kernel that outlasts the
+    enqueueing, so the card runs them back to back and the time is the
+    card's, not the host's per-call time (Python, ctypes, allocations),
+    which paces a short kernel launched in a loop. Not queued, the host
+    paces the runs as a caller's loop would."""
     import torch
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 1 << 24  # about 8.5 ms at 1.98 GHz
+    while True:
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        if queued:
+            ev[0].record()
+            torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if not queued or ev[0].elapsed_time(ev[1]) > host_ms:
+            return ev[1].elapsed_time(ev[2]) / reps
+        if cycles >= 1 << 31:
+            raise AssertionError("the host could not enqueue the runs "
+                                 "ahead of the card")
+        cycles *= 4
 
 
 def tensor_bytes(*xs):
@@ -244,7 +295,111 @@ def compare(name, kernel_fn, plain_fn, reps=20):
                                .abs().max()))
     if len(got) != len(want) or err:
         raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
-    return err, cuda_ms(kernel_fn, reps), cuda_ms(plain_fn, 1)
+    return err, cuda_ms(kernel_fn, reps), cuda_ms(plain_fn, 1, queued=False)
+
+
+def compare_fused(tag, args, separate):
+    """The fused K1 + K3 kernel on ``args`` against its plain form and
+    against ``separate``, K1's kernel followed by K3's torch ops on the
+    card; returns compare()'s result."""
+    import torch
+
+    from claxon_tpu_torch.ops import predict
+
+    r = compare(f"K1+K3 {tag}", lambda: predict.synthesize_epilogue(*args),
+                lambda: predict.synthesize_epilogue_plain(*args))
+    if not torch.equal(predict.synthesize_epilogue(*args), separate):
+        raise AssertionError(f"K1+K3 {tag}: != K1 then K3's torch ops")
+    return r
+
+
+def k4_report(tag, stream, starts, ends, r4, parent):
+    """K4 on one set of ranges: its time beside the parent kernel's on the
+    same inputs (outputs equal), in the order parent, new, new, parent,
+    and its byte bound. Returns a dict of the numbers."""
+    import torch
+
+    from claxon_tpu_torch.ops import crc
+
+    def new():
+        return crc.crc16_ranges(stream, starts, ends)
+
+    nb = bound(tensor_bytes(stream, starts, ends, starts))
+    rep = {"ms": r4[1], "plain_ms": r4[2], "bound_ms": nb[0],
+           "parent_ms": None}
+    old_s = "not built (no parent source)"
+    if parent is not None:
+        if not torch.equal(parent(stream, starts, ends), new()):
+            raise AssertionError(f"K4 {tag}: parent != new kernel")
+        runs = [cuda_ms(lambda: parent(stream, starts, ends), 10),
+                cuda_ms(new, 20), cuda_ms(new, 20),
+                cuda_ms(lambda: parent(stream, starts, ends), 10)]
+        rep.update(parent_ms=(runs[0] + runs[3]) / 2,
+                   ms=(runs[1] + runs[2]) / 2, runs=runs)
+        old_s = (f"{rep['parent_ms']:.4f} ms (runs parent, new, new, "
+                 f"parent: {', '.join(f'{t:.4f}' for t in runs)}), outputs "
+                 "equal")
+    log(f"(b) K4 {tag}: new {rep['ms']:.4f} ms; parent {old_s}; bound "
+        f"{nb[0]:.4f} ms ({nb[1]})")
+    return rep
+
+
+def phase_b_crc(stream, parent):
+    """K4's edge inputs on the headline upload ``stream`` (W words): one
+    range over the whole upload (held to the host's crc16, which is exact,
+    since the plain form steps one byte at a time), 100,000 ranges of 0-3
+    bytes at every byte offset, ranges straddling every 512-byte step and
+    4096-byte item boundary and of lengths around those sizes, and
+    clamped garbage (held to the plain form); every case also to the
+    parent kernel when it is built."""
+    import numpy as np
+    import torch
+
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.ops import crc
+
+    rng = np.random.default_rng(41)
+    nb = 4 * stream.shape[0]
+    raw = stream.cpu().numpy().astype(">i4").tobytes()
+    b = np.repeat(np.arange(512, 1 << 20, 512), 2)
+    sizes = np.array([1, 511, 512, 513, 4095, 4096, 4097, 8191, 8192, 8193])
+    at = rng.integers(0, nb - 9000, 4 * sizes.size)
+    near = np.concatenate([rng.integers(-5000, 5000, 500),
+                           rng.integers(nb - 5000, nb + 5000, 500)])
+    tiny = np.arange(100000)
+    cases = {
+        "one range over the whole upload, and two inside it": (
+            [0, 1, 3], [nb, nb - 1, nb - 5]),
+        "100,000 ranges of 0-3 bytes at every byte offset": (
+            tiny, tiny + tiny % 4),
+        "ranges straddling every step and item boundary": (
+            np.concatenate([b - rng.integers(1, 600, b.size),
+                            at - at % 4 + np.arange(at.size) % 4]),
+            np.concatenate([b + rng.integers(1, 4700, b.size),
+                            at - at % 4 + np.arange(at.size) % 4
+                            + np.tile(sizes, 4)])),
+        "clamped garbage": (near, near + rng.integers(-100, 8000,
+                                                       near.size)),
+    }
+    for label, (s, e) in cases.items():
+        st = torch.from_numpy(np.asarray(s, np.int32)).to(DEVICE)
+        en = torch.from_numpy(np.asarray(e, np.int32)).to(DEVICE)
+        got = crc.crc16_ranges(stream, st, en)
+        if label.startswith("one range"):
+            want = [native.crc16_bytes(raw[a:b_]) for a, b_ in zip(s, e)]
+            if got.tolist() != want:
+                raise AssertionError(f"K4 {label}: != host crc16")
+            ref = "the host's crc16"
+        else:
+            compare(f"K4 {label}", lambda: crc.crc16_ranges(stream, st, en),
+                    lambda: crc.crc16_ranges_plain(stream, st, en), 1)
+            ref = "the plain form"
+        if parent is not None:
+            if not torch.equal(parent(stream, st, en), got):
+                raise AssertionError(f"K4 {label}: parent != new kernel")
+            ref += " and the parent kernel"
+        log(f"(b) K4 {label} (F={st.shape[0]}, W={stream.shape[0]}): == "
+            f"{ref}")
 
 
 def phase_b(datas4, mixed):
@@ -265,6 +420,11 @@ def phase_b(datas4, mixed):
         return o.to(torch.int16).view(torch.int32)
 
     rows, bounds, library = {}, {}, {}
+    parent = k4_parent_crc()
+    log("(b) K4 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
+                                 "crc.cu"))
+    log("(b) K1, K1+K3 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
+                                        "synth.cu"))
     for label, datas in (("headline", datas4), ("mixed", mixed)):
         bp = plan_raw_bits(extract_streams_bits(datas, native), 128)
         for bi, b in enumerate(bp.bits):
@@ -290,12 +450,18 @@ def phase_b(datas4, mixed):
             log(f"(b) {label} bucket {bi} {shape}: K2 == plain "
                 f"({r2[1]:.3f} ms vs {r2[2]:.1f} ms), K1 == plain "
                 f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms)")
-            # K3 (torch ops) on K1's output, then K3b on K3's: the bucket
-            # as start_fetch() packs it, and the packed words unpacked (a
-            # fallback bucket's upload at this bucket's size).
+            # K1 + K3 fused against K1 then K3's torch ops, then K3b on
+            # its output: the bucket as start_fetch() packs it, and the
+            # packed words unpacked (a fallback bucket's upload at this
+            # bucket's size).
             y = predict.synthesize(*k1_args)
             k3_args = (y, u["wasted"], u["pair_modes"])
-            out = epilogue.apply_epilogue(*k3_args)
+            k13_args = k1_args + k3_args[1:]
+            r13 = compare_fused(f"{label}[{bi}] {shape}", k13_args,
+                                epilogue.apply_epilogue(*k3_args))
+            out = predict.synthesize_epilogue(*k13_args)
+            log(f"(b) {label} bucket {bi} {shape}: K1+K3 == plain == K1 "
+                f"then K3's torch ops ({r13[1]:.3f} ms vs {r13[2]:.1f} ms)")
             rp = ru = None
             if b.out_packed:
                 rp = compare(f"K3b pack {label}[{bi}] {shape}",
@@ -329,7 +495,7 @@ def phase_b(datas4, mixed):
             else:
                 log(f"(b) {label} bucket {bi} {shape}: does not pack")
             if label == "headline" and bi == 0:
-                rows["K2"], rows["K1"] = r2, r1
+                rows["K2"], rows["K1"], rows["K1+K3"] = r2, r1, r13
                 rows["K3b_pack"], rows["K3b_unpack"] = rp, ru
                 bounds["K3b_pack"] = bound(tensor_bytes(out, words, flag))
                 bounds["K3b_unpack"] = bound(tensor_bytes(words, out))
@@ -356,6 +522,15 @@ def phase_b(datas4, mixed):
                                 20)
                 rows["K3"] = (0, k3_ms, k3_ms)
                 rows["unpack_mb"] = (0, mb_ms, mb_ms)
+                # The same, paced by the host as a decode's loop is.
+                paced = rows.setdefault("paced", {})
+                for name, fn in (
+                        ("K1+K3",
+                         lambda: predict.synthesize_epilogue(*k13_args)),
+                        ("K3", lambda: epilogue.apply_epilogue(*k3_args)),
+                        ("unpack_mb",
+                         lambda: unpack_mb(mb, b.n_parts_max, b.nc))):
+                    paced[name] = cuda_ms(fn, 20, queued=False)
                 bounds["K3"] = bound(tensor_bytes(k3_args, out))
                 bounds["unpack_mb"] = bound(tensor_bytes(mb, u))
                 # The mb's int16 tail, which unpack_mb gives to K3b unpack
@@ -387,6 +562,15 @@ def phase_b(datas4, mixed):
                 bounds["K2"] = bound(tensor_bytes(k2_args, x))
                 bounds["K1"] = bound(2 * tensor_bytes(x) + tensor_bytes(
                     k1_args[1:]), synth_ops(u["orders"], u["lengths"]))
+                bounds["K1+K3"] = bound(2 * tensor_bytes(x) + tensor_bytes(
+                    k13_args[1:]), synth_ops(u["orders"], u["lengths"]))
+                log(f"(b) headline bucket: K1+K3 fused {r13[1]:.4f} ms "
+                    f"against K1 {r1[1]:.4f} ms + K3's torch ops "
+                    f"{k3_ms:.4f} ms = {r1[1] + k3_ms:.4f} ms; bound "
+                    f"{bounds['K1+K3'][0]:.4f} ms ({bounds['K1+K3'][1]}); "
+                    f"paced by the host: K1+K3 {paced['K1+K3']:.4f} ms, K3 "
+                    f"{paced['K3']:.4f} ms, mb unpack "
+                    f"{paced['unpack_mb']:.4f} ms")
                 main_shape = shape
                 n = bp.n_crc
                 rows["main_dims"] = dict(
@@ -424,11 +608,20 @@ def phase_b(datas4, mixed):
             raise AssertionError(f"K4 {label}: an intact frame failed")
         log(f"(b) {label} K4 F={starts.shape[0]}: == plain == host crc16 "
             f"({r4[1]:.3f} ms vs {r4[2]:.1f} ms)")
+        rep = k4_report(f"{label} F={starts.shape[0]} W={stream.shape[0]}",
+                        stream, starts, ends, r4, parent)
         if label == "headline":
-            rows["K4"] = r4
+            rows["paced"]["K4"] = cuda_ms(
+                lambda: crc.crc16_ranges(stream, starts, ends), 20,
+                queued=False)
+            log(f"(b) headline K4 paced by the host: "
+                f"{rows['paced']['K4']:.4f} ms")
+            rows["K4"] = (r4[0], rep["ms"], r4[2])
+            rows["K4_parent"] = rep
             # Output: one int32 per range, the size of starts.
             bounds["K4"] = bound(tensor_bytes(stream, starts, ends, starts))
             k4_shape = f"F={starts.shape[0]}"
+            phase_b_crc(stream, parent)
 
     # K1 edge cases: order 32, shift 15, |c| = 2^15 - 1, int32 wrap.
     rng = np.random.default_rng(3)
@@ -477,6 +670,38 @@ def phase_b(datas4, mixed):
         k1_case("ragged lanes, lengths below T", 100, T,
                 rng.integers(0, 33, 100), short=True)
     return rows, bounds, library, main_shape, k4_shape
+
+
+def phase_b_fallback(datas):
+    """The fused K1 + K3 kernel on every fallback-frame bucket the
+    host-walk planner builds for each stream of ``datas`` alone, on the
+    inputs decode_raw_bits_device gives it (an int16-pair upload unpacked
+    by K3b first)."""
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.ops import epilogue, predict
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import _to_device, plan_raw_bits
+
+    buckets = [s for data in datas for s in plan_raw_bits(
+        extract_streams_bits([data], native), 128).samples]
+    if sorted(s.in_packed for s in buckets) != [False, True]:
+        raise AssertionError("the fallback corpus did not give one int16 "
+                             "and one int32 fallback bucket")
+    for si, s in enumerate(buckets):
+        x, coefs, shifts, orders, wasted, pair_modes, lengths = (
+            _to_device(a, DEVICE) for a in (
+                s.x, s.coefs, s.shifts, s.orders, s.wasted, s.pair_modes,
+                s.lengths))
+        if s.in_packed:
+            x = epilogue.unpack_int16_pairs(x)
+        args = (x, coefs, shifts, orders, lengths, wasted, pair_modes)
+        r = compare_fused(f"fallback bucket {si}", args,
+                          epilogue.apply_epilogue(
+                              predict.synthesize(*args[:5]), *args[5:]))
+        log(f"(b) fallback bucket {si} L={x.shape[0]} T={x.shape[1]} "
+            f"({'int16 pairs' if s.in_packed else 'int32'} upload): K1+K3 "
+            f"== plain == K1 then K3's torch ops ({r[1]:.3f} ms vs "
+            f"{r[2]:.1f} ms)")
 
 
 def phase_b_pack16():
@@ -551,17 +776,12 @@ def phase_b_seg(datas4, mixed):
     import torch
 
     from claxon_tpu_torch import pipeline_seg
-    from claxon_tpu_torch.ops import (crc, demux, predict, seg_gather,
-                                      seg_parse, segment)
+    from claxon_tpu_torch.ops import (crc, demux, epilogue, predict,
+                                      seg_gather, seg_parse, segment)
 
-    def lib_unpack(w):
-        return w.view(torch.int16).to(torch.int32)
-
-    def lib_pack_words(o):
-        return o.to(torch.int16).view(torch.int32)
-
-    rows, bounds, library = {}, {}, {}
+    rows, bounds = {}, {}
     parent = k7_parent_walk()
+    k4_parent = k4_parent_crc()
     log("(b) K7 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
                                  "demux.cu"))
     clock = None
@@ -582,7 +802,8 @@ def phase_b_seg(datas4, mixed):
             k8_calls.append((walk["values"], walk["warm"], walk["order"],
                              rows_t, tb32))
             k1_calls.append((walk, rows_t,
-                             torch.from_numpy(lengths).to(device)))
+                             torch.from_numpy(lengths).to(device),
+                             torch.from_numpy(modes[0::2].copy()).to(device)))
             return dispatch(walk, rws, lengths, modes, tb32, device)
 
         pipeline_seg._dispatch_values = recording
@@ -606,8 +827,12 @@ def phase_b_seg(datas4, mixed):
             log(f"(b) {label} segmented K4 group {gi} "
                 f"F={starts.shape[0]} W={stream.shape[0]}: == plain "
                 f"({r4[1]:.3f} ms vs {r4[2]:.1f} ms)")
+            rep = k4_report(f"segmented {label}[{gi}] F={starts.shape[0]} "
+                            f"W={stream.shape[0]}", stream, starts, ends, r4,
+                            k4_parent)
             if label == "headline" and gi == 0:
-                rows["K4_seg"] = r4
+                rows["K4_seg"] = (r4[0], rep["ms"], r4[2])
+                rows["K4_seg_parent"] = rep
                 bounds["K4_seg"] = bound(tensor_bytes(stream, starts, ends,
                                                       starts))
         for gi, group in enumerate(pending.groups):
@@ -685,16 +910,21 @@ def phase_b_seg(datas4, mixed):
                 f"Tb={tb32} rows of {values.shape[1]}: K8 == plain "
                 f"({r8[1]:.3f} ms vs {r8[2]:.1f} ms)")
             # K1's inputs in this dispatch, as _dispatch_values builds them.
-            walk1, rows1, lengths1 = k1_calls[ci]
+            walk1, rows1, lengths1, modes1 = k1_calls[ci]
             args1 = (seg_gather.gather_values(*args),
                      *(walk1[k].index_select(0, rows1)
                        for k in ("coefs", "shift", "order")), lengths1)
             r1 = compare(f"K1 segmented {label}[{ci}]",
                          lambda: predict.synthesize(*args1),
                          lambda: predict.synthesize_plain(*args1))
+            k3_1 = (walk1["wasted"].index_select(0, rows1), modes1)
+            r13 = compare_fused(f"segmented {label}[{ci}]", args1 + k3_1,
+                                epilogue.apply_epilogue(
+                                    predict.synthesize(*args1), *k3_1))
             log(f"(b) {label} segmented K1 dispatch {ci} "
                 f"L={args1[0].shape[0]} T={args1[0].shape[1]}: K1 == plain "
-                f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms)")
+                f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms); K1+K3 == plain == K1 "
+                f"then K3's torch ops ({r13[1]:.3f} ms vs {r13[2]:.1f} ms)")
             if label == "headline" and ci == 0:
                 rows["K8"] = r8
                 rows["k8_shape"] = f"L={rws.shape[0]} Tb={tb32}"
@@ -771,25 +1001,68 @@ def queued_bounds(L, T, P, SA, W, F, B, W_seg):
     return {k: bound(v)[0] for k, v in nbytes.items()}
 
 
+def build_parent(label, src):
+    """The ctypes library of a parent kernel built from ``src`` with the
+    port's flags, or None when that file is absent. Its ptxas report is
+    printed."""
+    import ctypes
+
+    from claxon_tpu_torch.ops import _build
+
+    if not src.exists():
+        return None
+    so = src.with_name(f"lib{src.parent.name}.so")
+    subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o",
+                    str(so), str(src)], check=True, timeout=600,
+                   capture_output=True)
+    log(f"(b) {label} parent kernel built from {src.relative_to(REPO)}; "
+        + ptxas_report(src))
+    return ctypes.CDLL(str(so))
+
+
+@functools.lru_cache(maxsize=None)
+def k4_parent_crc():
+    """K4's parent kernel as a callable with crc16_ranges' arguments and
+    result, built from ``K4_PARENT_SRC``; None when that file is absent."""
+    import ctypes
+
+    import torch
+
+    from claxon_tpu_torch.ops import _build
+
+    lib = build_parent("K4", K4_PARENT_SRC)
+    if lib is None:
+        return None
+    fn = lib.cxk_crc16_ranges
+    P, N = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [P, N, P, P, P, N, P]
+    fn.restype = ctypes.c_int
+
+    def crc16(stream, starts, ends):
+        out = torch.empty(starts.shape, dtype=torch.int32,
+                          device=stream.device)
+        _build.check(fn(stream.data_ptr(), stream.shape[0],
+                        starts.data_ptr(), ends.data_ptr(), out.data_ptr(),
+                        starts.shape[0], _build.stream_handle(stream.device)),
+                     "parent cxk_crc16_ranges")
+        return out
+
+    return crc16
+
+
 def k7_parent_walk():
     """K7's parent kernel as a callable with walk_frames' arguments and
-    results, built from ``K7_PARENT_SRC``; None when that file is absent.
-    Its ptxas report is printed."""
+    results, built from ``K7_PARENT_SRC``; None when that file is absent."""
     import ctypes
 
     import torch
 
     from claxon_tpu_torch.ops import _build, demux
 
-    if not K7_PARENT_SRC.exists():
+    lib = build_parent("K7", K7_PARENT_SRC)
+    if lib is None:
         return None
-    so = K7_PARENT_SRC.with_name("libk7_parent.so")
-    subprocess.run([_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v",
-                    "-shared", "-o", str(so), str(K7_PARENT_SRC)],
-                   check=True, timeout=600, capture_output=True)
-    log("(b) K7 parent kernel built from " + str(K7_PARENT_SRC.relative_to(
-        REPO)) + "; " + ptxas_report(K7_PARENT_SRC))
-    fn = ctypes.CDLL(str(so)).cxk_walk_frames
+    fn = lib.cxk_walk_frames
     P, N = ctypes.c_void_p, ctypes.c_int64
     fn.argtypes = [P, N, P, P, P, P, N, N, N] + [P] * 16
     fn.restype = ctypes.c_int
@@ -1029,8 +1302,8 @@ def phase_f():
     import torch
 
     import claxon_tpu_torch as ct
-    from claxon_tpu_torch import native
-    from claxon_tpu_torch.ops import demux, entropy, seg_parse, segment
+    from claxon_tpu_torch import native, pipeline_bits
+    from claxon_tpu_torch.ops import crc, demux, entropy, seg_parse, segment
     from claxon_tpu_torch.pipeline_bits import MAX_BATCH_BYTES
     from claxon_tpu_torch.testing import pcm_md5
 
@@ -1049,11 +1322,22 @@ def phase_f():
         raise AssertionError("large stream: scalar decoder MD5 mismatch")
     log(f"(f) large stream: scalar decoder == source PCM == STREAMINFO MD5 "
         f"({time.perf_counter() - t0:.1f} s)")
+    k4_calls = []
+
+    def recording_crc(stream, starts, ends):
+        k4_calls.append((stream, starts, ends))
+        return crc.crc16_ranges(stream, starts, ends)
+
     for path in ("host", "device"):
         entropy.decode_residual_bits_stream.launches = 0
         t0 = time.perf_counter()
-        dd = ct.decode_streams_device([data], segmentation=path,
-                                      device=DEVICE)
+        if path == "host":
+            pipeline_bits.crc16_ranges = recording_crc
+        try:
+            dd = ct.decode_streams_device([data], segmentation=path,
+                                          device=DEVICE)
+        finally:
+            pipeline_bits.crc16_ranges = crc.crc16_ranges
         runs = len(dd.crc_check or [])  # one CRC dispatch per run
         dec = dd.to_host()[0]
         dt = time.perf_counter() - t0
@@ -1070,6 +1354,18 @@ def phase_f():
             f"decoder and the MD5; {runs} runs below the "
             f"{MAX_BATCH_BYTES}-byte limit, {k2} K2 launches, "
             f"{dt:.1f} s to host")
+    # K4 on each run's frame ranges (the longest frames of any corpus).
+    parent = k4_parent_crc()
+    for i, (stream, starts, ends) in enumerate(k4_calls):
+        r4 = compare(f"K4 large stream run {i}",
+                     lambda: crc.crc16_ranges(stream, starts, ends),
+                     lambda: crc.crc16_ranges_plain(stream, starts, ends), 1)
+        k4_report(f"large stream run {i} F={starts.shape[0]} "
+                  f"W={stream.shape[0]}", stream, starts, ends, r4, parent)
+    if not k4_calls:
+        raise AssertionError("large stream: the host walk ran no K4")
+    log(f"(f) large stream: K4 == plain on the frame ranges of its "
+        f"{len(k4_calls)} runs")
     # The segmented path hands this stream to the host walk whole (past
     # the byte limit, and more than 2 channels, as the JAX package does),
     # so K7 is held to its plain form on its frames directly: the source
@@ -1111,7 +1407,8 @@ def phase_g(base, wide):
     from claxon_tpu_torch.testing import (mux_mp4_flac, mux_ogg_flac,
                                           pcm_md5)
 
-    wrappers = {"K1": predict.synthesize,
+    wrappers = {"K1+K3": predict.synthesize_epilogue,
+                "K1": predict.synthesize,
                 "K2": entropy.decode_residual_bits_stream,
                 "K4": crc.crc16_ranges,
                 "K3b_pack": epilogue.pack_int16_pairs,
@@ -1138,9 +1435,9 @@ def phase_g(base, wide):
                 raise AssertionError(f"(g) stream {i} from {name}: MD5 "
                                      "mismatch")
             packs = si.bits_per_sample <= 16
-            if (counts["K3b_pack"] > 0) != packs or not all(
+            if (counts["K3b_pack"] > 0) != packs or counts["K1"] or not all(
                     counts[k] > 0
-                    for k in ("K1", "K2", "K4", "K3b_unpack")):
+                    for k in ("K1+K3", "K2", "K4", "K3b_unpack")):
                 raise AssertionError(f"(g) stream {i} from {name}: "
                                      f"launches {counts}")
             if first is None:
@@ -1232,6 +1529,8 @@ def main():
 
     t_start = time.perf_counter()
     rows, bounds, library, main_shape, k4_shape = phase_b(datas4, mixed)
+    fallback = fallback_corpus()
+    phase_b_fallback(fallback)
     phase_b_pack16()
     seg_rows, seg_bounds = phase_b_seg(datas4, mixed)
     rows.update(seg_rows)
@@ -1247,26 +1546,47 @@ def main():
         "K6": [seg_parse.bswap_words, seg_parse.parse_candidates,
                seg_parse.pack_summary],
         "K7": [demux.walk_frames], "K8": [seg_gather.gather_values]}
-    wrappers = {"K1": [predict.synthesize],
+    wrappers = {"K1+K3": [predict.synthesize_epilogue],
+                "K1": [predict.synthesize],
                 "K2": [entropy.decode_residual_bits_stream],
                 "K4": [crc.crc16_ranges],
                 "K3b_pack": [epilogue.pack_int16_pairs],
                 "K3b_unpack": [epilogue.unpack_int16_pairs], **seg_wrappers}
+    # K3's torch ops are the fused kernel's plain form: count their calls
+    # on card tensors (there must be none on a decode path).
+    plain_k3 = epilogue.apply_epilogue
+    k3_on_card = [0]
+
+    def counted_k3(samples, wasted, pair_modes):
+        k3_on_card[0] += samples.device.type != "cpu"
+        return plain_k3(samples, wasted, pair_modes)
 
     def drive(path_kernels, fn):
         """Run fn with every launch count at 0; return the counts of the
-        path's kernels (a kernel's count sums its wrappers)."""
+        path's kernels (a kernel's count sums its wrappers). K1 alone and
+        K3's torch ops must not run on the card."""
         for ws in wrappers.values():
             for w in ws:
                 w.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
+        k3_on_card[0] = 0
+        epilogue.apply_epilogue = predict.apply_epilogue = counted_k3
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            epilogue.apply_epilogue = predict.apply_epilogue = plain_k3
         counts = {k: sum(w.launches for w in wrappers[k])
                   for k in path_kernels}
         for k, n in counts.items():
             if any(w.launches <= 0 for w in wrappers[k]):
                 raise AssertionError(f"{k} was not launched by the path "
                                      f"(counts {counts})")
+        if predict.synthesize.launches or k3_on_card[0]:
+            raise AssertionError(
+                f"the path ran K1 alone {predict.synthesize.launches} "
+                f"time(s) and K3's torch ops on the card {k3_on_card[0]} "
+                "time(s)")
+        counts["K3_torch_ops_on_card"] = k3_on_card[0]
         return out, counts
 
     def fetched(dd):
@@ -1293,7 +1613,7 @@ def main():
         return nbytes
 
     dd, launches = drive(
-        ("K1", "K2", "K4", "K3b_pack", "K3b_unpack"),
+        ("K1+K3", "K2", "K4", "K3b_pack", "K3b_unpack"),
         lambda: fetched(ct.decode_streams_device(datas4, device=DEVICE)))
     res = dd.results
     log(f"(c) host-walk path, launches in the headline decode to host: "
@@ -1305,10 +1625,11 @@ def main():
     if back != L * T * 2 + 4 or T != 4096:
         raise AssertionError(f"headline bucket {(L, T)}: {back} bytes "
                              f"copied back, expected {L * T * 2} + the flag")
-    log(f"(c) K1 on the main bucket ({main_shape}): new design "
-        f"{rows['K1'][1]:.4f} ms, bound {bounds['K1'][0]:.4f} ms "
-        f"({bounds['K1'][1]}), {launches['K1']} launch(es) in the headline "
-        f"decode; the old design took {K1_OLD_MS} ms there (PERF.md)")
+    log(f"(c) K1+K3 on the main bucket ({main_shape}): "
+        f"{rows['K1+K3'][1]:.4f} ms, bound {bounds['K1+K3'][0]:.4f} ms "
+        f"({bounds['K1+K3'][1]}), {launches['K1+K3']} launch(es) in the "
+        "headline decode; K1 alone and K3's torch ops ran on the card 0 "
+        "times")
     total_samples = sum(r.pcm.size for r in res)
     check_decoded(f"headline x{HEADLINE_REPLICAS}, decode_streams", datas4,
                   ct.decode_streams(datas4, device=DEVICE))
@@ -1317,6 +1638,12 @@ def main():
                     ct.decode_streams_device(mixed, device=DEVICE))
     to_host_checked("generated", generated,
                     ct.decode_streams_device(generated, device=DEVICE))
+    # Fallback-frame buckets only (no bits bucket, so no K2).
+    fb_dd, fb_launches = drive(
+        ("K1+K3", "K4"),
+        lambda: ct.decode_streams_device(fallback, device=DEVICE))
+    check_decoded("fallback corpus", fallback, fb_dd.to_host())
+    log(f"(c) fallback corpus, launches: {fb_launches}")
     check_decoded("generated, one stream at a time", generated,
                   [ct.decode_stream(d, device=DEVICE) for d in generated])
     check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches "
@@ -1343,7 +1670,7 @@ def main():
                                         device=DEVICE)
 
     dd, seg_launches = drive(
-        ("K1", "K4", "K5", "K6", "K7", "K8", "K3b_pack"),
+        ("K1+K3", "K4", "K5", "K6", "K7", "K8", "K3b_pack"),
         lambda: fetched(seg_decode(datas4)))
     launches.update({k: seg_launches[k] for k in seg_wrappers})
     log(f"(c) segmented path, launches in the headline decode to host: "
@@ -1529,8 +1856,8 @@ def main():
     g_launches = phase_g(base, mixed[MIXED_SPECS.index(MIXED_24BIT)])
     log(f"(g) launches in the first Ogg decode: {g_launches}")
 
-    sources = {"K1": ("claxon_tpu_torch/csrc/synth.cu",
-                      "claxon_tpu/ops/pallas_synth.py:127"),
+    sources = {"K1+K3": ("claxon_tpu_torch/csrc/synth.cu",
+                         "claxon_tpu/ops/pallas_synth.py:127"),
                "K2": ("claxon_tpu_torch/csrc/entropy.cu",
                       "claxon_tpu/ops/entropy.py:158"),
                "K4": ("claxon_tpu_torch/csrc/crc.cu",
@@ -1547,20 +1874,33 @@ def main():
                             "claxon_tpu/ops/epilogue.py:78"),
                "K3b_unpack": ("claxon_tpu_torch/csrc/pack16.cu",
                               "claxon_tpu/ops/epilogue.py:101")}
-    kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
-                "replaces": sources[k][1], "launches": launches[k],
+
+    def entry(k, source, replaces):
+        return {"name": k, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches.get(k, 0),
                 "max_abs_err": rows[k][0], "ms": rows[k][1],
                 "plain_ms": rows[k][2], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": library.get(k)}
-               for k in sources]
-    for k in kernels:
+
+    kernels = [entry(k, *src) for k, src in sources.items()]
+    # K1 alone is an entry point of its own, not on a decode path.
+    off_path = [entry("K1", *sources["K1+K3"])]
+    for k in kernels + off_path:
         # Launches of the segmented headline decode and of the first
         # container decode, beside the host-walk path's.
         k["launches_segmented"] = seg_launches.get(k["name"], 0)
         k["launches_ogg"] = g_launches.get(k["name"], 0)
+        if k["name"] == "K1+K3":
+            k["also_replaces"] = "claxon_tpu/ops/epilogue.py:39"
+            k["k1_alone_ms"] = rows["K1"][1]
+            k["k3_torch_ops_ms"] = rows["K3"][1]
         if k["name"] == "K4":
             k["ms_segmented"] = rows["K4_seg"][1]
             k["bound_ms_segmented"] = bounds["K4_seg"][0]
+            for key, rep in (("", rows["K4_parent"]),
+                             ("_segmented", rows["K4_seg_parent"])):
+                k["parent_ms" + key] = rep["parent_ms"]
+                k["runs" + key] = rep.get("runs")
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
         if k["name"] == "K7":
@@ -1574,12 +1914,20 @@ def main():
                  for k, src in (
                      ("K3", "claxon_tpu_torch/ops/epilogue.py"),
                      ("unpack_mb", "claxon_tpu_torch/pipeline_bits.py"))]
+    # K3 alone runs on no card path: its calls on card tensors.
+    torch_ops[0].update(
+        launches=launches["K3_torch_ops_on_card"],
+        launches_segmented=seg_launches["K3_torch_ops_on_card"])
+    for k in kernels + torch_ops:
+        if k["name"] in rows["paced"]:
+            k["ms_paced"] = rows["paced"][k["name"]]
     to_host_tail = [{"path": path, "transfer": mode, "wait_ms": w,
                      "scatter_ms": sc, "bytes": nb}
                     for (path, mode), (w, sc, nb) in split.items()]
     log(f"total {time.perf_counter() - t_start:.0f} s after the corpora "
         "were encoded")
-    print(json.dumps({"kernels": kernels, "torch_ops": torch_ops,
+    print(json.dumps({"kernels": kernels, "off_path_kernels": off_path,
+                      "torch_ops": torch_ops,
                       "queued_bounds_ms": queued,
                       "to_host_tail": to_host_tail,
                       "device_idle": {p: (None if v is None else

@@ -6,10 +6,11 @@ encoder ``testing``), so it imports nothing of ``claxon_tpu``; the device
 side is rewritten for an NVIDIA Hopper card:
 
 * ``ops`` -- each device kernel's wrapper beside its plain PyTorch form:
-  K1 synthesis, K2 stream Rice decode, K4 range CRC-16, K5 sync scan, K6
-  fused-demux body, K7 subframe walk, K8 values gather and K3b int16
-  pack/unpack as hand-written CUDA (``csrc/``, built with nvcc at first
-  use), K3 epilogue as torch ops;
+  K1 synthesis (with the K3 epilogue fused into its store), K2 stream
+  Rice decode, K4 range CRC-16, K5 sync scan, K6 fused-demux body, K7
+  subframe walk, K8 values gather and K3b int16 pack/unpack as
+  hand-written CUDA (``csrc/``, built with nvcc at first use); K3 alone
+  is torch ops, the fused kernel's plain form;
 * ``pipeline_bits`` -- numpy bucket planning and the per-bucket steps of
   the host-walk path;
 * ``pipeline_seg`` -- the segmented path (``segmentation="device"``):

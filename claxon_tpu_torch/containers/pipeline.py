@@ -5,8 +5,8 @@ Ogg audio packets are whole consecutive FLAC frames (one per packet) and
 MP4 chunks are runs of consecutive frames, so concatenating them
 reconstitutes a plain frame section. The port's C++ core walks it
 (boundaries only, frame CRC-16 checks deferred to the device) and the
-host-walk bits path decodes it on ``device``: K2, K1, K3 and K4, then K3b
-for the int16 fetch.
+host-walk bits path decodes it on ``device``: K2, K1 + K3 (one fused
+kernel) and K4, then K3b for the int16 fetch.
 
 A frame section of ``pipeline_bits.MAX_BATCH_BYTES`` or more (int32 chunk
 bit positions) decodes too: an Ogg payload walks in chunks of frames with

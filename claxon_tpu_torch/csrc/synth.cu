@@ -47,6 +47,20 @@
 //    wide bucket) store zeros without loading or computing.
 //
 // One thread per lane and one warp per block, as before.
+//
+// K3 fused into the store (Epilogue == true, cxk_synthesize_epilogue).
+// Replaces claxon_tpu/ops/epilogue.py:39 apply_epilogue, which XLA fused
+// into the synthesis program on the TPU; its plain form is ops/epilogue.py
+// ::apply_epilogue. Alone, as ten torch ops, it read and wrote the whole
+// (L, T) bucket again. Here it costs no bytes: lanes 2p and 2p + 1 of a
+// pair are two rows of one 32 x 32 tile (a block's 32 lanes start at a
+// multiple of 32), so each store of rows (2p, 2p + 1) applies the wasted
+// bits shift (wrapping; 0 for an amount outside [0, 32)) and the stereo
+// mode (1 left/side, 2 right/side, 3 mid/side; every other code passes
+// through) to both rows, in unsigned arithmetic that wraps. Each row's
+// shift and its pair's mode come by a warp shuffle from the thread that
+// owns the lane. Tiles past the warp's longest lane stay zeros: the
+// epilogue of two zero rows is zero. Epilogue == false is K1 alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,11 +128,27 @@ __device__ __forceinline__ void load_tile(Tile& tile, const int* x,
   cp_async_commit();
 }
 
-template <int NT>
+// K3 on rows (2p, 2p + 1) of a tile: info holds the even row's shift
+// (bits 0-5, 32 for "gives 0"), the odd row's (bits 8-13) and the pair's
+// mode (bits 16-17, 0 for every code that passes through).
+__device__ __forceinline__ void stereo(int a, int b, unsigned info, int& o0,
+                                       int& o1) {
+  const unsigned e0 = info & 63u, e1 = (info >> 8) & 63u, m = info >> 16;
+  const unsigned c0 = e0 < 32u ? (unsigned)a << e0 : 0u;
+  const unsigned c1 = e1 < 32u ? (unsigned)b << e1 : 0u;
+  const unsigned mid2 = (c0 << 1) | (c1 & 1u);
+  o0 = m == 2u ? (int)(c0 + c1)
+               : (m == 3u ? ((int)(mid2 + c1) >> 1) : (int)c0);
+  o1 = m == 1u ? (int)(c0 - c1)
+               : (m == 3u ? ((int)(mid2 - c1) >> 1) : (int)c1);
+}
+
+template <int NT, bool Epilogue>
 __device__ __forceinline__ void synth_warp(
     const int* __restrict__ x, const int* __restrict__ coefs,
     int* __restrict__ out, Tile* tiles, int64_t lane0, int64_t L, int64_t T,
-    int64_t busy, int tid, bool live, int shift, int order, int length) {
+    int64_t busy, int tid, bool live, int shift, int order, int length,
+    unsigned info) {
   const int64_t lane = lane0 + tid;
   int c[NT];
   int h[NT];  // h[k] = out[t - NT + k]
@@ -187,10 +217,24 @@ __device__ __forceinline__ void synth_warp(
     for (int j = 0; j < kTile; ++j) cur.v[tid][j] = xr[j];
     __syncwarp();
     const int64_t tc = t0 + tid;
+    if (Epilogue) {
+#pragma unroll 4
+      for (int r = 0; r < kLanes; r += 2) {
+        const unsigned inf = __shfl_sync(0xffffffffu, info, r);
+        int o0, o1;
+        stereo(cur.v[r][tid], cur.v[r + 1][tid], inf, o0, o1);
+        const int64_t l = lane0 + r;
+        if (tc < T) {
+          if (l < L) out[l * T + tc] = o0;
+          if (l + 1 < L) out[(l + 1) * T + tc] = o1;
+        }
+      }
+    } else {
 #pragma unroll 8
-    for (int r = 0; r < kLanes; ++r) {
-      const int64_t l = lane0 + r;
-      if (l < L && tc < T) out[l * T + tc] = cur.v[r][tid];
+      for (int r = 0; r < kLanes; ++r) {
+        const int64_t l = lane0 + r;
+        if (l < L && tc < T) out[l * T + tc] = cur.v[r][tid];
+      }
     }
     __syncwarp();  // the next prefetch overwrites this half
   }
@@ -204,10 +248,13 @@ __device__ __forceinline__ void synth_warp(
   }
 }
 
+template <bool Epilogue>
 __global__ void __launch_bounds__(kLanes)
 synth_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
              const int* __restrict__ shifts, const int* __restrict__ orders,
-             const int* __restrict__ lengths, int* __restrict__ out,
+             const int* __restrict__ lengths,
+             const int* __restrict__ wasted,
+             const int* __restrict__ pair_modes, int* __restrict__ out,
              int64_t L, int64_t T) {
   __shared__ Tile tiles[kStages];
   const int tid = threadIdx.x;
@@ -227,25 +274,33 @@ synth_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
   const int length = live ? lengths[lane] : 0;
   int64_t busy = __reduce_max_sync(0xffffffffu, length);
   busy = busy < 0 ? 0 : (busy > T ? T : busy);
+  unsigned info = 0;  // this pair's K3 parameters, on its even lane
+  if (Epilogue) {
+    const int w = live ? wasted[lane] : 0;
+    const unsigned e = (unsigned)w < 32u ? (unsigned)w : 32u;
+    const unsigned e_odd = __shfl_down_sync(0xffffffffu, e, 1);
+    const int m = live ? pair_modes[lane >> 1] : 0;
+    info = e | (e_odd << 8) | ((m >= 1 && m <= 3 ? (unsigned)m : 0u) << 16);
+  }
 
   if (nt <= 4)
-    synth_warp<4>(x, coefs, out, tiles, lane0, L, T, busy, tid, live, shift,
-                  order, length);
+    synth_warp<4, Epilogue>(x, coefs, out, tiles, lane0, L, T, busy, tid,
+                               live, shift, order, length, info);
   else if (nt <= 8)
-    synth_warp<8>(x, coefs, out, tiles, lane0, L, T, busy, tid, live, shift,
-                  order, length);
+    synth_warp<8, Epilogue>(x, coefs, out, tiles, lane0, L, T, busy, tid,
+                               live, shift, order, length, info);
   else if (nt <= 12)
-    synth_warp<12>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
-                   shift, order, length);
+    synth_warp<12, Epilogue>(x, coefs, out, tiles, lane0, L, T, busy, tid,
+                               live, shift, order, length, info);
   else if (nt <= 16)
-    synth_warp<16>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
-                   shift, order, length);
+    synth_warp<16, Epilogue>(x, coefs, out, tiles, lane0, L, T, busy, tid,
+                               live, shift, order, length, info);
   else if (nt <= 24)
-    synth_warp<24>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
-                   shift, order, length);
+    synth_warp<24, Epilogue>(x, coefs, out, tiles, lane0, L, T, busy, tid,
+                               live, shift, order, length, info);
   else
-    synth_warp<32>(x, coefs, out, tiles, lane0, L, T, busy, tid, live,
-                   shift, order, length);
+    synth_warp<32, Epilogue>(x, coefs, out, tiles, lane0, L, T, busy, tid,
+                               live, shift, order, length, info);
 }
 
 }  // namespace
@@ -256,8 +311,24 @@ extern "C" int cxk_synthesize(const int* x, const int* coefs,
                               int64_t T, void* stream) {
   if (L > 0 && T > 0) {
     const int64_t blocks = (L + kLanes - 1) / kLanes;
-    synth_kernel<<<(unsigned)blocks, kLanes, 0, (cudaStream_t)stream>>>(
-        x, coefs, shifts, orders, lengths, out, L, T);
+    synth_kernel<false><<<(unsigned)blocks, kLanes, 0,
+                          (cudaStream_t)stream>>>(
+        x, coefs, shifts, orders, lengths, nullptr, nullptr, out, L, T);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K1 + K3: wasted (L,) and pair_modes (L / 2,), L even.
+extern "C" int cxk_synthesize_epilogue(const int* x, const int* coefs,
+                                       const int* shifts, const int* orders,
+                                       const int* lengths, const int* wasted,
+                                       const int* pair_modes, int* out,
+                                       int64_t L, int64_t T, void* stream) {
+  if (L > 0 && T > 0) {
+    const int64_t blocks = (L + kLanes - 1) / kLanes;
+    synth_kernel<true><<<(unsigned)blocks, kLanes, 0,
+                         (cudaStream_t)stream>>>(
+        x, coefs, shifts, orders, lengths, wasted, pair_modes, out, L, T);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,13 @@
 """Device operators of the port: each kernel's wrapper beside its plain
 PyTorch form.
 
-* ``predict``  -- K1 synthesis (CUDA, ``csrc/synth.cu``);
+* ``predict``  -- K1 synthesis, alone and with K3 fused into its store
+  (CUDA, ``csrc/synth.cu``);
 * ``entropy``  -- K2 stream Rice decode (CUDA, ``csrc/entropy.cu``);
 * ``crc``      -- K4 range CRC-16 (CUDA, ``csrc/crc.cu``);
-* ``epilogue`` -- K3 wasted bits + stereo decorrelation (torch ops);
+* ``epilogue`` -- K3 wasted bits + stereo decorrelation (torch ops, the
+  plain form of the fused kernel) and K3b int16-pair pack and unpack
+  (CUDA, ``csrc/pack16.cu``);
 * ``segment``  -- K5 sync scan and header CRC-8 (CUDA, ``csrc/segment.cu``);
 * ``seg_parse`` -- K6 fused-demux body: bswap, header fields and
   compaction, summary (CUDA, ``csrc/seg_parse.cu``), and the fused run;

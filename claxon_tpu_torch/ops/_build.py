@@ -41,12 +41,15 @@ _N = ctypes.c_int64
 _SIGNATURES = {
     # x, coefs, shifts, orders, lengths, out, L, T, stream
     "cxk_synthesize": [_P, _P, _P, _P, _P, _P, _N, _N, _P],
+    # x, coefs, shifts, orders, lengths, wasted, pair_modes, out, L, T,
+    # stream
+    "cxk_synthesize_epilogue": [_P, _P, _P, _P, _P, _P, _P, _P, _N, _N, _P],
     # stream, W, bases, ks, KP, P, ps, orders, pbits, flags, warm, WM,
     # lengths, out, L, NC, SA, stream
     "cxk_entropy_stream": [_P, _N, _P, _P, _N, _N, _P, _P, _P, _P, _P, _N,
                            _P, _P, _N, _N, _N, _P],
-    # stream, W, starts, ends, out, F, stream
-    "cxk_crc16_ranges": [_P, _N, _P, _P, _P, _N, _P],
+    # stream, W, starts, ends, out, F, tables, item_off, stream
+    "cxk_crc16_ranges": [_P, _N, _P, _P, _P, _N, _P, _P, _P],
     # K5 -- W -> number of scan blocks; stream, W, n_bytes, blk, stream;
     # stream, W, n_bytes, incl, positions, C, stream; stream, W, n_bytes,
     # count, positions, valid, win, C, stream

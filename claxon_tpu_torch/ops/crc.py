@@ -4,18 +4,74 @@
 CRC-16 with polynomial 0x8005, init 0, MSB-first (claxon ``src/crc.rs``),
 over bytes ``[starts[f], ends[f])`` of an int32 stream whose words hold
 their bytes big-endian. Checking a frame together with its stored CRC
-gives 0 iff the CRC matches. Ranges are clamped to the upload: ``start``
-to ``[0, 4W]`` and ``end`` to ``[start, 4W]``.
+gives 0 iff the CRC matches.
+
+Ranges are clamped to the upload: ``start`` to ``[0, 4W]`` and ``end`` to
+``[start, 4W]`` (by design, so that no read leaves the stream). The JAX
+function does not clamp: its prefix lookups give other values outside
+the upload, for example on a 16-byte stream (-5, 3) -> 10002 there and
+1548 here, (10, 99) -> 64596 and 26503, (14, 12) -> 38786 and 0. No path
+hands K4 such a range: both planners pad with empty (0, 0) ranges
+(``pipeline_bits.plan_raw_bits``, ``pipeline_seg.finish_segmented``), and
+the ranges themselves come from walked frames.
+
+The kernel (``csrc/crc.cu``) splits the ranges into items of
+:data:`ITEM_BYTES` bytes aligned to each range's end, reads each item in
+warp-wide steps of :data:`STEP_BYTES`, and joins the pieces by linearity
+with the shift tables of :func:`kernel_tables`.
 """
 
 import numpy as np
 import torch
 
-from ..crc import CRC16_TABLE
+from ..crc import CRC16_TABLE, crc16_combine_matrices
 from . import _build
 from ._checks import on_cpu, require_cuda_int32
 
-__all__ = ["crc16_ranges", "crc16_ranges_plain"]
+__all__ = ["crc16_ranges", "crc16_ranges_plain", "kernel_tables",
+           "ITEM_BYTES", "STEP_BYTES", "LEVELS"]
+
+#: bytes of one work item of the kernel (one warp), and of one warp-wide
+#: step (16 bytes a lane).
+ITEM_BYTES = 4096
+STEP_BYTES = 512
+#: shift matrices M_0..M_30 (by 2^k zero bytes): an int32 range is
+#: shorter than 2^31 bytes.
+LEVELS = 31
+
+_TABLES = {}
+
+
+def _shift_rows(state, rows):
+    """Apply a GF(2) matrix given by its basis images to int array
+    ``state``."""
+    out = np.zeros_like(state)
+    for i in range(16):
+        out ^= np.where((state >> i) & 1 != 0, int(rows[i]), 0)
+    return out
+
+
+def kernel_tables():
+    """(1024 + LEVELS * 512,) int32: the slice-by-4 tables T0..T3
+    (``T_k[b]``, the CRC of byte b followed by k zero bytes), then for
+    each k < LEVELS the shift by 2^k zero bytes as two 256-entry tables,
+    the image of the state's low byte, then of its high byte."""
+    mats = crc16_combine_matrices(LEVELS)
+    b = np.arange(256, dtype=np.int64)
+    slices = [CRC16_TABLE.astype(np.int64)]
+    for _ in range(3):
+        slices.append(_shift_rows(slices[-1], mats[0]))
+    parts = slices[:]
+    for k in range(LEVELS):
+        parts += [_shift_rows(b, mats[k]), _shift_rows(b << 8, mats[k])]
+    return np.concatenate(parts).astype(np.int32)
+
+
+def _device_tables(dev):
+    t = _TABLES.get(dev)
+    if t is None:
+        t = _TABLES[dev] = torch.from_numpy(kernel_tables()).to(dev)
+    return t
 
 
 def crc16_ranges_plain(stream, starts, ends):
@@ -60,10 +116,11 @@ def crc16_ranges(stream, starts, ends):
     lib = _build.load()
     F = starts.shape[0]
     out = torch.empty((F,), dtype=torch.int32, device=dev)
+    item_off = torch.empty((F + 1,), dtype=torch.int64, device=dev)
     _build.check(lib.cxk_crc16_ranges(
         stream.data_ptr(), stream.shape[0], starts.data_ptr(),
-        ends.data_ptr(), out.data_ptr(), F, _build.stream_handle(dev)),
-        "cxk_crc16_ranges")
+        ends.data_ptr(), out.data_ptr(), F, _device_tables(dev).data_ptr(),
+        item_off.data_ptr(), _build.stream_handle(dev)), "cxk_crc16_ranges")
     crc16_ranges.launches += 1
     return out
 

@@ -2,9 +2,11 @@
 K3b: int16-pair transfer packing (counterpart of
 ``claxon_tpu.ops.epilogue``).
 
-K3 (``apply_epilogue``) is plain elementwise torch ops on either device:
-XLA fused it into the synthesis program on the TPU; fusing it into K1's
-store is later work. K3b (``pack_int16_pairs``, ``unpack_int16_pairs``)
+K3 (``apply_epilogue``) is plain elementwise torch ops on either device,
+and the plain form of K3 in the fused K1 + K3 kernel
+(``ops.predict.synthesize_epilogue``, ``csrc/synth.cu``), which the
+decode paths call: XLA fused it into the synthesis program on the TPU,
+and the kernel applies it as K1 stores each tile. K3b (``pack_int16_pairs``, ``unpack_int16_pairs``)
 is two CUDA kernels (``csrc/pack16.cu``), each beside its plain form:
 16-bit audio crosses the host link at half width, word w of a lane
 holding sample 2w in its low half and sample 2w+1 in its high half,

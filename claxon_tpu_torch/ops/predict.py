@@ -13,14 +13,20 @@ channel) per lane:
 Warm-up samples in ``x[:, :order]`` pass through, and ``t >= length``
 gives 0. The TPU's 8/16-bit limb arithmetic (``claxon_tpu.ops.i64``) is
 not carried over: PyTorch and CUDA have int64.
+
+:func:`synthesize_epilogue` is K1 with K3 (``ops.epilogue.
+apply_epilogue``: wasted bits and stereo decorrelation) fused into the
+kernel's store, as XLA fused them on the TPU; the decode paths call it.
 """
 
 import torch
 
 from . import _build
 from ._checks import on_cpu, require_cuda_int32
+from .epilogue import apply_epilogue
 
-__all__ = ["synthesize", "synthesize_plain", "ORDER_MAX"]
+__all__ = ["synthesize", "synthesize_plain", "synthesize_epilogue",
+           "synthesize_epilogue_plain", "ORDER_MAX"]
 
 ORDER_MAX = 32
 
@@ -81,5 +87,54 @@ def synthesize(x, coefs, shifts, orders, lengths=None):
     return out
 
 
-#: kernel launches through the wrapper (CUDA tensors only).
+def synthesize_epilogue_plain(x, coefs, shifts, orders, lengths, wasted,
+                              pair_modes):
+    """The plain PyTorch form of :func:`synthesize_epilogue`."""
+    return apply_epilogue(synthesize_plain(x, coefs, shifts, orders, lengths),
+                          wasted, pair_modes)
+
+
+def synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
+                        pair_modes):
+    """K1 + K3 wrapper: synthesis, then each lane's wasted-bits shift and
+    each lane pair's stereo decorrelation, in one kernel
+    (``csrc/synth.cu``, the epilogue applied as tiles are stored). The
+    plain form for CPU tensors; for CUDA tensors the kernel, or an
+    exception.
+
+    Args: those of :func:`synthesize_plain` (L even), then
+      wasted:     (L,) int32 wasted bits.
+      pair_modes: (L // 2,) int32 channel-assignment code of lanes
+                  (2p, 2p + 1).
+
+    Returns:
+      (L, T) int32 PCM.
+    """
+    if on_cpu(x, coefs, shifts, orders, lengths, wasted, pair_modes):
+        return synthesize_epilogue_plain(x, coefs, shifts, orders, lengths,
+                                         wasted, pair_modes)
+    dev = require_cuda_int32("synthesize_epilogue", x=x, coefs=coefs,
+                             shifts=shifts, orders=orders, lengths=lengths,
+                             wasted=wasted, pair_modes=pair_modes)
+    L, T = x.shape
+    if L % 2 or coefs.shape != (L, ORDER_MAX) or any(
+            v.shape != (L,) for v in (shifts, orders, lengths, wasted)) or \
+            pair_modes.shape != (L // 2,):
+        raise ValueError("synthesize_epilogue: expected L even, coefs "
+                         "(L, 32), (L,) shifts/orders/lengths/wasted and "
+                         "(L // 2,) pair_modes for x of shape "
+                         f"{tuple(x.shape)}")
+    lib = _build.load()
+    out = torch.empty_like(x)
+    _build.check(lib.cxk_synthesize_epilogue(
+        x.data_ptr(), coefs.data_ptr(), shifts.data_ptr(), orders.data_ptr(),
+        lengths.data_ptr(), wasted.data_ptr(), pair_modes.data_ptr(),
+        out.data_ptr(), L, T, _build.stream_handle(dev)),
+        "cxk_synthesize_epilogue")
+    synthesize_epilogue.launches += 1
+    return out
+
+
+#: kernel launches through each wrapper (CUDA tensors only).
 synthesize.launches = 0
+synthesize_epilogue.launches = 0

@@ -10,8 +10,9 @@ below), the fallback-frame buckets (their residuals as int16 pairs where
 they fit), and the frame CRC ranges ``se``. It produces the same bytes as
 the JAX package's planner, which a test holds it to.
 :func:`decode_raw_bits_device` uploads them and runs, per bucket, K2 ->
-K1 -> K3 (:func:`stream_step`), then (K3b unpack ->) K1 -> K3 for
-fallback frames, then K4 once per batch over every deferred frame CRC.
+K1 + K3 (:func:`stream_step`; K3 fused into K1's store), then (K3b
+unpack ->) K1 + K3 for fallback frames, then K4 once per batch over
+every deferred frame CRC.
 Each bucket also carries ``out_packed``, the JAX package's rule for
 fetching it as int16 pairs (``DeviceDecoded.start_fetch`` packs then).
 
@@ -27,8 +28,8 @@ import torch
 from .error import fmt_err
 from .ops.crc import crc16_ranges
 from .ops.entropy import decode_residual_bits_stream
-from .ops.epilogue import apply_epilogue, unpack_int16_pairs
-from .ops.predict import ORDER_MAX, synthesize
+from .ops.epilogue import unpack_int16_pairs
+from .ops.predict import ORDER_MAX, synthesize_epilogue
 
 __all__ = ["plan_raw_bits", "decode_raw_bits_device", "stream_step",
            "unpack_mb", "inputs_from_numpy"]
@@ -435,14 +436,14 @@ def unpack_mb(mb, n_parts_max, nc):
 
 def stream_step(stream, mb, n_parts_max, sa, nc):
     """One stream-mode bucket, stream (W,) + mb (L, C) -> (L, NC*32) int32
-    PCM: the mb unpack, then K2 entropy decode -> K1 synthesis -> K3
-    epilogue."""
+    PCM: the mb unpack, then K2 entropy decode -> K1 synthesis with the K3
+    epilogue fused into its store."""
     u = unpack_mb(mb, n_parts_max, nc)
     x = decode_residual_bits_stream(
         stream, u["bases"], u["ks"], u["ps"], u["orders"], u["pbits"],
         u["flags"], u["warm"], u["lengths"], n_parts_max=n_parts_max, sa=sa)
-    out = synthesize(x, u["coefs"], u["shifts"], u["orders"], u["lengths"])
-    return apply_epilogue(out, u["wasted"], u["pair_modes"])
+    return synthesize_epilogue(x, u["coefs"], u["shifts"], u["orders"],
+                               u["lengths"], u["wasted"], u["pair_modes"])
 
 
 def decode_raw_bits_device(braws, lane_quantum, device="cuda"):
@@ -468,8 +469,8 @@ def decode_raw_bits_device(braws, lane_quantum, device="cuda"):
         upload += sum(a.nbytes for a in arrays)
         if s.in_packed:
             x = unpack_int16_pairs(x)
-        out = apply_epilogue(synthesize(x, coefs, shifts, orders, lengths),
-                             wasted, pair_modes)
+        out = synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
+                                  pair_modes)
         dispatches.append(_BucketDispatch(s.n_ch, out, s.out_packed))
         plans.append(s.plan)
     dd = DeviceDecoded(bp.results, dispatches, plans, bp.pcms)

@@ -10,8 +10,8 @@ once, so ``begin_segmented`` returns with the group's work in flight.
 ``finish_segmented`` waits for each summary, chains the candidates of each
 stream (a real frame starts where the previous one's CRC-16 ends), and per
 (frame block-size bucket) dispatches K8 (gather the walk's decoded values
-and warm-up samples) -> K1 synthesis -> K3 epilogue, then K4 over the
-chained frames' CRC ranges.
+and warm-up samples) -> K1 synthesis with the K3 epilogue fused into its
+store, then K4 over the chained frames' CRC ranges.
 
 A stream that cannot ride this path -- more than 2 channels, a STREAMINFO
 block size above 65535, a walk-rejected frame, a chain break -- goes to
@@ -223,10 +223,9 @@ def _chain(k, size, idx, cpos, end_byte, ok_c, byte_off):
 
 
 def _dispatch_values(walk, rows, lengths, modes, tb32, device):
-    """K8 -> K1 -> K3 for one decode dispatch: (L,) int32 walk rows,
+    """K8 -> K1 + K3 for one decode dispatch: (L,) int32 walk rows,
     lengths and modes (numpy) -> (L, tb32) int32 PCM on the device."""
-    from .ops.epilogue import apply_epilogue
-    from .ops.predict import synthesize
+    from .ops.predict import synthesize_epilogue
     from .ops.seg_gather import gather_values
 
     L = rows.shape[0]
@@ -236,9 +235,9 @@ def _dispatch_values(walk, rows, lengths, modes, tb32, device):
     x = gather_values(walk["values"], walk["warm"], walk["order"], rows_t,
                       tb32)
     pick = lambda key: walk[key].index_select(0, rows_t)
-    ords = pick("order")
-    out = synthesize(x, pick("coefs"), pick("shift"), ords, lengths_t)
-    return apply_epilogue(out, pick("wasted"), pair_modes), plan.numel() * 4
+    out = synthesize_epilogue(x, pick("coefs"), pick("shift"), pick("order"),
+                              lengths_t, pick("wasted"), pair_modes)
+    return out, plan.numel() * 4
 
 
 def finish_segmented(pending):

@@ -128,6 +128,168 @@ def test_crc_kernel_matches_plain_and_host(cuda):
                             for a, b in zip(s, e)]
 
 
+def _crc_edge_case(case):
+    """(stream bytes, starts, ends) of a K4 edge case; the stream's byte
+    count is a multiple of 4 unless the case says otherwise (then its last
+    word is zero-padded)."""
+    rng = np.random.default_rng(31)
+
+    def data(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    if case == "no_ranges":
+        return data(4000), [], []
+    if case == "empty_and_inverted":
+        s = rng.integers(0, 4000, 64)
+        return data(4000), s, s - rng.integers(0, 3, 64)
+    if case == "every_start_byte":
+        s = np.arange(200)
+        return data(40000), s, s + rng.integers(0, 9000, 200)
+    if case == "whole_upload":
+        return data(1 << 20), [0, 1, 0], [1 << 20, (1 << 20) - 1, 1 << 19]
+    if case == "at_and_past_the_end":
+        n = 8192
+        return data(n), [n, n, n - 1, n - 5, n + 4, 0, -4], \
+            [n, n + 1, n, n + 99, n + 9, n + 1000, 3]
+    if case == "many_tiny":
+        s = rng.integers(0, 400000, 100000)
+        s[:4096] = np.arange(4096)
+        return data(400000), s, s + rng.integers(0, 4, 100000)
+    if case == "bytes_not_a_multiple_of_the_chunk":
+        n = 4 * 1025 - 1  # a word and 3 bytes past 4096
+        return data(n), [0, 1, 3, 4090, 2, 511], \
+            [n + 1, n, n - 1, n + 1, 4099, 4101]
+    if case == "straddling_every_boundary":
+        b = np.repeat(np.arange(512, 65536, 512), 3)
+        lo = b - rng.integers(1, 600, b.size)
+        return data(65536), lo, b + rng.integers(1, 4700, b.size)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "no_ranges", "empty_and_inverted", "every_start_byte", "whole_upload",
+    "at_and_past_the_end", "many_tiny", "bytes_not_a_multiple_of_the_chunk",
+    "straddling_every_boundary", "misaligned_view"])
+def test_crc_kernel_edges(cuda, case):
+    """K4's edges against the host's crc16 of the clamped range and, where
+    the ranges are short enough for its byte-per-step loop, the plain
+    form; the kernel counts one launch."""
+    from claxon_tpu_torch.ops import crc
+
+    raw, starts, ends = _crc_edge_case(
+        "straddling_every_boundary" if case == "misaligned_view" else case)
+    buf = raw + bytes(-len(raw) % 4)
+    words = np.frombuffer(buf, ">i4").astype(np.int32)
+    stream = _c(words, cuda)
+    if case == "misaligned_view":  # 4 bytes off a 16-byte boundary
+        base = torch.zeros(words.size + 1, dtype=torch.int32, device=cuda)
+        base[1:] = stream
+        stream = base[1:]
+        assert stream.data_ptr() % 16 == 4
+    st, en = _c(np.asarray(starts, np.int64), cuda), \
+        _c(np.asarray(ends, np.int64), cuda)
+    n = crc.crc16_ranges.launches
+    got = crc.crc16_ranges(stream, st, en)
+    torch.cuda.synchronize()
+    assert crc.crc16_ranges.launches == n + 1
+    assert got.shape == (len(starts),) and got.dtype == torch.int32
+    want = []
+    for a, b in zip(starts, ends):
+        a = min(max(int(a), 0), len(buf))
+        want.append(native.crc16_bytes(buf[a:min(max(int(b), a), len(buf))]))
+    assert got.tolist() == want
+    if len(starts) and int((en - st).max()) <= 10000:
+        assert torch.equal(got, crc.crc16_ranges_plain(stream, st, en))
+
+
+def _epilogue_case(case, rng):
+    """Inputs of the fused K1 + K3 kernel: (x, coefs, shifts, orders,
+    lengths, wasted, pair_modes) as numpy arrays."""
+    L, T = {"padding_lanes": (100, 333), "T1": (64, 1), "T31": (64, 31),
+            "T33": (64, 33), "L2": (2, 700)}.get(case, (64, 333))
+    x, coefs, shifts, orders, lengths = _synth_args(
+        rng, L, T, rng.integers(0, 33, L))
+    wasted = rng.integers(0, 32, L)
+    modes = np.resize(np.arange(8), L // 2)
+    if case == "wasted_32_and_up":
+        wasted = np.resize(np.array([32, 33, 100, -1, -(1 << 31),
+                                     (1 << 31) - 1, 31, 0]), L)
+    elif case == "padding_lanes":
+        lengths[-36:] = 0  # as the planners pad: length 0, order 0
+        orders[-36:] = 0
+        coefs[-36:] = 0
+    elif case == "pair_lengths_differ":
+        lengths = rng.integers(0, T + 1, L)
+        lengths[0::4] = 0
+        lengths[2::8] = T
+    elif case == "int16_unpacked_input":
+        # A fallback bucket: residuals uploaded as int16 pairs.
+        x = rng.integers(-32768, 32768, (L, T + 1))[:, :T & ~1]
+        x = np.ascontiguousarray(x)
+        coefs[:, :] = 0
+        coefs[:, -2:] = [-1, 2]
+        orders[:], shifts[:], lengths[:] = 2, 0, x.shape[1]
+    elif case == "int32_extremes":
+        x[:, :4] = [np.iinfo(np.int32).max, np.iinfo(np.int32).min, -1, 1]
+        orders[:] = 0
+    return [x, coefs, shifts, orders, lengths, wasted, modes]
+
+
+@pytest.mark.parametrize("case", [
+    "all_modes", "wasted_32_and_up", "padding_lanes", "T1", "T31", "T33",
+    "pair_lengths_differ", "int16_unpacked_input", "int32_extremes", "L2"])
+def test_synthesize_epilogue_kernel_matches_plain(cuda, case):
+    """K1 + K3 fused on the card equals K1 then K3's torch ops on the
+    card, and the plain form's result on the CPU: every mode code 0-7,
+    wasted bits at and past 32 (and negative: a shift outside [0, 32)
+    gives 0), padding lanes, T not a multiple of 32, lanes of one pair
+    with different lengths, an input unpacked from int16 pairs, int32
+    extremes, and L = 2."""
+    from claxon_tpu_torch.ops import epilogue, predict
+
+    args = _epilogue_case(case, np.random.default_rng(13))
+    cpu = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in args]
+    dev = [t.to(cuda) for t in cpu]
+    if case == "int16_unpacked_input":
+        x = cpu[0].numpy()
+        words = (x[:, 1::2] << 16) | (x[:, 0::2] & 0xFFFF)
+        dev[0] = epilogue.unpack_int16_pairs(_c(words, cuda))
+        assert torch.equal(dev[0].cpu(), cpu[0])
+    n = predict.synthesize_epilogue.launches
+    got = predict.synthesize_epilogue(*dev)
+    assert predict.synthesize_epilogue.launches == n + 1
+    two = epilogue.apply_epilogue(predict.synthesize(*dev[:5]), *dev[5:])
+    assert torch.equal(got, two)
+    assert torch.equal(got.cpu(), predict.synthesize_epilogue(*cpu))
+
+
+def test_epilogue_all_modes_through_the_fused_kernel(cuda):
+    """The watch-list case ``tests/test_torch_ops.py::
+    test_epilogue_matches_jax_all_modes`` on the card: its samples pass
+    K1 unchanged (order 0, no coefficients) and the fused epilogue equals
+    the CPU's apply_epilogue, which that test holds to the JAX
+    package's."""
+    from claxon_tpu_torch.ops import epilogue, predict
+
+    rng = np.random.default_rng(12)
+    L, T = 16, 32
+    samples = rng.integers(-(1 << 31), 1 << 31, (L, T), dtype=np.int64) \
+        .astype(np.int32)
+    samples[:L // 2] >>= rng.integers(0, 20, (L // 2, 1)).astype(np.int32)
+    samples[0, :4] = [np.iinfo(np.int32).max, np.iinfo(np.int32).min, -1, 1]
+    samples[1, :4] = [np.iinfo(np.int32).max, 1, np.iinfo(np.int32).min, -1]
+    wasted = rng.integers(0, 8, L).astype(np.int32)
+    wasted[2] = 31
+    pair_modes = np.tile(np.arange(4, dtype=np.int32), L // 8)
+    zeros = np.zeros(L, np.int32)
+    got = predict.synthesize_epilogue(
+        *(_c(a, cuda) for a in (samples, np.zeros((L, 32)), zeros, zeros,
+                                np.full(L, T), wasted, pair_modes)))
+    want = epilogue.apply_epilogue(*(torch.from_numpy(a) for a in (
+        samples, wasted, pair_modes)))
+    assert torch.equal(got.cpu(), want)
+
+
 def _pack16_case(case):
     rng = np.random.default_rng(8)
     i32 = np.iinfo(np.int32)

@@ -87,6 +87,16 @@ def test_crc16_bytes_matches_jax():
         assert tnative.crc16_bytes(raw) == jnative.crc16_bytes(raw)
 
 
+def test_crc16_combine_matrices_match_jax():
+    """The port's copy of the GF(2) shift matrices (K4's kernel tables)."""
+    from claxon_tpu.crc import crc16_combine_matrices as jmats
+    from claxon_tpu_torch.crc import crc16_combine_matrices as tmats
+
+    for n in (24, 28, 31):
+        assert np.array_equal(tmats(n), jmats(n))
+    assert np.array_equal(tmats(), jmats())
+
+
 SPECS = [
     dict(n=3000, channels=2, bps=16, seed=1, kw=dict(block_size=1152)),
     dict(n=2500, channels=1, bps=24, seed=2,

@@ -51,6 +51,11 @@ _SCRIPT = textwrap.dedent("""
     from claxon_tpu_torch.testing import (encode_flac, mux_mp4_flac,
                                           mux_ogg_flac, pcm_md5, synth_music)
 
+    from claxon_tpu_torch.crc import crc16_combine_matrices
+    from claxon_tpu_torch.ops.crc import kernel_tables
+
+    assert crc16_combine_matrices(31).shape == (31, 16)
+    assert kernel_tables().shape == (1024 + 31 * 512,)
     pcm = synth_music(3000, channels=2, bps=16, seed=5)
     data = encode_flac(pcm, 44100, 16, block_size=1152)
     dec = ct.decode_stream(data, device="cpu")

@@ -22,6 +22,7 @@ from claxon_tpu.ops.pallas_synth import synthesize_pallas
 from claxon_tpu.ops.predict import synthesize, synthesize_reference
 from claxon_tpu.testing import encode_flac, synth_music
 
+from claxon_tpu_torch import crc as thost_crc
 from claxon_tpu_torch.ops import crc as tcrc
 from claxon_tpu_torch.ops import entropy as tentropy
 from claxon_tpu_torch.ops import epilogue as tepilogue
@@ -122,6 +123,31 @@ def test_synthesize_wrapper_refuses_non_cpu_tensors():
     with pytest.raises(ValueError, match="several devices"):
         tpredict.synthesize(torch.zeros((4, 8), dtype=torch.int32),
                             *meta[1:])
+
+
+def test_synthesize_epilogue_plain_matches_jax():
+    """K1 + K3, the fused kernel's plain form (the CPU route), against the
+    JAX package's synthesis followed by its epilogue: every mode code 0-7
+    (4-7 pass through), wasted bits 0, 1, 15 and 31 on both lanes of a
+    pair, samples over the whole int32 range."""
+    x, coefs, shifts, orders, lengths = _synth_batch()
+    L = x.shape[0]
+    wasted = np.array([0, 1, 15, 31], np.int32)[(np.arange(L) + np.arange(L)
+                                                 // 16) % 4]
+    pair_modes = np.tile(np.arange(8, dtype=np.int32), L // 16)
+    args = (x, coefs, shifts, orders, lengths, wasted, pair_modes)
+    got = tpredict.synthesize_epilogue(*(_t(a) for a in args)).numpy()
+    want = np.asarray(apply_epilogue(
+        synthesize(*(jnp.asarray(a) for a in args[:5])),
+        jnp.asarray(wasted), jnp.asarray(pair_modes)))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, tpredict.synthesize_epilogue_plain(
+        *(_t(a) for a in args)).numpy())
+    meta = [torch.empty(a.shape, dtype=torch.int32, device="meta")
+            for a in args]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tpredict.synthesize_epilogue(*meta)
+    assert tpredict.synthesize_epilogue.launches == 0
 
 
 def test_epilogue_matches_jax_all_modes():
@@ -329,6 +355,131 @@ def test_crc16_ranges_matches_jax_and_host():
     host = [native.crc16_bytes(raw[a:b]) if native.available()
             else crc16(raw[a:b]) for a, b in cases]
     assert got.tolist() == host
+
+
+def _k4_model(stream, starts, ends):
+    """K4's kernel (``csrc/crc.cu``) step by step in numpy, with the
+    tables it is given (``ops.crc.kernel_tables``): clamp, items of
+    ITEM_BYTES aligned to each range's end, 512-byte warp steps of 16
+    bytes a lane (slice-by-4, leading bytes before the range masked to
+    zero, the lane's state carried with M_9), the 5-level lane tree with
+    M_4..M_8, and each item shifted across the items after it (M_12 and
+    up) and xored into its range."""
+    tab = tcrc.kernel_tables().astype(np.int64)
+    T = tab[:1024].reshape(4, 256)
+    M = tab[1024:].reshape(tcrc.LEVELS, 2, 256)
+
+    def shift(k, c):
+        return M[k, 0][c & 255] ^ M[k, 1][c >> 8]
+
+    W = len(stream)
+    u = stream.astype(np.int64) & 0xFFFFFFFF
+    lane = np.arange(32)
+
+    def word(w):
+        return np.where((w >= 0) & (w < W), u[np.clip(w, 0, W - 1)], 0)
+
+    out = []
+    for a, b in zip(starts, ends):
+        s = min(max(int(a), 0), 4 * W)
+        e = min(max(int(b), s), 4 * W)
+        crc = 0
+        for j in range(-(-(e - s) // tcrc.ITEM_BYTES)):
+            item_end = e - j * tcrc.ITEM_BYTES
+            n_steps = -(-(item_end - max(item_end - tcrc.ITEM_BYTES, s))
+                        // tcrc.STEP_BYTES)
+            r = 8 * (item_end & 3)
+            acc = np.zeros(32, np.int64)
+            for m in range(n_steps - 1, -1, -1):
+                p = item_end - tcrc.STEP_BYTES * (m + 1) + 16 * lane
+                wd = [word((p >> 2) + k) for k in range(5)]
+                st = np.zeros(32, np.int64)
+                for k in range(4):
+                    v = ((wd[k] << r) | (wd[k + 1] >> (32 - r))) \
+                        & 0xFFFFFFFF if r else wd[k]
+                    z = s - (p + 4 * k)
+                    v = np.where(z >= 4, 0, np.where(
+                        z > 0, v & (0xFFFFFFFF >> (8 * np.clip(z, 0, 3))),
+                        v))
+                    x = v ^ (st << 16)
+                    st = T[3][x >> 24] ^ T[2][(x >> 16) & 255] ^ \
+                        T[1][(x >> 8) & 255] ^ T[0][x & 255]
+                acc = shift(9, acc) ^ st
+            for d in range(5):
+                acc = shift(4 + d, acc) ^ np.concatenate(
+                    [acc[1 << d:], acc[32 - (1 << d):]])
+            c = int(acc[0])
+            for bit in range(int(j).bit_length()):
+                if (j >> bit) & 1:
+                    c = int(shift(12 + bit, np.int64(c)))
+            crc ^= c
+        out.append(crc)
+    return np.array(out, np.int32)
+
+
+def test_k4_tables_are_the_shift_and_slice_tables():
+    """T_k[b] is the CRC of byte b and k zero bytes; M_k carries a state
+    across 2^k zero bytes (from the port's copy of the combine
+    matrices)."""
+    tab = tcrc.kernel_tables()
+    assert tab.shape == (1024 + 512 * tcrc.LEVELS,) and tab.dtype == np.int32
+    T = tab[:1024].reshape(4, 256)
+    for k in range(4):
+        assert [thost_crc.crc16(bytes([b]) + bytes(k)) for b in range(256)] \
+            == T[k].tolist()
+    M = tab[1024:].reshape(tcrc.LEVELS, 2, 256)
+    rng = np.random.default_rng(23)
+    for k in (0, 1, 4, 9, 12):
+        for c in rng.integers(0, 1 << 16, 8):
+            c = int(c)
+            assert M[k, 0][c & 255] ^ M[k, 1][c >> 8] == \
+                thost_crc.crc16(bytes(1 << k), crc=c)
+
+
+def test_k4_model_matches_crc16():
+    """The numpy model of the kernel's item, step, lane and combine math
+    equals ``claxon_tpu_torch.crc.crc16`` (and the plain form) on ranges
+    whose lengths cross every 2^k boundary up to 2^14, at every byte
+    alignment, and on ranges outside the upload (clamped)."""
+    rng = np.random.default_rng(24)
+    raw = rng.integers(0, 256, 20003, dtype=np.uint8).tobytes()
+    buf = raw + bytes(-len(raw) % 4)
+    stream = np.frombuffer(buf, ">i4").astype(np.int32)
+    cases = []
+    for k in range(15):
+        for d in (-1, 0, 1):
+            n = (1 << k) + d
+            a = int(rng.integers(0, len(raw) - n))
+            cases.append((a - a % 4 + (k + d) % 4, a - a % 4 + (k + d) % 4
+                          + n))
+    cases += [(0, len(raw)), (1, 4097), (3, 8195), (-7, 5), (10, 30000),
+              (9000, 8000), (len(buf) - 3, len(buf) + 9), (0, 0), (5, 5)]
+    starts = np.array([a for a, _ in cases], np.int32)
+    ends = np.array([b for _, b in cases], np.int32)
+    got = _k4_model(stream, starts, ends)
+    want = []
+    for a, b in cases:
+        s = min(max(a, 0), len(buf))
+        want.append(thost_crc.crc16(buf[s:min(max(b, s), len(buf))]))
+    assert got.tolist() == want
+    short = ends - starts <= 4200
+    assert np.array_equal(got[short], tcrc.crc16_ranges(
+        _t(stream), _t(starts[short]), _t(ends[short])).numpy())
+
+
+def test_crc16_ranges_differs_from_jax_only_outside_the_upload():
+    """The port clamps ranges to the upload, the JAX function does not:
+    the documented difference (ops/crc.py), on ranges no path makes."""
+    stream = np.frombuffer(bytes(range(16)), np.uint8).view(">i4") \
+        .astype(np.int32)
+    starts = np.array([-5, 10, 14, 0, 16], np.int32)
+    ends = np.array([3, 99, 12, 16, 16], np.int32)
+    got = tcrc.crc16_ranges(_t(stream), _t(starts), _t(ends)).tolist()
+    jax_ = np.asarray(crc16_ranges_device(
+        jnp.asarray(stream), jnp.asarray(starts), jnp.asarray(ends)))
+    assert got[:3] == [1548, 26503, 0]
+    assert jax_[:3].tolist() == [10002, 64596, 38786]
+    assert got[3:] == jax_[3:].tolist() == [crc16(bytes(range(16))), 0]
 
 
 def test_crc16_ranges_clamps_to_the_upload():

@@ -32,8 +32,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
       on the headline and mixed ranges and on edge inputs (one range over
       the whole upload, 100,000 ranges of 0-3 bytes at every byte
       offset, ranges straddling every step and item boundary, clamped
-      garbage), with the ptxas report of crc.cu and synth.cu; then K5
-      sync scan,
+      garbage), with the ptxas report of crc.cu and synth.cu; K2, with
+      the ptxas report of entropy.cu, on every headline, mixed and
+      generated bucket and, when build/k2_parent/entropy.cu holds the
+      parent's source, beside the parent kernel (timed parent, new, new,
+      parent) at each headline and mixed bucket; then K5 sync scan,
       K6 fused-demux body (bswap, header fields and compaction, summary),
       K7 subframe walk and K8 values gather on every group the segmented
       path builds for the headline and mixed corpora, and on every K8
@@ -43,11 +46,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
       build/k7_parent/demux.cu holds the parent's source), its bound and
       cycles per step, with the ptxas report of both sources; and the byte
       bounds of the device functions still to port;
-  (c) decode the headline corpus (8 x 10 s of 16-bit 44.1 kHz stereo,
+  (c) the default route: with CLAXON_TPU_SEGMENTATION unset and the
+      cached choice reset, decode_streams_device(datas) calibrates
+      ("auto") on the mixed corpus, then on headline x4, printing the
+      chosen path, both paths' min times and the bit-exact check; then
+      decode_streams_pipelined (batches of 8) through the default route
+      and the segmented path, with its launch counts (K5-K8), bit-exact,
+      and timed at depth 2 and 6 (runs 2, 6, 6, 2). Then
+      decode the headline corpus (8 x 10 s of 16-bit 44.1 kHz stereo,
       block size 4096, seeds 1000-1007, replicated x4 into one batch of
       32 streams), the mixed corpus (8 specs, seeds 2000-2007) and
       ``testsamples/generated/*.flac`` through the public calls with
-      device="cuda", on the host-walk path and on the segmented path
+      device="cuda", on the host-walk path (segmentation="host", pinned
+      in every call that counts or times it) and on the segmented path
       (segmentation="device"), and hold every PCM to the C++ scalar
       decoder and the STREAMINFO MD5; the PCM comes to the host through
       the int16 transfer (K3b pack at fetch time; the buckets that packed
@@ -75,7 +86,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
       audio, FIXED subframes) on both paths: it walks in chunks of frames
       below the int32 limit, bit-exact against the scalar decoder and the
       STREAMINFO MD5; K4 against its plain form (and parent) on the
-      frame ranges of each run; K7 against its plain form on its distinct
+      frame ranges of each run, K2 on each bucket of each run (and its
+      parent); K7 against its plain form on its distinct
       frames as one 8-channel group;
   (g) mux each of the 8 headline streams, and the mixed 24-bit stream
       (whose bucket must not pack), into Ogg and into MP4 (3 frames per
@@ -97,6 +109,7 @@ port's own.
 
 import functools
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -149,6 +162,10 @@ K7_PARENT_SRC = REPO / "build" / "k7_parent" / "demux.cu"
 #: build/k4_parent && git show <parent commit>:claxon_tpu_torch/csrc/
 #: crc.cu > build/k4_parent/crc.cu``.
 K4_PARENT_SRC = REPO / "build" / "k4_parent" / "crc.cu"
+#: K2's parent kernel source, built beside the new one when present:
+#: ``mkdir -p build/k2_parent && git show <parent commit>:claxon_tpu_torch/
+#: csrc/entropy.cu > build/k2_parent/entropy.cu``.
+K2_PARENT_SRC = REPO / "build" / "k2_parent" / "entropy.cu"
 
 
 def log(msg):
@@ -344,6 +361,37 @@ def k4_report(tag, stream, starts, ends, r4, parent):
     return rep
 
 
+def k2_report(tag, args, kw, r2, parent):
+    """K2 on one bucket's inputs: its time beside the parent kernel's on
+    the same inputs (outputs equal), in the order parent, new, new,
+    parent, and its byte bound. Returns a dict of the numbers."""
+    import torch
+
+    from claxon_tpu_torch.ops import entropy
+
+    def new():
+        return entropy.decode_residual_bits_stream(*args, **kw)
+
+    nb = bound(tensor_bytes(args, new()))
+    rep = {"ms": r2[1], "plain_ms": r2[2], "bound_ms": nb[0],
+           "parent_ms": None}
+    old_s = "not built (no parent source)"
+    if parent is not None:
+        if not torch.equal(parent(*args, **kw), new()):
+            raise AssertionError(f"K2 {tag}: parent != new kernel")
+        runs = [cuda_ms(lambda: parent(*args, **kw), 10),
+                cuda_ms(new, 20), cuda_ms(new, 20),
+                cuda_ms(lambda: parent(*args, **kw), 10)]
+        rep.update(parent_ms=(runs[0] + runs[3]) / 2,
+                   ms=(runs[1] + runs[2]) / 2, runs=runs)
+        old_s = (f"{rep['parent_ms']:.4f} ms (runs parent, new, new, "
+                 f"parent: {', '.join(f'{t:.4f}' for t in runs)}), outputs "
+                 "equal")
+    log(f"(b) K2 {tag}: new {rep['ms']:.4f} ms; parent {old_s}; bound "
+        f"{nb[0]:.4f} ms ({nb[1]})")
+    return dict(rep, bucket=tag)
+
+
 def phase_b_crc(stream, parent):
     """K4's edge inputs on the headline upload ``stream`` (W words): one
     range over the whole upload (held to the host's crc16, which is exact,
@@ -402,8 +450,9 @@ def phase_b_crc(stream, parent):
             f"{ref}")
 
 
-def phase_b(datas4, mixed):
-    """Kernels against their plain forms on main-path bucket inputs."""
+def phase_b(datas4, mixed, generated):
+    """Kernels against their plain forms on main-path bucket inputs; K2
+    also on every bucket of the generated corpus."""
     import numpy as np
     import torch
 
@@ -421,6 +470,9 @@ def phase_b(datas4, mixed):
 
     rows, bounds, library = {}, {}, {}
     parent = k4_parent_crc()
+    k2_parent = k2_parent_entropy()
+    log("(b) K2 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
+                                 "entropy.cu"))
     log("(b) K4 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
                                  "crc.cu"))
     log("(b) K1, K1+K3 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
@@ -450,6 +502,8 @@ def phase_b(datas4, mixed):
             log(f"(b) {label} bucket {bi} {shape}: K2 == plain "
                 f"({r2[1]:.3f} ms vs {r2[2]:.1f} ms), K1 == plain "
                 f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms)")
+            rows.setdefault("K2_buckets", []).append(k2_report(
+                f"{label}[{bi}] {shape}", k2_args, kw, r2, k2_parent))
             # K1 + K3 fused against K1 then K3's torch ops, then K3b on
             # its output: the bucket as start_fetch() packs it, and the
             # packed words unpacked (a fallback bucket's upload at this
@@ -495,7 +549,9 @@ def phase_b(datas4, mixed):
             else:
                 log(f"(b) {label} bucket {bi} {shape}: does not pack")
             if label == "headline" and bi == 0:
-                rows["K2"], rows["K1"], rows["K1+K3"] = r2, r1, r13
+                k2 = rows["K2_buckets"][-1]
+                rows["K2"] = (r2[0], k2["ms"], r2[2])
+                rows["K1"], rows["K1+K3"] = r1, r13
                 rows["K3b_pack"], rows["K3b_unpack"] = rp, ru
                 bounds["K3b_pack"] = bound(tensor_bytes(out, words, flag))
                 bounds["K3b_unpack"] = bound(tensor_bytes(words, out))
@@ -622,6 +678,23 @@ def phase_b(datas4, mixed):
             bounds["K4"] = bound(tensor_bytes(stream, starts, ends, starts))
             k4_shape = f"F={starts.shape[0]}"
             phase_b_crc(stream, parent)
+
+    # K2 on every bucket of the generated corpus (edge-case files).
+    bp = plan_raw_bits(extract_streams_bits(generated, native), 128)
+    for bi, b in enumerate(bp.bits):
+        stream, mb, _se = inputs_from_numpy(bp.stream, b.mb, bp.se, DEVICE)
+        u = unpack_mb(mb, b.n_parts_max, b.nc)
+        k2_args = (stream, u["bases"], u["ks"], u["ps"], u["orders"],
+                   u["pbits"], u["flags"], u["warm"], u["lengths"])
+        kw = dict(n_parts_max=b.n_parts_max, sa=b.sa)
+        shape = f"L={b.mb.shape[0]} T={b.nc * 32} P={b.n_parts_max} " \
+            f"SA={b.sa}"
+        r2 = compare(f"K2 generated[{bi}] {shape}",
+                     lambda: entropy.decode_residual_bits_stream(
+                         *k2_args, **kw),
+                     lambda: entropy.decode_residual_bits_stream_plain(
+                         *k2_args, **kw), 1)
+        log(f"(b) generated bucket {bi} {shape}: K2 == plain")
 
     # K1 edge cases: order 32, shift 15, |c| = 2^15 - 1, int32 wrap.
     rng = np.random.default_rng(3)
@@ -1021,6 +1094,46 @@ def build_parent(label, src):
 
 
 @functools.lru_cache(maxsize=None)
+def k2_parent_entropy():
+    """K2's parent kernel (``K2_PARENT_SRC``), or None when that file is
+    absent; see ``k2_kernel``."""
+    return k2_kernel("K2", K2_PARENT_SRC)
+
+
+def k2_kernel(label, src):
+    """K2 built from ``src`` as a callable with decode_residual_bits_
+    stream's arguments and result; None when that file is absent."""
+    import ctypes
+
+    import torch
+
+    from claxon_tpu_torch.ops import _build
+
+    lib = build_parent(label, src)
+    if lib is None:
+        return None
+    fn = lib.cxk_entropy_stream
+    fn.argtypes = _build._SIGNATURES["cxk_entropy_stream"]
+    fn.restype = ctypes.c_int
+
+    def entropy(stream, bases, ks, ps, orders, pbits, flags, warm, lengths,
+                n_parts_max=1, sa=8):
+        L, NC = bases.shape
+        out = torch.empty((L, NC * 32), dtype=torch.int32,
+                          device=stream.device)
+        _build.check(fn(stream.data_ptr(), stream.shape[0], bases.data_ptr(),
+                        ks.data_ptr(), ks.shape[1], n_parts_max,
+                        ps.data_ptr(), orders.data_ptr(), pbits.data_ptr(),
+                        flags.data_ptr(), warm.data_ptr(), warm.shape[1],
+                        lengths.data_ptr(), out.data_ptr(), L, NC, sa,
+                        _build.stream_handle(stream.device)),
+                     f"{label} cxk_entropy_stream")
+        return out
+
+    return entropy
+
+
+@functools.lru_cache(maxsize=None)
 def k4_parent_crc():
     """K4's parent kernel as a callable with crc16_ranges' arguments and
     result, built from ``K4_PARENT_SRC``; None when that file is absent."""
@@ -1322,22 +1435,29 @@ def phase_f():
         raise AssertionError("large stream: scalar decoder MD5 mismatch")
     log(f"(f) large stream: scalar decoder == source PCM == STREAMINFO MD5 "
         f"({time.perf_counter() - t0:.1f} s)")
-    k4_calls = []
+    k4_calls, k2_calls = [], []
 
     def recording_crc(stream, starts, ends):
         k4_calls.append((stream, starts, ends))
         return crc.crc16_ranges(stream, starts, ends)
+
+    def recording_k2(*args, **kw):
+        k2_calls.append((args, kw))
+        return entropy.decode_residual_bits_stream(*args, **kw)
 
     for path in ("host", "device"):
         entropy.decode_residual_bits_stream.launches = 0
         t0 = time.perf_counter()
         if path == "host":
             pipeline_bits.crc16_ranges = recording_crc
+            pipeline_bits.decode_residual_bits_stream = recording_k2
         try:
             dd = ct.decode_streams_device([data], segmentation=path,
                                           device=DEVICE)
         finally:
             pipeline_bits.crc16_ranges = crc.crc16_ranges
+            pipeline_bits.decode_residual_bits_stream = \
+                entropy.decode_residual_bits_stream
         runs = len(dd.crc_check or [])  # one CRC dispatch per run
         dec = dd.to_host()[0]
         dt = time.perf_counter() - t0
@@ -1366,6 +1486,22 @@ def phase_f():
         raise AssertionError("large stream: the host walk ran no K4")
     log(f"(f) large stream: K4 == plain on the frame ranges of its "
         f"{len(k4_calls)} runs")
+    # K2 on each bucket of each run, beside its parent.
+    if not k2_calls:
+        raise AssertionError("large stream: the host walk ran no K2")
+    k2_parent = k2_parent_entropy()
+    k2_reps = []
+    for i, (args, kw) in enumerate(k2_calls):
+        L, NC = args[1].shape
+        tag = (f"large stream bucket {i} L={L} T={NC * 32} "
+               f"P={kw['n_parts_max']} SA={kw['sa']} W={args[0].shape[0]}")
+        r2 = compare(f"K2 {tag}",
+                     lambda: entropy.decode_residual_bits_stream(*args, **kw),
+                     lambda: entropy.decode_residual_bits_stream_plain(
+                         *args, **kw), 1)
+        k2_reps.append(k2_report(tag, args, kw, r2, k2_parent))
+    del k2_calls
+    log(f"(f) large stream: K2 == plain on its {len(k2_reps)} buckets")
     # The segmented path hands this stream to the host walk whole (past
     # the byte limit, and more than 2 channels, as the JAX package does),
     # so K7 is held to its plain form on its frames directly: the source
@@ -1393,6 +1529,7 @@ def phase_f():
     log(f"(f) large stream's {LARGE_SOURCE_FRAMES} distinct frames as one "
         f"8-channel group, T=4096, {n} walk lanes: K7 == plain ({r7[1]:.3f} "
         f"ms vs {r7[2]:.1f} ms); {int(ok.sum())} accepted by the walk")
+    return k2_reps
 
 
 def phase_g(base, wide):
@@ -1528,7 +1665,8 @@ def main():
         f"{len(generated)}")
 
     t_start = time.perf_counter()
-    rows, bounds, library, main_shape, k4_shape = phase_b(datas4, mixed)
+    rows, bounds, library, main_shape, k4_shape = phase_b(datas4, mixed,
+                                                          generated)
     fallback = fallback_corpus()
     phase_b_fallback(fallback)
     phase_b_pack16()
@@ -1612,9 +1750,85 @@ def main():
                                  f"expected {want}; {refetched} refetched")
         return nbytes
 
+    def phase_auto():
+        """The default route: segmentation=None with CLAXON_TPU_SEGMENTATION
+        unset calibrates ("auto") on the batch and keeps the faster path
+        for the process and the card. Mixed, then headline (whose choice
+        stays cached for the default-route calls after this); then the
+        pipelined loop pinned to the host walk (every handle finished when
+        it is begun), and through the default route on the segmented path,
+        and its depth 2 against 6."""
+        from claxon_tpu_torch import pipeline as tp
+
+        os.environ.pop("CLAXON_TPU_SEGMENTATION", None)
+        auto = {}
+        for label, datas in (("mixed", mixed),
+                             (f"headline x{HEADLINE_REPLICAS}", datas4)):
+            tp._SEG_AUTO.clear()
+            t0 = time.perf_counter()
+            dd = ct.decode_streams_device(datas, device=DEVICE)
+            cal_ms = (time.perf_counter() - t0) * 1e3
+            choice, secs = (tp._seg_auto(DEVICE)["choice"],
+                            tp._seg_auto(DEVICE)["seconds"])
+            if secs is None or dd.segmented != (choice == "device"):
+                raise AssertionError(f"{label}: auto did not time both "
+                                     f"paths (choice {choice})")
+            check_decoded(f"{label}, auto (chose {choice})", datas,
+                          dd.to_host())
+            auto[label] = {"choice": choice,
+                           "device_ms": secs["device"] * 1e3,
+                           "host_ms": secs["host"] * 1e3,
+                           "calibration_ms": cal_ms}
+            log(f"(c) auto on {label}: chose {choice}; min of 2 synced "
+                f"decodes: device {secs['device'] * 1e3:.2f} ms, host "
+                f"{secs['host'] * 1e3:.2f} ms; the calibration took "
+                f"{cal_ms:.1f} ms")
+        choice = tp._seg_auto(DEVICE)["choice"]
+
+        def pipelined(depth=2):
+            return ct.decode_streams_pipelined(datas4, batch_streams=8,
+                                               depth=depth, device=DEVICE)
+
+        def pinned(value):
+            os.environ["CLAXON_TPU_SEGMENTATION"] = value
+            try:
+                return drive(path_k[value], pipelined)
+            finally:
+                del os.environ["CLAXON_TPU_SEGMENTATION"]
+
+        path_k = {"host": ("K1+K3", "K2", "K4", "K3b_pack"),
+                  "device": ("K1+K3", "K4", "K5", "K6", "K7", "K8",
+                             "K3b_pack")}
+        res, counts = pinned("host")
+        check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches "
+                      "of 8 on the host walk", datas4, res)
+        log(f"(c) pipelined in batches of 8 (host walk), launches: {counts}")
+        if choice == "device":
+            res, counts = drive(path_k["device"], pipelined)
+        else:
+            res, counts = pinned("device")
+        check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches "
+                      "of 8 through the segmented path", datas4, res)
+        log(f"(c) pipelined in batches of 8 (segmented, each batch landed "
+            f"after the next began), launches: {counts}")
+        depth_ms = {2: [], 6: []}
+        for depth in (2, 6, 6, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipelined(depth)
+            depth_ms[depth].append((time.perf_counter() - t0) * 1e3)
+        log(f"(c) pipelined to host through the default route ({choice}), "
+            f"batches of 8, runs in the order 2, 6, 6, 2: depth 2 "
+            f"{depth_ms[2][0]:.1f}, {depth_ms[2][1]:.1f} ms; depth 6 "
+            f"{depth_ms[6][0]:.1f}, {depth_ms[6][1]:.1f} ms")
+        return auto, counts, depth_ms
+
+    auto, pipe_launches, depth_ms = phase_auto()
+
     dd, launches = drive(
         ("K1+K3", "K2", "K4", "K3b_pack", "K3b_unpack"),
-        lambda: fetched(ct.decode_streams_device(datas4, device=DEVICE)))
+        lambda: fetched(ct.decode_streams_device(datas4, segmentation="host",
+                                                 device=DEVICE)))
     res = dd.results
     log(f"(c) host-walk path, launches in the headline decode to host: "
         f"{launches}")
@@ -1631,27 +1845,29 @@ def main():
         "headline decode; K1 alone and K3's torch ops ran on the card 0 "
         "times")
     total_samples = sum(r.pcm.size for r in res)
-    check_decoded(f"headline x{HEADLINE_REPLICAS}, decode_streams", datas4,
+    check_decoded(f"headline x{HEADLINE_REPLICAS}, decode_streams (the "
+                  "default route)", datas4,
                   ct.decode_streams(datas4, device=DEVICE))
     # The mixed corpus packs every bucket but the 24-bit stream's.
     to_host_checked("mixed", mixed,
-                    ct.decode_streams_device(mixed, device=DEVICE))
+                    ct.decode_streams_device(mixed, segmentation="host",
+                                             device=DEVICE))
     to_host_checked("generated", generated,
-                    ct.decode_streams_device(generated, device=DEVICE))
+                    ct.decode_streams_device(generated, segmentation="host",
+                                             device=DEVICE))
     # Fallback-frame buckets only (no bits bucket, so no K2).
     fb_dd, fb_launches = drive(
         ("K1+K3", "K4"),
-        lambda: ct.decode_streams_device(fallback, device=DEVICE))
+        lambda: ct.decode_streams_device(fallback, segmentation="host",
+                                         device=DEVICE))
     check_decoded("fallback corpus", fallback, fb_dd.to_host())
     log(f"(c) fallback corpus, launches: {fb_launches}")
-    check_decoded("generated, one stream at a time", generated,
+    check_decoded("generated, one stream at a time (the default route)",
+                  generated,
                   [ct.decode_stream(d, device=DEVICE) for d in generated])
-    check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches "
-                  "of 8", datas4,
-                  ct.decode_streams_pipelined(datas4, batch_streams=8,
-                                              device=DEVICE))
     epilogue.pack_int16_pairs.launches = 0
-    dd = ct.decode_streams_device(datas4, device=DEVICE).sync()
+    dd = ct.decode_streams_device(datas4, segmentation="host",
+                                  device=DEVICE).sync()
     buckets = dd.device_buckets()
     dd.lane_plans()
     if not all(b[2].device.type == torch.device(DEVICE).type
@@ -1852,7 +2068,7 @@ def main():
                                  for d in datas4])
     log(f"(e)   C++ scalar decode on the host: {ms / scalar_s:.2f} Ms/s")
     del braws, res
-    phase_f()
+    k2_large = phase_f()
     g_launches = phase_g(base, mixed[MIXED_SPECS.index(MIXED_24BIT)])
     log(f"(g) launches in the first Ogg decode: {g_launches}")
 
@@ -1901,6 +2117,12 @@ def main():
                              ("_segmented", rows["K4_seg_parent"])):
                 k["parent_ms" + key] = rep["parent_ms"]
                 k["runs" + key] = rep.get("runs")
+        if k["name"] == "K2":
+            rep = rows["K2_buckets"][0]  # the headline bucket
+            k["parent_ms"], k["runs"] = rep["parent_ms"], rep.get("runs")
+            # Every mixed and large-stream bucket: new and parent time,
+            # bound.
+            k["buckets"] = rows["K2_buckets"][1:] + k2_large
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
         if k["name"] == "K7":
@@ -1930,6 +2152,9 @@ def main():
                       "torch_ops": torch_ops,
                       "queued_bounds_ms": queued,
                       "to_host_tail": to_host_tail,
+                      "auto": auto,
+                      "pipelined": {"launches": pipe_launches,
+                                    "depth_ms": depth_ms},
                       "device_idle": {p: (None if v is None else
                                           {"busy_ms": v[0], "wall_ms": v[1]})
                                       for p, v in idle.items()}}))

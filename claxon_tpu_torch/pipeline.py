@@ -7,7 +7,10 @@ a stream of ``MAX_BATCH_BYTES`` or more in chunks of frames), plans the
 batch into fixed (L, T) buckets (``pipeline_bits``), and runs the
 hand-written kernels on ``device``. With ``segmentation="device"`` the
 card finds the frames and walks the subframes itself instead
-(``pipeline_seg``). The result, :class:`DeviceDecoded`, keeps the decoded
+(``pipeline_seg``). The default, as in the JAX package, is
+``CLAXON_TPU_SEGMENTATION`` or else ``"auto"``: the first batch that
+engages the device demux times both paths and the faster one is kept for
+the process. The result, :class:`DeviceDecoded`, keeps the decoded
 PCM on the device bucket by bucket; ``to_host()`` fetches it (16-bit
 buckets as int16 pairs, K3b) and scatters it into per-stream interleaved
 PCM.
@@ -437,22 +440,88 @@ def _decode_host_walk(datas, lane_quantum, device):
                           device)
 
 
-def _check_segmentation(segmentation):
-    if segmentation not in (None, "host", "device"):
-        raise NotImplementedError(
-            f"claxon_tpu_torch: segmentation={segmentation!r} is not "
-            "ported; use None, 'host' or 'device'")
+#: per-process choices of segmentation="auto", one per device type
+#: ("cpu", "cuda"): the JAX package has one backend per process, but each
+#: call here names its device, and a CPU calibration (the plain forms)
+#: says nothing of the card. In each entry "choice" is None until a batch
+#: on that device type has calibrated it, then "host" or "device";
+#: "seconds" holds the last calibration's min time of each path.
+_SEG_AUTO = {}
+
+
+def _seg_auto(device):
+    """The ``_SEG_AUTO`` entry of ``device``'s type."""
+    return _SEG_AUTO.setdefault(torch.device(device).type,
+                                {"choice": None, "seconds": None})
+
+
+def _resolve_segmentation(segmentation, device):
+    """``segmentation`` with None read from ``CLAXON_TPU_SEGMENTATION``
+    (default ``"auto"``) and ``"auto"`` replaced by the choice cached for
+    ``device``'s type; ``"auto"`` stays only while nothing is cached. The
+    JAX package also falls back to ``"host"`` here when its C++ core is
+    missing or ``CLAXON_TPU_NO_BITS`` is set; the port's core builds at
+    first use and it has no other route, so neither condition has a
+    counterpart."""
+    import os
+
+    if segmentation is None:
+        segmentation = os.environ.get("CLAXON_TPU_SEGMENTATION", "auto")
+    if segmentation == "auto" and _seg_auto(device)["choice"] is not None:
+        segmentation = _seg_auto(device)["choice"]
+    return segmentation
+
+
+def _calibrate_segmentation(datas, lane_quantum, device):
+    """Time synced decodes of ``datas`` through each path and cache the
+    faster one for the process and ``device``'s type; return the winner's own result, so the
+    batch is not decoded again. A batch that does not ride the device
+    demux returns its result at once: "host" is cached only when the demux
+    ran and every stream still fell back, not when the batch was rejected
+    on its shape alone (a later batch may engage). Both paths are warmed
+    first (on the card this absorbs the first kernel build), then timed
+    device, host, device, host with the host clock around ``sync()``,
+    min of 2 per path. Both paths raise the same errors, so a bad batch
+    raises here as it would at its first sync."""
+    import time
+
+    d_seg = decode_streams_device(datas, lane_quantum, "device", device)
+    if not d_seg.segmented:
+        if d_seg.seg_engaged:
+            _seg_auto(device)["choice"] = "host"
+        return d_seg
+    d_seg.sync()
+    decode_streams_device(datas, lane_quantum, "host", device).sync()
+    t_dev = t_host = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        d_seg = decode_streams_device(datas, lane_quantum, "device",
+                                      device).sync()
+        t_dev = min(t_dev, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        d_host = decode_streams_device(datas, lane_quantum, "host",
+                                       device).sync()
+        t_host = min(t_host, time.perf_counter() - t0)
+    choice = "device" if t_dev < t_host else "host"
+    _seg_auto(device).update(choice=choice, seconds={"device": t_dev,
+                                                     "host": t_host})
+    return d_seg if choice == "device" else d_host
 
 
 def decode_streams_device(datas, lane_quantum=_L_QUANTUM, segmentation=None,
                           device="cuda") -> DeviceDecoded:
     """Decode many FLAC streams (bytes) into PCM buckets on ``device``.
 
-    ``segmentation`` None or ``"host"`` is the host-walk bits path;
-    ``"device"`` the segmented path (``pipeline_seg``: frame search and
-    subframe walk on the card, odd streams on the host walk). Other
-    values (the JAX package's ``"auto"``) raise NotImplementedError."""
-    _check_segmentation(segmentation)
+    ``segmentation="device"`` takes the segmented path (``pipeline_seg``:
+    frame search and subframe walk on the card, odd streams on the host
+    walk); ``"auto"`` measures both paths on the first batch that engages
+    the device demux and keeps the faster one for the process and the
+    device's type; None reads
+    ``CLAXON_TPU_SEGMENTATION`` and defaults to ``"auto"``. Every other
+    value takes the host-walk bits path. All paths are bit-exact."""
+    segmentation = _resolve_segmentation(segmentation, device)
+    if segmentation == "auto":
+        return _calibrate_segmentation(datas, lane_quantum, device)
     if segmentation == "device":
         from .pipeline_seg import decode_streams_segmented
 
@@ -484,8 +553,9 @@ def decode_streams_device_async(datas, lane_quantum=_L_QUANTUM,
     Only the segmented path has a first stage (uploads, frame search and
     subframe walk, the summary copy started), so a caller that begins
     batch n+1 before finishing batch n hides the summary wait behind the
-    next batch's host work. The host-walk path decodes eagerly."""
-    _check_segmentation(segmentation)
+    next batch's host work. The host-walk path decodes eagerly, and so
+    does the first ``"auto"`` batch, which calibrates."""
+    segmentation = _resolve_segmentation(segmentation, device)
     if segmentation == "device":
         from .pipeline_seg import (_host_fallback, begin_segmented,
                                    finish_segmented)
@@ -502,7 +572,8 @@ def decode_streams_device_async(datas, lane_quantum=_L_QUANTUM,
 
 def decode_streams(datas, lane_quantum=_L_QUANTUM,
                    device="cuda") -> List[DecodedStream]:
-    """Decode many FLAC streams in one batch; PCM on the host."""
+    """Decode many FLAC streams in one batch, on the default route (see
+    ``decode_streams_device``); PCM on the host."""
     return decode_streams_device(datas, lane_quantum,
                                  device=device).to_host()
 
@@ -515,17 +586,29 @@ def decode_stream(data, device="cuda") -> DecodedStream:
 def decode_streams_pipelined(datas, batch_streams=8, depth=2,
                              lane_quantum=_L_QUANTUM,
                              device="cuda") -> List[DecodedStream]:
-    """Decode a large corpus as overlapping batches: batch n+1 is walked
-    on the host and its kernels queued while batch n's PCM copies back.
-    ``depth`` bounds the batches in flight. Results are in input order."""
+    """Decode a large corpus as overlapping batches, on the default route.
+    Each batch is begun with ``decode_streams_device_async`` and landed
+    (finished, its PCM copies started) only after the next batch has
+    begun, so a segmented batch's summary wait hides behind the next
+    batch's host work. ``depth`` bounds the landed batches whose copies
+    are in flight. Results are in input order."""
     results = []
     in_flight = []
-    for i in range(0, len(datas), batch_streams):
-        dd = decode_streams_device(datas[i:i + batch_streams], lane_quantum,
-                                   device=device)
-        in_flight.append(dd.start_fetch())
+    pending = None
+
+    def land(p):
+        in_flight.append(p.finish().start_fetch())
         if len(in_flight) > depth:
             results.extend(in_flight.pop(0).to_host())
+
+    for i in range(0, len(datas), batch_streams):
+        h = decode_streams_device_async(datas[i:i + batch_streams],
+                                        lane_quantum, device=device)
+        if pending is not None:
+            land(pending)
+        pending = h
+    if pending is not None:
+        land(pending)
     for dd in in_flight:
         results.extend(dd.to_host())
     return results

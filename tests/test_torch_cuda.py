@@ -11,6 +11,7 @@ gives the same garbage and never a fault.
 """
 
 import pathlib
+import zlib
 
 import numpy as np
 import pytest
@@ -109,6 +110,86 @@ def test_entropy_kernel_matches_plain_on_garbage(cuda):
         want = entropy.decode_residual_bits_stream_plain(
             *args, n_parts_max=P, sa=SA)
         assert torch.equal(got, want), (P, SA, W)
+
+
+_K2_KEYS = ("stream", "bases", "ks", "ps", "orders", "pbits", "flags",
+            "warm", "lengths")
+#: SA classes the host walk emits (the C++ core's kSClasses plus 1), the
+#: card test's 40, 1, and sizes above the kernel's staged limit (65).
+_K2_SA = (1, 5, 7, 9, 13, 17, 25, 33, 40, 49, 65, 66, 100)
+
+
+def _entropy_case(case):
+    """(args, P, SA) of a K2 edge case: lanes whose chunk bases rise
+    through a random stream as real ones do, then the case's changes."""
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    kind, _, val = case.partition("=")
+    L, NC, P, SA, W = 200, 4, 4, 17, 2000
+    if kind == "sa":
+        SA = int(val)
+    elif kind == "P":
+        P, NC = int(val), 8
+    elif kind == "NC":
+        L, NC = 37, int(val)
+    elif kind == "ragged":
+        L, NC = 3 * 43 + 1, 5  # L * NC = 650: not a multiple of 32 or 128
+    elif kind == "big":
+        L, NC, W = 1000, 128, 200000
+    T = NC * 32
+    step = rng.integers(200, 400, (L, NC))
+    start = rng.integers(0, max(1, 32 * W - 400 * NC), L)
+    a = dict(stream=rng.integers(-(1 << 31), 1 << 31, W, dtype=np.int64),
+             bases=start[:, None] + np.cumsum(step, 1) - step,
+             ks=rng.integers(0, 15, (L, P)),
+             ps=np.full(L, max(T // P, 1)), orders=rng.integers(0, 13, L),
+             pbits=rng.choice([4, 5], L), flags=np.zeros(L, np.int64),
+             warm=rng.integers(-1000, 1000, (L, 32)),
+             lengths=np.full(L, T))
+    a["stream"][::7] = 0
+    if kind == "W1":
+        a["stream"] = a["stream"][:1]
+        a["bases"] = rng.integers(-5000, 5000, (L, NC))
+    elif kind == "bases_outside":
+        a["bases"] = np.concatenate([
+            rng.integers(-(1 << 31), 1 << 31, (L // 2, NC), dtype=np.int64),
+            rng.integers(32 * W - 600, 32 * W + 5000, (L - L // 2, NC))])
+        a["bases"][:20] = -rng.integers(1, 3000, (20, NC))
+    elif kind == "lane_kinds":
+        a["flags"] = np.resize(np.arange(4), L)  # verbatim, no codes, both
+        a["orders"] = np.resize(np.array([0, 32, 40, 5, 31, 1, 2]), L)
+        a["lengths"] = np.resize(np.array([0, T + 50, T // 2, T, 33, 31,
+                                           T - 1, 1]), L)
+        a["ks"] = rng.integers(0, 33, (L, P))  # verbatim widths up to 32
+    elif kind == "fuzzed_ps":
+        P = 64
+        a["ks"] = rng.integers(-3, 40, (L, P))
+        a["ps"] = np.resize(np.array([-5, 0, 1, 2, (1 << 31) - 1,
+                                      (1 << 30) + 1, 3 << 29, 1 << 27,
+                                      (1 << 31) // 63, 100]), L)
+        a["orders"] = rng.integers(-3, 200, L)
+    return [_c(a[k], "cpu") for k in _K2_KEYS], P, SA
+
+
+@pytest.mark.parametrize("case", [f"sa={n}" for n in _K2_SA]
+                         + [f"P={n}" for n in (1, 4, 64)]
+                         + [f"NC={n}" for n in (1, 3, 33, 128)]
+                         + ["ragged", "W1", "bases_outside", "lane_kinds",
+                            "fuzzed_ps", "big"])
+def test_entropy_kernel_edges(cuda, case):
+    """K2's edges: every SA the walk emits, 1, 40 and sizes above the
+    staged limit (read from global memory); P 1, 4 and 64; NC 1, 3, 33
+    and 128, so warps straddle lanes; a chunk count that fills neither a
+    warp nor a block; W = 1; bases negative and past the stream; verbatim
+    and no-code lanes, orders 0, 32 and 40, lengths 0 and past T; fuzzed
+    partition sizes whose thresholds wrap."""
+    from claxon_tpu_torch.ops import entropy
+
+    args, P, SA = _entropy_case(case)
+    args = [a.to(cuda) for a in args]
+    got = entropy.decode_residual_bits_stream(*args, n_parts_max=P, sa=SA)
+    want = entropy.decode_residual_bits_stream_plain(*args, n_parts_max=P,
+                                                     sa=SA)
+    assert torch.equal(got, want), case
 
 
 def test_crc_kernel_matches_plain_and_host(cuda):

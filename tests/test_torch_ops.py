@@ -336,6 +336,145 @@ def test_entropy_matches_jax_on_garbage():
     assert np.array_equal(got, want)
 
 
+def _k2_model(stream, bases, ks, ps, orders, pbits, flags, warm, lengths,
+              P, SA):
+    """numpy model of the K2 kernel (csrc/entropy.cu), one row per thread:
+    warps of 32 consecutive chunks, the slot words staged per warp in rows
+    of stride SA | 1 (the kernel's item loop and shuffle), the partition
+    index counted incrementally where its thresholds cannot wrap, the
+    values written to a tile of row stride 33 and stored from it as
+    16-byte items."""
+    M, IMAX = 0xFFFFFFFF, (1 << 31) - 1
+    i64 = np.int64
+    L, NC = bases.shape
+    n, W, WM = L * NC, stream.size, warm.shape[1]
+    sap = SA | 1
+    s = stream.astype(i64) & M
+    base = bases.reshape(-1).astype(i64)
+    wi0 = base >> 5
+    out = np.zeros(n * 32, i64)
+
+    def wrap(v):
+        return ((v + (1 << 31)) & M) - (1 << 31)
+
+    def funnel_l(lo, hi, sh):  # __funnelshift_l: (hi:lo << sh) >> 32
+        sh = sh & 31
+        return np.where(sh == 0, hi, ((hi << sh) & M) | (lo >> (32 - sh)))
+
+    def shl(v, sh):
+        return np.where((sh >= 0) & (sh < 32), (v << np.clip(sh, 0, 31)) & M,
+                        0)
+
+    def shr(v, sh):
+        return np.where((sh >= 0) & (sh < 32), v >> np.clip(sh, 0, 31), 0)
+
+    def clz32(v):
+        return np.where(v == 0, 32, 31 - np.floor(np.log2(
+            np.maximum(v, 1).astype(np.float64))).astype(i64))
+
+    for i0 in range(0, n, 32):
+        nv = min(32, n - i0)
+        lane = np.arange(nv)
+        words = np.zeros(32 * sap, i64)
+        total = nv * SA
+        e = np.arange((total + 31) & ~31)
+        c = e // SA
+        src = c & 31
+        w = np.where(src < nv, wi0[i0 + np.minimum(src, nv - 1)], 0)
+        ok = e < total
+        words[(c * sap + e - c * SA)[ok]] = s[np.clip(
+            w + e - c * SA, 0, W - 1)[ok]]
+        i = i0 + lane
+        ln, ch = i // NC, i % NC
+        order, ps_b = orders[ln].astype(i64), np.maximum(ps[ln], 1).astype(i64)
+        pb, fl, length = pbits[ln].astype(i64), flags[ln], lengths[ln]
+        verb, has_codes = (fl & 1) != 0, (fl & 2) == 0
+        t0 = ch * 32
+        mono = (P - 1) * ps_b < (1 << 31)
+        p = np.where(mono, np.minimum(t0 // ps_b, P - 1), 0)
+        nxt = np.where(mono & (p + 1 < P), (p + 1) * ps_b, IMAX)
+        k = ks[ln, p].astype(i64)
+        cursor = base[i] & 31
+        tile = np.zeros((32, 33), i64)
+        m = np.arange(1, P)[None, :]
+        for j in range(32):
+            t = t0 + j
+            q = (t[:, None] >= wrap(m * ps_b[:, None])).sum(1)
+            step = mono & (t >= nxt)
+            p = np.where(mono, p + step, q)
+            nxt = np.where(step, np.where(p + 1 < P, nxt + ps_b, IMAX), nxt)
+            k = ks[ln, p].astype(i64)
+            active = (t >= order) & (t < length) & has_codes
+            pstart = np.where(p == 0, order, wrap(p * ps_b))
+            pos = wrap(cursor + np.where((t == pstart) & ~verb, pb, 0))
+            wi = np.clip(pos >> 5, 0, SA - 1)
+            off = pos & 31
+            row = lane * sap
+            w0 = words[row + wi]
+            w1 = np.where(wi + 1 <= SA - 1, words[row + np.minimum(
+                wi + 1, SA - 1)], 0)
+            w2 = np.where(wi + 2 <= SA - 1, words[row + np.minimum(
+                wi + 2, SA - 1)], 0)
+            hi, lo = funnel_l(w1, w0, off), funnel_l(w2, w1, off)
+            z = np.where(hi != 0, clz32(hi), 32 + clz32(lo))
+            s1 = z + 1
+            rhi = np.where(s1 < 32, funnel_l(lo, hi, s1),
+                           (lo << np.minimum(s1 - 32, 31)) & M)
+            r = np.where(k == 0, 0, shr(rhi, 32 - k))
+            v = shl(z, k) | r
+            rice = np.where(v & 1, ~(v >> 1) & M, v >> 1)
+            rv = np.where(k == 0, 0, shr(hi, 32 - k))
+            sbit = shl(np.ones_like(k), np.maximum(k - 1, 0))
+            vb = (rv ^ sbit) - sbit
+            res = wrap(np.where(verb, vb, rice))
+            adv = np.where(verb, k, s1 + k)
+            cursor = np.where(active, wrap(pos + adv), cursor)
+            val = np.where(active, res, 0)
+            warm_t = warm[ln, np.minimum(t, WM - 1)] if WM else 0
+            val = np.where(t < order, np.where(t < WM, warm_t, 0), val)
+            tile[lane, j] = val
+        v = np.arange(nv * 8)
+        for q4 in range(4):
+            out[i0 * 32 + 4 * v + q4] = tile[v >> 3, 4 * (v & 7) + q4]
+    return out.reshape(L, NC * 32).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["captured", "garbage", "fuzzed_ps",
+                                  "ragged"])
+def test_k2_model_matches_plain(case):
+    """The numpy model of the K2 kernel's warp layout, staging, partition
+    count and tile store equals the plain form (held to the JAX program
+    by the tests above) on a captured bucket, fuzzed inputs, partition
+    sizes whose thresholds wrap and a chunk count that fills no warp."""
+    rng = np.random.default_rng(25)
+    if case == "captured":
+        stream, u, P, SA = _captured_bucket()
+        args = [stream] + [u[k] for k in ("bases", "ks", "ps", "orders",
+                                          "pbits", "flags", "warm",
+                                          "lengths")]
+        sas = (SA, 5, 66)
+    else:
+        L, NC, P, W = {"garbage": (8, 4, 4, 64), "fuzzed_ps": (8, 4, 64, 64),
+                       "ragged": (7, 3, 2, 40)}[case]
+        stream = rng.integers(-(1 << 31), 1 << 31, W, dtype=np.int64)
+        stream[::7] = 0
+        args = [stream, rng.integers(-4096, 32 * W + 4096, (L, NC)),
+                rng.integers(-40, 40, (L, P)), rng.integers(-3, 40, L),
+                rng.integers(0, 40, L), rng.integers(0, 8, L),
+                rng.integers(0, 8, L), rng.integers(-1000, 1000, (L, 32)),
+                rng.integers(0, NC * 32 + 8, L)]
+        if case == "fuzzed_ps":
+            args[3] = np.resize(np.array([-5, 1, (1 << 31) - 1, (1 << 30) + 1,
+                                          3 << 29, (1 << 31) // 63, 2, 100]),
+                                L)
+        sas = (1, 17, 40)
+    args = [np.asarray(a).astype(np.int32) for a in args]
+    for sa in sas:
+        want = tentropy.decode_residual_bits_stream_plain(
+            *(_t(a) for a in args), n_parts_max=P, sa=sa).numpy()
+        assert np.array_equal(_k2_model(*args, P=P, SA=sa), want), sa
+
+
 def test_crc16_ranges_matches_jax_and_host():
     rng = np.random.default_rng(22)
     raw = rng.integers(0, 256, 5003, dtype=np.uint8).tobytes()

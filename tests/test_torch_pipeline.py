@@ -455,12 +455,23 @@ def test_decode_streams_device_empty_batch():
 
 
 def test_unported_options_raise(monkeypatch):
-    """segmentation="auto" is not ported. A single stream at the 2^27-byte
-    batch limit (int32 chunk bit positions) no longer raises: both paths
-    walk it in chunks of frames and decode it exactly."""
+    """The Python-extractor route (use_native=False) is not ported: the
+    container calls raise for it. segmentation="auto" is ported and no
+    longer raises: it calibrates and decodes exactly. A single stream at
+    the 2^27-byte batch limit (int32 chunk bit positions) does not raise
+    either: both paths walk it in chunks of frames and decode it
+    exactly."""
+    import claxon_tpu_torch.pipeline as tp
+    from claxon_tpu_torch.testing import mux_ogg_flac
+
     data = _configs()[1]
-    with pytest.raises(NotImplementedError, match="segmentation"):
-        ct.decode_streams_device([data], segmentation="auto", device="cpu")
+    with pytest.raises(NotImplementedError, match="use_native"):
+        ct.decode_ogg_stream(mux_ogg_flac(data), use_native=False,
+                             device="cpu")
+    monkeypatch.setitem(tp._seg_auto("cpu"), "choice", None)
+    _assert_oracle([data], ct.decode_streams_device(
+        [data], segmentation="auto", device="cpu").to_host())
+    assert tp._seg_auto("cpu")["choice"] in ("host", "device")
     monkeypatch.setattr(tpb, "MAX_BATCH_BYTES", len(data))
     for segmentation in ("host", "device"):
         _assert_oracle([data], ct.decode_streams_device(

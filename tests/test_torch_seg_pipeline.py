@@ -136,10 +136,12 @@ def test_slice_matches_jax():
     _assert_oracle(datas, got)
 
 
-def test_entry_points_agree():
+def test_entry_points_agree(monkeypatch):
     """decode_streams_device(segmentation="device"), decode_streams_
-    segmented, begin/finish and the async handle give the same result;
-    segmentation="auto" stays unported."""
+    segmented, begin/finish, the async handle and segmentation="auto"
+    with "device" chosen give the same result."""
+    import claxon_tpu_torch.pipeline as tp
+
     datas = [_enc(2200, 4), _enc(1500, 5, channels=1, block_size=576)]
     want = [native.decode_stream_scalar(d)[1] for d in datas]
     pend = tseg.begin_segmented(datas, device="cpu")
@@ -150,13 +152,14 @@ def test_entry_points_agree():
                                             device="cpu")
     runs.append(handle.finish())
     assert handle.finish() is runs[-1]
+    monkeypatch.setitem(tp._seg_auto("cpu"), "choice", "device")
+    runs.append(ct.decode_streams_device(datas, segmentation="auto",
+                                         device="cpu"))
     for dd in runs:
         assert dd.segmented and dd.fallback_streams == []
         assert dd.upload_bytes > sum(len(d) for d in datas) // 2
         for dec, w in zip(dd.to_host(), want):
             assert np.array_equal(dec.pcm, w)
-    with pytest.raises(NotImplementedError, match="auto"):
-        ct.decode_streams_device(datas, segmentation="auto", device="cpu")
 
 
 def test_async_overlapped_batches_keep_order():

@@ -44,7 +44,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
       segmented groups' ranges (beside its parent);
       at each of those groups K7's time beside its parent kernel's (when
       build/k7_parent/demux.cu holds the parent's source), its bound and
-      cycles per step, with the ptxas report of both sources; and the byte
+      cycles per step, with the ptxas report of both sources, and on the
+      mixed groups K7 writing its deltas against the plain walk (the
+      values-only K7 equal to it), timed at the headline group; then the
+      entropy routes' kernels, with the ptxas report of entropy_delta.cu:
+      K9 on every bucket the delta planner builds for the headline and
+      mixed corpora, K10 and K2 on every dispatch of their segmented delta
+      and scan decodes, each timed with its byte bound; and the byte
       bounds of the device functions still to port;
   (c) the default route: with CLAXON_TPU_SEGMENTATION unset and the
       cached choice reset, decode_streams_device(datas) calibrates
@@ -72,10 +78,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
       alone; sync(), device_buckets() and
       lane_plans() must launch no K3b kernel; the segmented headline
       decode must not fall back, and the mixed 24-bit and generated
-      6-channel streams must;
+      6-channel streams must; on every default-route run K9 and K10
+      launch 0 times and K7 writes no deltas. Then the JAX package's
+      other entropy routes, each variable set only around its calls:
+      CLAXON_TPU_ENTROPY=delta (K9, no K2 or K4), CLAXON_TPU_SEG_ENTROPY=
+      delta (K7 with deltas, K10, no K8) and =scan (K2 on the walk's
+      bases, no K8) decode headline x4 (launches counted), mixed and
+      generated to host bit-exactly, and each is timed device-resident
+      (median of 3);
   (d) corrupt one stored frame CRC byte: the decode must raise
       claxon_tpu_torch.Error "frame CRC mismatch", which only K4 can
-      detect, on both paths;
+      detect, on both paths; with CLAXON_TPU_HOST_CRC=1, and in delta
+      mode, it must raise from decode_streams_device itself, K4 never
+      running;
   (e) time the device-resident and to-host decode of the headline batch
       on both paths, with the segmented path's host stages; split the
       to-host tail into the pack-and-copy wait and the host scatter, with
@@ -97,10 +112,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
       reference's errors.
 
 The last three lines are the kernels' JSON summary (time, plain time,
-bound and launches of each on each path; K1 alone, an entry point that
-no decode path runs, under "off_path_kernels"; K3 and the mb unpack,
-which are torch ops, under "torch_ops", K3 with its calls on the card),
-the card's name and power limit, and the
+bound and launches of each on each path, K9 and K10 on their routes, K2
+also on the scan route; the routes' device-resident times; K1 alone, an
+entry point that no decode path runs, under "off_path_kernels"; K3 and
+the mb unpack, which are torch ops, under "torch_ops", K3 with its calls
+on the card), the card's name and power limit, and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result. It imports neither JAX nor
 the JAX package: the encoder, the C++ core and the errors are the
@@ -860,7 +876,7 @@ def phase_b_seg(datas4, mixed):
     clock = None
     for label, datas in (("headline", datas4), ("mixed", mixed)):
         k8_calls, k1_calls, k4_calls = [], [], []
-        dispatch = pipeline_seg._dispatch_values
+        dispatch = pipeline_seg._dispatch
         crc16_ranges = crc.crc16_ranges
 
         def recording_crc(stream, starts, ends):
@@ -870,22 +886,24 @@ def phase_b_seg(datas4, mixed):
         # The wrapper counts its launches on the module's name.
         recording_crc.launches = 0
 
-        def recording(walk, rws, lengths, modes, tb32, device):
+        def recording(mode, stream, walk, rws, lengths, modes, tb32, *rest):
+            device = rest[-1]
             rows_t = torch.from_numpy(rws).to(device)
             k8_calls.append((walk["values"], walk["warm"], walk["order"],
                              rows_t, tb32))
             k1_calls.append((walk, rows_t,
                              torch.from_numpy(lengths).to(device),
                              torch.from_numpy(modes[0::2].copy()).to(device)))
-            return dispatch(walk, rws, lengths, modes, tb32, device)
+            return dispatch(mode, stream, walk, rws, lengths, modes, tb32,
+                            *rest)
 
-        pipeline_seg._dispatch_values = recording
+        pipeline_seg._dispatch = recording
         crc.crc16_ranges = recording_crc
         try:
             pending = pipeline_seg.begin_segmented(datas, device=DEVICE)
             pipeline_seg.finish_segmented(pending).sync()
         finally:
-            pipeline_seg._dispatch_values = dispatch
+            pipeline_seg._dispatch = dispatch
             crc.crc16_ranges = crc16_ranges
         if not k4_calls:
             raise AssertionError(f"{label}: the segmented decode ran no K4")
@@ -933,10 +951,35 @@ def phase_b_seg(datas4, mixed):
                 lambda: seg_parse.parse_candidates_plain(*pargs))
             fields, lane_of, walk_in, counts = \
                 seg_parse.parse_candidates(*pargs)
-            r7 = compare(
-                f"K7 {tag}",
-                lambda: demux.walk_frames(stream, *walk_in, T, nch),
-                lambda: demux.walk_frames_plain(stream, *walk_in, T, nch))
+            if label == "mixed":
+                # The delta-writing K7 (the segmented delta route's) against
+                # the plain walk, every output; the values-only K7 equal to
+                # it on every output but the deltas.
+                rd = compare(
+                    f"K7 with deltas {tag}",
+                    lambda: demux.walk_frames(stream, *walk_in, T, nch, True),
+                    lambda: demux.walk_frames_plain(stream, *walk_in, T, nch,
+                                                    True))
+                with_d = demux.walk_frames(stream, *walk_in, T, nch, True)
+                walk = demux.walk_frames(stream, *walk_in, T, nch)
+                if "deltas" in walk[0] or not all(
+                        torch.equal(a, b) for a, b in zip(
+                            flat_tensors((walk[0], walk[1:])),
+                            flat_tensors(({k: with_d[0][k]
+                                           for k in demux.WALK_KEYS},
+                                          with_d[1:])))):
+                    raise AssertionError(f"K7 {tag}: the values-only walk "
+                                         "!= the delta-writing walk")
+                r7 = (rd[0], cuda_ms(lambda: demux.walk_frames(
+                    stream, *walk_in, T, nch), 20), rd[2])
+                log(f"(b) K7 with deltas {tag}: == plain, every output; "
+                    f"{rd[1]:.3f} ms (values only {r7[1]:.3f} ms)")
+            else:
+                r7 = compare(
+                    f"K7 {tag}",
+                    lambda: demux.walk_frames(stream, *walk_in, T, nch),
+                    lambda: demux.walk_frames_plain(stream, *walk_in, T,
+                                                    nch))
             walk, end_bits, ok = demux.walk_frames(stream, *walk_in, T, nch)
             if clock is None:
                 clock = sm_clock_under(
@@ -962,6 +1005,11 @@ def phase_b_seg(datas4, mixed):
             if label == "headline" and gi == 0:
                 rows["seg_W"] = stream.shape[0]
                 rows.update(K5=r5, K6=r6, K7=r7)
+                rows["K7_deltas_ms"] = cuda_ms(lambda: demux.walk_frames(
+                    stream, *walk_in, T, nch, True), 20)
+                log(f"(b) K7 with deltas {tag}: "
+                    f"{rows['K7_deltas_ms']:.4f} ms (values only "
+                    f"{r7[1]:.4f} ms)")
                 rows["seg_shape"] = shape
                 bounds["K5"] = bound(tensor_bytes(
                     stream, segment.find_frame_headers(stream, n_bytes,
@@ -982,7 +1030,7 @@ def phase_b_seg(datas4, mixed):
             log(f"(b) {label} K8 dispatch {ci} L={rws.shape[0]} "
                 f"Tb={tb32} rows of {values.shape[1]}: K8 == plain "
                 f"({r8[1]:.3f} ms vs {r8[2]:.1f} ms)")
-            # K1's inputs in this dispatch, as _dispatch_values builds them.
+            # K1's inputs in this dispatch, as _dispatch builds them.
             walk1, rows1, lengths1, modes1 = k1_calls[ci]
             args1 = (seg_gather.gather_values(*args),
                      *(walk1[k].index_select(0, rows1)
@@ -1005,6 +1053,94 @@ def phase_b_seg(datas4, mixed):
                 # values (and their warm-up samples) are read.
                 n = rws.shape[0]
                 bounds["K8"] = bound(4 * (2 * n * tb32 + 34 * n))
+    return rows, bounds
+
+
+def phase_b_routes(datas4, mixed):
+    """The entropy routes' kernels against their plain forms on their own
+    inputs, timed on the card with their byte bounds: K9 on every bucket
+    of the delta planner for the headline and mixed corpora, K10 and K2
+    on every dispatch of the segmented delta and scan decodes of them.
+    Returns (rows, bounds): per kernel its headline numbers (the largest
+    headline bucket or dispatch) and the list of every bucket's."""
+    import torch
+
+    from claxon_tpu_torch import native, pipeline_seg
+    from claxon_tpu_torch.ops import entropy
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import _to_device, plan_raw_bits
+
+    rows, bounds = {}, {}
+    log("(b) K9, K10 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
+                                      "entropy_delta.cu"))
+
+    def report(key, tag, kernel, plain, args, kw, main):
+        r = compare(f"{key} {tag}", lambda: kernel(*args, **kw),
+                    lambda: plain(*args, **kw))
+        nb = bound(tensor_bytes(args, kernel(*args, **kw)))
+        log(f"(b) {key} {tag}: == plain ({r[1]:.4f} ms vs {r[2]:.1f} ms); "
+            f"bound {nb[0]:.4f} ms ({nb[1]})")
+        rows.setdefault(key + "_buckets", []).append(
+            {"bucket": tag, "ms": r[1], "plain_ms": r[2], "bound_ms": nb[0]})
+        if main:
+            rows[key], bounds[key] = r, nb
+            rows[key + "_shape"] = tag
+
+    # K9: the host-walk delta planner's buckets, one per (T, nch, SA).
+    for label, datas in (("headline", datas4), ("mixed", mixed)):
+        bp = plan_raw_bits(extract_streams_bits(datas, native, "delta"), 128,
+                           "delta")
+        big = max(range(len(bp.bits)), key=lambda i: bp.bits[i].meta.shape[0])
+        for bi, b in enumerate(bp.bits):
+            m = _to_device(b.meta, DEVICE)
+            args = (_to_device(b.slots, DEVICE),
+                    torch.from_numpy(b.deltas).to(DEVICE),
+                    _to_device(b.ks, DEVICE), m[:, 3].contiguous(),
+                    m[:, 0].contiguous(), m[:, 4].contiguous(),
+                    (m[:, 5] & 1).contiguous(), m[:, 8:40].contiguous())
+            tag = (f"{label}[{bi}] L={b.meta.shape[0]} T={b.nc * 32} "
+                   f"P={b.n_parts_max} SA={b.sa}")
+            report("K9", tag, entropy.decode_residual_bits,
+                   entropy.decode_residual_bits_plain, args,
+                   dict(n_parts_max=b.n_parts_max, sa=b.sa),
+                   label == "headline" and bi == big)
+
+    # K10 and K2 on the segmented delta and scan dispatches: their inputs
+    # recorded as finish_segmented hands them over.
+    for mode, name, key in (("delta", "decode_residual_bits_stream_delta",
+                             "K10"),
+                            ("scan", "decode_residual_bits_stream",
+                             "K2_scan")):
+        fn = getattr(entropy, name)
+        plain = getattr(entropy, name + "_plain")
+        for label, datas in (("headline", datas4), ("mixed", mixed)):
+            calls = []
+
+            def recording(*args, **kw):
+                calls.append((args, kw))
+                return fn(*args, **kw)
+
+            # The wrapper counts its launches on the module's name.
+            recording.launches = 0
+            setattr(entropy, name, recording)
+            os.environ["CLAXON_TPU_SEG_ENTROPY"] = mode
+            try:
+                pipeline_seg.decode_streams_segmented(
+                    datas, device=DEVICE).sync()
+            finally:
+                setattr(entropy, name, fn)
+                del os.environ["CLAXON_TPU_SEG_ENTROPY"]
+            if not calls:
+                raise AssertionError(f"{label}: the segmented {mode} "
+                                     f"decode ran no {key}")
+            big = max(range(len(calls)),
+                      key=lambda i: calls[i][0][1].shape[0])
+            for ci, (args, kw) in enumerate(calls):
+                L, NC = args[1].shape
+                tag = (f"{label}[{ci}] L={L} T={NC * 32} "
+                       f"P={kw['n_parts_max']} SA={kw['sa']}")
+                report(key, tag, fn, plain, args, kw,
+                       label == "headline" and ci == big)
     return rows, bounds
 
 
@@ -1043,25 +1179,13 @@ def corrupt_first_frame_crc(data):
     return bytes(bad)
 
 
-def queued_bounds(L, T, P, SA, W, F, B, W_seg):
+def queued_bounds(L, T, P, SA, W, F, B):
     """Byte bounds (ms) of the device functions still to port, at the
-    headline x4 shapes: the host-walk bucket (L lanes, T, P partitions,
-    SA, its stream of W words and F frames of at most B bytes) and the
-    segmented group's stream of W_seg words. Each input read once, each
-    output written once, in the JAX package's dtypes."""
-    NC = T // 32
+    headline x4 host-walk bucket's shapes (L lanes, T, P partitions, SA,
+    its stream of W words and F frames of at most B bytes). Each input
+    read once, each output written once, in the JAX package's dtypes."""
     out = L * T * 4  # (L, T) int32
-    lane = L * 4  # one int32 per lane
-    common = L * P * 4 + L * 32 * 4 + out  # ks, warm, the output
     nbytes = {
-        "claxon_tpu/ops/entropy.py:54 decode_residual_bits":
-            # slots, uint8 deltas, ps/orders/pbits/vflags
-            L * NC * SA * 4 + L * T + 4 * lane + common,
-        "claxon_tpu/ops/entropy.py:279 decode_residual_bits_stream_delta":
-            # stream, bases, int8 deltas, ps/orders/pbits/flags/lengths
-            W_seg * 4 + L * NC * 4 + L * T + 5 * lane + common,
-        "claxon_tpu/pipeline_seg.py:225-230 scan body (K2 on the walk)":
-            W_seg * 4 + L * NC * 4 + 5 * lane + common,
         "claxon_tpu/ops/rice.py:126 rice_decode":
             # one partition a lane: start_bits/params/counts, end_bits
             W * 4 + 4 * L * P * 4 + out,
@@ -1673,9 +1797,15 @@ def main():
     seg_rows, seg_bounds = phase_b_seg(datas4, mixed)
     rows.update(seg_rows)
     bounds.update(seg_bounds)
-    queued = queued_bounds(**rows["main_dims"], W_seg=rows["seg_W"])
+    t_routes = time.perf_counter()
+    route_rows, route_bounds = phase_b_routes(datas4, mixed)
+    log(f"(b) the entropy routes' kernels took "
+        f"{time.perf_counter() - t_routes:.1f} s")
+    rows.update(route_rows)
+    bounds.update(route_bounds)
+    queued = queued_bounds(**rows["main_dims"])
     log("(b) byte bounds at the headline x4 shapes of the functions still "
-        f"to port ({rows['main_dims']}, W_seg={rows['seg_W']}): " +
+        f"to port ({rows['main_dims']}): " +
         "; ".join(f"{k} {v:.4f} ms" for k, v in queued.items()))
 
     # (c) each path, through the public calls.
@@ -1687,6 +1817,8 @@ def main():
     wrappers = {"K1+K3": [predict.synthesize_epilogue],
                 "K1": [predict.synthesize],
                 "K2": [entropy.decode_residual_bits_stream],
+                "K9": [entropy.decode_residual_bits],
+                "K10": [entropy.decode_residual_bits_stream_delta],
                 "K4": [crc.crc16_ranges],
                 "K3b_pack": [epilogue.pack_int16_pairs],
                 "K3b_unpack": [epilogue.unpack_int16_pairs], **seg_wrappers}
@@ -1700,12 +1832,15 @@ def main():
         return plain_k3(samples, wasted, pair_modes)
 
     def drive(path_kernels, fn):
-        """Run fn with every launch count at 0; return the counts of the
-        path's kernels (a kernel's count sums its wrappers). K1 alone and
-        K3's torch ops must not run on the card."""
+        """Run fn with every launch count at 0; return every kernel's count
+        (a kernel's count sums its wrappers), the path's kernels at least
+        1 each. K1 alone and K3's torch ops must not run on the card; on
+        the default routes (neither entropy variable set) K9 and K10 must
+        not run either, and K7 must emit no deltas."""
         for ws in wrappers.values():
             for w in ws:
                 w.launches = 0
+        demux.walk_frames.delta_launches = 0
         k3_on_card[0] = 0
         epilogue.apply_epilogue = predict.apply_epilogue = counted_k3
         try:
@@ -1713,9 +1848,10 @@ def main():
             torch.cuda.synchronize()
         finally:
             epilogue.apply_epilogue = predict.apply_epilogue = plain_k3
-        counts = {k: sum(w.launches for w in wrappers[k])
-                  for k in path_kernels}
-        for k, n in counts.items():
+        counts = {k: sum(w.launches for w in ws)
+                  for k, ws in wrappers.items()}
+        counts["K7_with_deltas"] = demux.walk_frames.delta_launches
+        for k in path_kernels:
             if any(w.launches <= 0 for w in wrappers[k]):
                 raise AssertionError(f"{k} was not launched by the path "
                                      f"(counts {counts})")
@@ -1724,6 +1860,12 @@ def main():
                 f"the path ran K1 alone {predict.synthesize.launches} "
                 f"time(s) and K3's torch ops on the card {k3_on_card[0]} "
                 "time(s)")
+        default = not any(os.environ.get(v) for v in (
+            "CLAXON_TPU_ENTROPY", "CLAXON_TPU_SEG_ENTROPY"))
+        if default and (counts["K9"] or counts["K10"]
+                        or counts["K7_with_deltas"]):
+            raise AssertionError(f"a default route ran K9, K10 or K7's "
+                                 f"deltas (counts {counts})")
         counts["K3_torch_ops_on_card"] = k3_on_card[0]
         return out, counts
 
@@ -1919,6 +2061,69 @@ def main():
     check_decoded(f"headline x{HEADLINE_REPLICAS}, segmented async",
                   datas4, pend.finish().to_host())
 
+    def phase_routes():
+        """The JAX package's other entropy routes, each variable set only
+        around its own calls: CLAXON_TPU_ENTROPY=delta on the host walk
+        (K9, no K2 and no K4: the walk checks the CRCs),
+        CLAXON_TPU_SEG_ENTROPY=delta (K7 with its deltas, then K10, no K8)
+        and =scan (K2 on the walk's chunk bases, no K8). Each decodes
+        headline x4 (launches counted), mixed and generated to host, held
+        to the scalar decoder and the MD5, and is timed device-resident
+        (median of 3 after a warm-up run)."""
+        specs = (("CLAXON_TPU_ENTROPY", "delta", "host",
+                  ("K9", "K1+K3", "K3b_pack")),
+                 ("CLAXON_TPU_SEG_ENTROPY", "delta", "device",
+                  ("K5", "K6", "K7", "K10", "K1+K3", "K4", "K3b_pack")),
+                 ("CLAXON_TPU_SEG_ENTROPY", "scan", "device",
+                  ("K5", "K6", "K7", "K2", "K1+K3", "K4", "K3b_pack")))
+        out = {}
+        for var, value, seg, path in specs:
+            route = f"{var}={value}"
+
+            def decode(datas):
+                return ct.decode_streams_device(datas, segmentation=seg,
+                                                device=DEVICE)
+
+            os.environ[var] = value
+            try:
+                dd, counts = drive(path, lambda: fetched(decode(datas4)))
+                to_host_checked(f"headline x{HEADLINE_REPLICAS}, {route}",
+                                datas4, dd)
+                if seg == "host":
+                    bad = counts["K2"] or counts["K4"]
+                else:
+                    bad = (counts["K8"] or dd.fallback_streams
+                           or not dd.segmented or counts["K7_with_deltas"]
+                           != (counts["K7"] if value == "delta" else 0))
+                if bad:
+                    raise AssertionError(f"{route}: unexpected launches "
+                                         f"{counts} or fallbacks "
+                                         f"{dd.fallback_streams}")
+                for label, datas in (("mixed", mixed),
+                                     ("generated", generated)):
+                    to_host_checked(f"{label}, {route}", datas,
+                                    decode(datas))
+                runs = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    decode(datas4).sync()
+                    runs.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                del os.environ[var]
+            med = statistics.median(runs[1:])
+            log(f"(c) {route}: launches in the headline decode to host: "
+                f"{counts}; device-resident {med:.1f} ms (median of "
+                f"{', '.join(f'{t:.1f}' for t in runs[1:])}; warm-up "
+                f"{runs[0]:.1f})")
+            out[route] = {"launches": counts, "device_resident_ms": med,
+                          "runs_ms": runs[1:]}
+        return out
+
+    t_routes = time.perf_counter()
+    routes = phase_routes()
+    log(f"(c) the entropy routes took {time.perf_counter() - t_routes:.1f} s")
+
     # The overflow case: garbage that leaves int16 behind valid CRCs.
     loud = overflow_stream()
     _si, want = native.decode_stream_scalar(loud)
@@ -1974,6 +2179,27 @@ def main():
                                  "batch")
         log(f"(d) {path} path: the failure latches (sync() raises again); "
             "K4 ran once")
+    # With the CRC check in the host walk (the host-CRC knob, and delta
+    # mode), the corrupted frame raises from the call itself; K4 never runs.
+    for var, value in (("CLAXON_TPU_HOST_CRC", "1"),
+                       ("CLAXON_TPU_ENTROPY", "delta")):
+        crc.crc16_ranges.launches = 0
+        os.environ[var] = value
+        try:
+            ct.decode_streams_device([base[1], bad], segmentation="host",
+                                     device=DEVICE)
+        except ct.Error as e:
+            if "frame CRC mismatch" not in str(e):
+                raise
+            log(f"(d) {var}={value}: the corrupted frame raised from "
+                f"decode_streams_device itself: {e}")
+        else:
+            raise AssertionError(f"{var}={value}: the corrupted frame CRC "
+                                 "did not raise from the call")
+        finally:
+            del os.environ[var]
+        if crc.crc16_ranges.launches:
+            raise AssertionError(f"{var}={value}: K4 ran")
 
     # (e) rates on the headline batch (samples = every channel's samples).
     def timed(fn):
@@ -2076,6 +2302,10 @@ def main():
                          "claxon_tpu/ops/pallas_synth.py:127"),
                "K2": ("claxon_tpu_torch/csrc/entropy.cu",
                       "claxon_tpu/ops/entropy.py:158"),
+               "K9": ("claxon_tpu_torch/csrc/entropy_delta.cu",
+                      "claxon_tpu/ops/entropy.py:54"),
+               "K10": ("claxon_tpu_torch/csrc/entropy_delta.cu",
+                       "claxon_tpu/ops/entropy.py:279"),
                "K4": ("claxon_tpu_torch/csrc/crc.cu",
                       "claxon_tpu/ops/crc.py:193"),
                "K5": ("claxon_tpu_torch/csrc/segment.cu",
@@ -2098,6 +2328,11 @@ def main():
                 "plain_ms": rows[k][2], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": library.get(k)}
 
+    # K9 and K10 run on their routes only: their launches are those of the
+    # route's headline decode.
+    launches["K9"] = routes["CLAXON_TPU_ENTROPY=delta"]["launches"]["K9"]
+    launches["K10"] = \
+        routes["CLAXON_TPU_SEG_ENTROPY=delta"]["launches"]["K10"]
     kernels = [entry(k, *src) for k, src in sources.items()]
     # K1 alone is an entry point of its own, not on a decode path.
     off_path = [entry("K1", *sources["K1+K3"])]
@@ -2123,6 +2358,17 @@ def main():
             # Every mixed and large-stream bucket: new and parent time,
             # bound.
             k["buckets"] = rows["K2_buckets"][1:] + k2_large
+            # The segmented scan route's dispatches (the largest headline
+            # one first in these keys).
+            k.update(ms_scan=rows["K2_scan"][1],
+                     plain_ms_scan=rows["K2_scan"][2],
+                     bound_ms_scan=bounds["K2_scan"][0],
+                     launches_scan=routes["CLAXON_TPU_SEG_ENTROPY=scan"]
+                     ["launches"]["K2"],
+                     scan_dispatches=rows["K2_scan_buckets"])
+        if k["name"] in ("K9", "K10"):
+            k["shape"] = rows[k["name"] + "_shape"]
+            k["buckets"] = rows[k["name"] + "_buckets"]
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
         if k["name"] == "K7":
@@ -2131,6 +2377,10 @@ def main():
             # time, bound, cycles per step.
             k["kernel_launches_per_call"] = 2
             k["groups"] = rows["K7_groups"]
+            k["ms_with_deltas"] = rows["K7_deltas_ms"]
+            k["launches_with_deltas"] = \
+                routes["CLAXON_TPU_SEG_ENTROPY=delta"]["launches"][
+                    "K7_with_deltas"]
     torch_ops = [{"name": k, "source": src, "ms": rows[k][1],
                   "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
                  for k, src in (
@@ -2153,6 +2403,10 @@ def main():
                       "queued_bounds_ms": queued,
                       "to_host_tail": to_host_tail,
                       "auto": auto,
+                      "routes": {r: {"device_resident_ms":
+                                     v["device_resident_ms"],
+                                     "runs_ms": v["runs_ms"]}
+                                 for r, v in routes.items()},
                       "pipelined": {"launches": pipe_launches,
                                     "depth_ms": depth_ms},
                       "device_idle": {p: (None if v is None else

@@ -5,8 +5,11 @@ Ogg audio packets are whole consecutive FLAC frames (one per packet) and
 MP4 chunks are runs of consecutive frames, so concatenating them
 reconstitutes a plain frame section. The port's C++ core walks it
 (boundaries only, frame CRC-16 checks deferred to the device) and the
-host-walk bits path decodes it on ``device``: K2, K1 + K3 (one fused
-kernel) and K4, then K3b for the int16 fetch.
+host-walk bits path decodes it on ``device`` in stream mode, as the JAX
+package's container calls do: K2, K1 + K3 (one fused kernel) and K4, then
+K3b for the int16 fetch. ``CLAXON_TPU_HOST_CRC`` (any nonempty value)
+moves the frame CRC-16 checks into the walk, which then raises at the
+first mismatch, and K4 does not run.
 
 A frame section of ``pipeline_bits.MAX_BATCH_BYTES`` or more (int32 chunk
 bit positions) decodes too: an Ogg payload walks in chunks of frames with
@@ -17,9 +20,9 @@ port has no such path and switches nothing, so it warns of nothing. The
 PCM is the same.
 
 Not carried over: ``use_native=False`` (the Python extractor) raises
-NotImplementedError, and the environment knobs ``CLAXON_TPU_NO_BITS``,
-``CLAXON_TPU_HOST_CRC`` and ``CLAXON_TPU_BITS_PAYLOAD_CAP`` select paths
-the port does not have and are not read.
+NotImplementedError, and the environment knobs ``CLAXON_TPU_NO_BITS`` and
+``CLAXON_TPU_BITS_PAYLOAD_CAP`` select paths the port does not have and
+are not read.
 """
 
 import io as _io
@@ -44,6 +47,15 @@ def _core(use_native):
     return _native()
 
 
+def _defer_crc():
+    """The walk defers the frame CRC-16 checks to the device (K4) unless
+    ``CLAXON_TPU_HOST_CRC`` is set (``claxon_tpu.containers.pipeline.
+    _defer_crc``)."""
+    import os
+
+    return not os.environ.get("CLAXON_TPU_HOST_CRC")
+
+
 def _decode_units(streaminfo, units, device):
     """Decode one stream's walk units (BitsBatches of consecutive frame
     runs, each below the byte limit) and fetch its PCM."""
@@ -60,7 +72,8 @@ def _decode_units(streaminfo, units, device):
 def decode_ogg_stream(data, use_native=True, verify_crc=True, device="cuda"):
     """Decode a whole FLAC-in-Ogg stream (bytes, or a file-like object)
     on ``device``; returns a ``DecodedStream``. ``verify_crc`` checks each
-    Ogg page's CRC-32; frame CRC-16s are always verified, on the device."""
+    Ogg page's CRC-32; frame CRC-16s are always verified, on the device
+    (on the host with ``CLAXON_TPU_HOST_CRC``)."""
     from .. import pipeline_bits
     from ..pipeline import _walk_frames_chunked
 
@@ -77,12 +90,13 @@ def decode_ogg_stream(data, use_native=True, verify_crc=True, device="cuda"):
     # plain frame section.
     payload = b"".join(p for p in audio_packets if p)
     limit = pipeline_bits.MAX_BATCH_BYTES
+    defer = _defer_crc()
     if len(payload) < limit:
         units = [native.extract_frames_bits(payload, emit_slots=False,
-                                            defer_crc=True)]
+                                            defer_crc=defer)]
     else:
         units = _walk_frames_chunked(streaminfo, memoryview(payload), native,
-                                     limit)
+                                     limit, defer_crc=defer)
     return _decode_units(streaminfo, units, device)
 
 
@@ -104,6 +118,7 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
     sorted_offsets = sorted(o for o, n in
                             zip(track.chunk_offsets,
                                 track.samples_per_chunk) if n)
+    defer = _defer_crc()
     batches = []
 
     def _crc_before_error():
@@ -131,14 +146,14 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
                 used = []
                 got = [native.extract_frames_bits(
                     view[offset:end], emit_slots=False, max_frames=n,
-                    consumed=used, defer_crc=True)]
+                    consumed=used, defer_crc=defer)]
                 # Trim inter-chunk slack so merged chunk payloads
                 # reconstitute a contiguous frame section.
                 got[0].payload = view[offset:offset + used[0]]
             else:
                 got = _walk_frames_chunked(track.streaminfo,
                                            view[offset:end], native, limit,
-                                           max_frames=n)
+                                           max_frames=n, defer_crc=defer)
         except Error:
             _crc_before_error()
             raise

@@ -49,7 +49,10 @@
 //   values from its recorded cursor, in the walk's arithmetic, into a
 //   shared tile; each warp then writes its 32 chunks (4 KB of contiguous
 //   output) as coalesced 16-byte stores, and the chunk bases. Chunks past
-//   the block size get zeros and no decode. (Decoding the values in the
+//   the block size get zeros and no decode. Asked for them (the
+//   segmented delta decode, K10), it also writes each code's bit advance
+//   as int8 (the JAX walk's deltas); the values-only kernel is a separate
+//   instantiation, unchanged. (Decoding the values in the
 //   walk itself, off the chain, was slower: the step's time follows its
 //   instruction count.)
 // Launch shape: 32 frames per warp (every lane walks), kWalkWarps = 2
@@ -557,15 +560,27 @@ constexpr int kValuesWarps = 8;
 
 // One thread per (lane, chunk) g = lane * NC + c: the chunk's 32 values
 // from its recorded cursor, then coalesced stores of the warp's 32 chunks.
+// With kDeltas it also writes each code's bit advance (the JAX walk's
+// int8 deltas: the cursor step, including the Rice parameter at a
+// partition's first code; 0 at inactive positions) through a second
+// shared tile, 1 KB of contiguous output a warp.
+template <bool kDeltas>
 __global__ void values_kernel(const unsigned* __restrict__ stream, int64_t W,
                               Shape sh, int64_t G, int NC,
                               int* __restrict__ values,
-                              int* __restrict__ bases) {
+                              int* __restrict__ bases,
+                              signed char* __restrict__ deltas) {
   __shared__ int tile[kValuesWarps][32][33];
+  // 32 bytes a chunk, row stride 36 bytes (one word when unused).
+  __shared__ unsigned
+      dtile[kDeltas ? kValuesWarps : 1][32][kDeltas ? 9 : 1];
   const int i = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int64_t g0 = (int64_t)blockIdx.x * blockDim.x + w * 32;
   const int64_t g = g0 + i;
   int* row = tile[w][i];
+  unsigned char* drow = reinterpret_cast<unsigned char*>(dtile[0][0]);
+  if constexpr (kDeltas)
+    drow = reinterpret_cast<unsigned char*>(dtile[w][i]);
   bool decoded = false;
   if (g < G) {
     const int64_t lane = g / NC;
@@ -584,7 +599,7 @@ __global__ void values_kernel(const unsigned* __restrict__ stream, int64_t W,
       int nb = t0 <= order_l ? order_l : (t0 + ps_s - 1) / ps_s * ps_s;
       for (int j = 0; j < 32; ++j) {
         const int t = t0 + j;
-        int val = 0;
+        int val = 0, na = 0;
         if (t >= order_l && t < t_end) {
           const unsigned h = rd.peek(cur);
           int shb = 0;
@@ -602,25 +617,32 @@ __global__ void values_kernel(const unsigned* __restrict__ stream, int64_t W,
           const unsigned r = (h2 >> rsh) & (k == 0 ? 0u : (1u << kc) - 1u);
           const unsigned vv = ((unsigned)zz << kc) | r;
           val = (int)((vv & 1u) ? ~(vv >> 1) : (vv >> 1));
-          cur += adv < 32 ? adv : 32;
+          na = adv < 32 ? adv : 32;
+          cur += na;
         }
         row[j] = val;
+        if constexpr (kDeltas) drow[j] = (unsigned char)na;
       }
       decoded = true;
     } else if (mode == 2 && t0 < t_end) {
       for (int j = 0; j < 32; ++j) {
-        int val = 0;
+        int val = 0, na = 0;
         if (t0 + j < t_end) {
           val = sext(top_bits(rd.peek(cur), sf_r), sf_r);
+          na = sf_r;
           cur += sf_r;
         }
         row[j] = val;
+        if constexpr (kDeltas) drow[j] = (unsigned char)na;
       }
       decoded = true;
     }
   }
-  if (!decoded)
+  if (!decoded) {
     for (int j = 0; j < 32; ++j) row[j] = 0;
+    if constexpr (kDeltas)
+      for (int j = 0; j < 8; ++j) dtile[w][i][j] = 0u;
+  }
   __syncwarp();
   // The warp's chunks are 32 consecutive rows of 32 values: 4 KB of
   // contiguous output, written as 8 coalesced int4 stores per thread.
@@ -633,11 +655,24 @@ __global__ void values_kernel(const unsigned* __restrict__ stream, int64_t W,
           make_int4(src[0], src[1], src[2], src[3]);
     }
   }
+  if constexpr (kDeltas) {
+    // And their deltas: 32 rows of 32 bytes, 2 int4 stores per thread.
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int q = m * 32 + i, r = q >> 1, h = q & 1;
+      if (g0 + r < G) {
+        const unsigned* src = dtile[w][r] + 4 * h;
+        reinterpret_cast<int4*>(deltas + (g0 + r) * 32)[h] =
+            make_int4((int)src[0], (int)src[1], (int)src[2], (int)src[3]);
+      }
+    }
+  }
 }
 
 }  // namespace
 
-// state (F * nch * NC int64) and desc (F * nch int4) are scratch.
+// state (F * nch * NC int64) and desc (F * nch int4) are scratch; deltas
+// ((F * nch, NC * 32) int8) is written when it is not null.
 extern "C" int cxk_walk_frames(const int* stream, int64_t W,
                                const int* start_bits, const int* bs,
                                const int* modes, const int* bps0, int64_t F,
@@ -645,7 +680,8 @@ extern "C" int cxk_walk_frames(const int* stream, int64_t W,
                                int* shift, int* wasted, int* n_parts, int* ps,
                                int* pbits, int* flags, int* warm, int* coefs,
                                int* ks, int* bases, int* sa_words,
-                               int* values, int* end_bits, unsigned char* ok,
+                               int* values, signed char* deltas,
+                               int* end_bits, unsigned char* ok,
                                int64_t* state, int* desc, void* cuda_stream) {
   if (F <= 0) return (int)cudaGetLastError();
   const LaneOut o{order, shift, wasted, n_parts, ps, pbits, flags,
@@ -668,7 +704,13 @@ extern "C" int cxk_walk_frames(const int* stream, int64_t W,
   const int NC = (int)((T + 31) / 32);
   const int64_t G = F * nch * NC;
   const int vthreads = 32 * kValuesWarps;
-  values_kernel<<<(unsigned)((G + vthreads - 1) / vthreads), vthreads, 0,
-                  st>>>(s, W, sh, G, NC, values, bases);
+  const unsigned vblocks = (unsigned)((G + vthreads - 1) / vthreads);
+  if (deltas != nullptr)
+    values_kernel<true><<<vblocks, vthreads, 0, st>>>(s, W, sh, G, NC,
+                                                      values, bases, deltas);
+  else
+    values_kernel<false><<<vblocks, vthreads, 0, st>>>(s, W, sh, G, NC,
+                                                       values, bases,
+                                                       nullptr);
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,9 @@ __all__ = ["load", "check", "stream_handle", "build_seconds"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("synth.cu", "entropy.cu", "crc.cu", "segment.cu", "seg_parse.cu",
-            "demux.cu", "seg_gather.cu", "pack16.cu")
+_SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu", "crc.cu",
+            "segment.cu", "seg_parse.cu", "demux.cu", "seg_gather.cu",
+            "pack16.cu")
 #: headers the sources include (hashed with them).
 _HEADERS = ("scan.cuh",)
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
@@ -48,6 +49,14 @@ _SIGNATURES = {
     # lengths, out, L, NC, SA, stream
     "cxk_entropy_stream": [_P, _N, _P, _P, _N, _N, _P, _P, _P, _P, _P, _N,
                            _P, _P, _N, _N, _N, _P],
+    # K9 -- slots, deltas, ks, KP, P, ps, orders, pbits, vflags, warm, WM,
+    # out, L, NC, SA, stream
+    "cxk_entropy_delta_slots": [_P, _P, _P, _N, _N, _P, _P, _P, _P, _P, _N,
+                                _P, _N, _N, _N, _P],
+    # K10 -- stream, W, bases, deltas, ks, KP, P, ps, orders, pbits, flags,
+    # warm, WM, lengths, out, L, NC, SA, stream
+    "cxk_entropy_delta_stream": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P,
+                                 _P, _N, _P, _P, _N, _N, _N, _P],
     # stream, W, starts, ends, out, F, tables, item_off, stream
     "cxk_crc16_ranges": [_P, _N, _P, _P, _P, _N, _P, _P, _P],
     # K5 -- W -> number of scan blocks; stream, W, n_bytes, blk, stream;
@@ -67,9 +76,9 @@ _SIGNATURES = {
     "cxk_seg_compact": [_P, _P, _N, _P, _N, _P, _P, _P, _P, _P, _P, _P],
     "cxk_seg_summary": [_P, _P, _P, _N, _P, _P, _P, _P, _N, _P, _P],
     # K7 -- stream, W, start_bits, bs, modes, bps0, F, T, nch, then the
-    # 13 per-lane outputs (demux.WALK_KEYS order), end_bits, ok, the
-    # scratch state and desc, stream
-    "cxk_walk_frames": [_P, _N, _P, _P, _P, _P, _N, _N, _N] + [_P] * 13
+    # 13 per-lane outputs (demux.WALK_KEYS order), deltas (or null),
+    # end_bits, ok, the scratch state and desc, stream
+    "cxk_walk_frames": [_P, _N, _P, _P, _P, _P, _N, _N, _N] + [_P] * 14
                        + [_P] * 5,
     # K8 -- values, warm, order, rows, R, row_words, L, Tb32, out, stream
     "cxk_seg_gather": [_P, _P, _P, _P, _N, _N, _N, _N, _P, _P],

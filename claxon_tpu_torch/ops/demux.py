@@ -15,9 +15,10 @@ block size not divisible by the partition count, an order not below the
 partition size, an LPC precision code of 15 or a negative QLP shift, wasted
 bits >= bps or a subframe bps above 32, and a chunk spanning more than 64
 words. On ok frames every output equals the JAX walk's. Reads past the
-stream end give zero bits. The per-code bit advances (``deltas``) that
-the JAX walk also emits are not produced: the values decode never reads
-them.
+stream end give zero bits. The per-code bit advances (``deltas``, int8)
+that the JAX walk always emits come out only when asked for
+(``deltas=True``): the segmented delta decode (K10) reads them, the
+default values decode does not.
 
 The plain form walks all frames at once, one code position per step, in
 int64 holding u32 values (the CPU torch has no u32 shifts).
@@ -173,6 +174,7 @@ def _walk_subframe(rd, out, pos, bs, ch_bps, T, ok):
     bad = torch.zeros(F, dtype=torch.bool, device=dev)
     bases = torch.zeros((F, NC), dtype=i64, device=dev)
     values = torch.zeros((F, NC * 32), dtype=i64, device=dev)
+    advance = torch.zeros((F, NC * 32), dtype=i64, device=dev)
     k_emit = torch.zeros((F, NC * 32), dtype=i64, device=dev)
     full = (torch.ones_like(pbits) << pbits) - 1
     for t in range(NC * 32):
@@ -197,8 +199,9 @@ def _walk_subframe(rd, out, pos, bs, ch_bps, T, ok):
         vb = _sext(_top(h, sf_r), sf_r)
         val = torch.where(act_r, rice, torch.where(act_v, vb, 0))
         values[:, t] = val
-        cur = cur + torch.where(act_r, adv.clamp(max=32),
-                                torch.where(act_v, sf_r, 0))
+        advance[:, t] = torch.where(act_r, adv.clamp(max=32),
+                                    torch.where(act_v, sf_r, 0))
+        cur = cur + advance[:, t]
         nb = torch.where(first, torch.where(t == order_l, ps_s, t + ps_s), nb)
         k_emit[:, t] = k
     okc &= ~bad
@@ -214,6 +217,7 @@ def _walk_subframe(rd, out, pos, bs, ch_bps, T, ok):
     out["ks"].append(ks)
     out["bases"].append(bases)
     out["values"].append(((values + (1 << 31)) & _M32) - (1 << 31))
+    out["deltas"].append(advance)
 
     # Largest chunk span in bits, from the int32 chunk bases.
     b32 = ((bases + (1 << 31)) & _M32) - (1 << 31)
@@ -230,7 +234,8 @@ def _walk_subframe(rd, out, pos, bs, ch_bps, T, ok):
     return cur, ok & okc
 
 
-def walk_frames_plain(stream, start_bits, bs, modes, bps0, T, nch):
+def walk_frames_plain(stream, start_bits, bs, modes, bps0, T, nch,
+                      deltas=False):
     """The plain PyTorch form.
 
     Args:
@@ -241,6 +246,10 @@ def walk_frames_plain(stream, start_bits, bs, modes, bps0, T, nch):
                   2 right/side, 3 mid/side).
       bps0:       (F,) int32 bits per sample from the header.
       T, nch:     block-size bucket and channel count.
+      deltas:     also return each code's bit advance, ``out["deltas"]``
+                  ((F * nch, NC * 32) int8: the cursor step, with the Rice
+                  parameter at a partition's first code; 0 at warm-up,
+                  padding and constant lanes).
 
     Returns:
       (out, end_bits, ok): ``out`` maps each of ``WALK_KEYS`` to an int32
@@ -255,7 +264,7 @@ def walk_frames_plain(stream, start_bits, bs, modes, bps0, T, nch):
     b = bs.to(i64)
     m = modes.to(i64)
     ok = (b >= 1) & (b <= T)
-    out = {k: [] for k in WALK_KEYS}
+    out = {k: [] for k in WALK_KEYS + ("deltas",)}
     for ch in range(nch):
         if nch == 2:
             side = torch.where(((ch == 1) & ((m == 1) | (m == 3)))
@@ -264,19 +273,22 @@ def walk_frames_plain(stream, start_bits, bs, modes, bps0, T, nch):
             side = torch.zeros_like(m)
         pos, ok = _walk_subframe(rd, out, pos, b, bps0.to(i64) + side, T, ok)
     shapes = _lane_shapes(F * nch, T)
-    merged = {k: torch.stack(v, dim=1).reshape(shapes[k]).to(torch.int32)
-              for k, v in out.items()}
+    merged = {k: torch.stack(out[k], dim=1).reshape(shapes[k])
+              .to(torch.int32) for k in WALK_KEYS}
+    if deltas:
+        merged["deltas"] = torch.stack(out["deltas"], dim=1).reshape(
+            shapes["values"]).to(torch.int8)
     end_bits = ((pos + 7) & ~7).to(torch.int32)
     return merged, end_bits, ok
 
 
-def walk_frames(stream, start_bits, bs, modes, bps0, T, nch):
+def walk_frames(stream, start_bits, bs, modes, bps0, T, nch, deltas=False):
     """K7 wrapper: the plain form for CPU tensors; for CUDA tensors the
     hand-written kernel (``csrc/demux.cu``), or an exception. Same
     arguments and results as :func:`walk_frames_plain`."""
     args = (stream, start_bits, bs, modes, bps0)
     if on_cpu(*args):
-        return walk_frames_plain(*args, T, nch)
+        return walk_frames_plain(*args, T, nch, deltas)
     dev = require_cuda_int32("walk_frames", stream=stream,
                              start_bits=start_bits, bs=bs, modes=modes,
                              bps0=bps0)
@@ -287,8 +299,12 @@ def walk_frames(stream, start_bits, bs, modes, bps0, T, nch):
     if not 1 <= T <= 65535 or nch < 1:
         raise ValueError("walk_frames: T must be in [1, 65535], nch >= 1")
     lib = _build.load()
+    shapes = _lane_shapes(F * nch, T)
     out = {k: torch.empty(s, dtype=torch.int32, device=dev)
-           for k, s in _lane_shapes(F * nch, T).items()}
+           for k, s in shapes.items()}
+    if deltas:
+        out["deltas"] = torch.empty(shapes["values"], dtype=torch.int8,
+                                    device=dev)
     end_bits = torch.empty((F,), dtype=torch.int32, device=dev)
     ok = torch.empty((F,), dtype=torch.bool, device=dev)
     # Scratch: each chunk's cursor and Rice parameter, each lane's shape.
@@ -298,13 +314,18 @@ def walk_frames(stream, start_bits, bs, modes, bps0, T, nch):
     _build.check(lib.cxk_walk_frames(
         stream.data_ptr(), stream.shape[0], start_bits.data_ptr(),
         bs.data_ptr(), modes.data_ptr(), bps0.data_ptr(), F, T, nch,
-        *(out[k].data_ptr() for k in WALK_KEYS), end_bits.data_ptr(),
+        *(out[k].data_ptr() for k in WALK_KEYS),
+        out["deltas"].data_ptr() if deltas else None, end_bits.data_ptr(),
         ok.data_ptr(), state.data_ptr(), desc.data_ptr(),
         _build.stream_handle(dev)), "cxk_walk_frames")
     walk_frames.launches += 1
+    walk_frames.delta_launches += int(bool(deltas))
     return out, end_bits, ok
 
 
 #: launches through the wrapper (CUDA tensors only); each is one call of
-#: ``cxk_walk_frames``, which runs the walk kernel, then the values kernel.
+#: ``cxk_walk_frames``, which runs the walk kernel, then the values kernel
+#: (its delta-writing form when ``deltas=True``, also counted in
+#: ``delta_launches``).
 walk_frames.launches = 0
+walk_frames.delta_launches = 0

@@ -371,16 +371,18 @@ pack_summary.launches = 0
 
 # ---- one group ---------------------------------------------------------
 
-def fused_demux_run(words_le, n_bytes, T, nch, ends, si_bps, cap, wcap):
-    """Queue one group's fused demux: bswap, K5, fields + compaction, K7,
-    summary. Returns (stream (W,) int32 big-endian, walk (dict of K7's
-    per-lane outputs), summary (cap, 5) int32, counts (2,) int32), all on
-    the device of ``words_le``, nothing synchronised."""
+def fused_demux_run(words_le, n_bytes, T, nch, ends, si_bps, cap, wcap,
+                    deltas=False):
+    """Queue one group's fused demux: bswap, K5, fields + compaction, K7
+    (emitting its ``deltas`` too when asked), summary. Returns (stream
+    (W,) int32 big-endian, walk (dict of K7's per-lane outputs), summary
+    (cap, 5) int32, counts (2,) int32), all on the device of
+    ``words_le``, nothing synchronised."""
     stream = bswap_words(words_le)
     positions, valid, count, win = find_frame_headers(stream, n_bytes, cap)
     fields, lane_of, walk_in, counts = parse_candidates(
         positions, valid, win, count, ends, si_bps, T, nch, wcap)
-    walk, end_bits, walk_ok = walk_frames(stream, *walk_in, T, nch)
+    walk, end_bits, walk_ok = walk_frames(stream, *walk_in, T, nch, deltas)
     summary = pack_summary(positions, fields, lane_of, end_bits, walk_ok,
                            walk["n_parts"], walk["sa_words"], nch)
     return stream, walk, summary, counts
@@ -402,8 +404,10 @@ class PendingDemux:
     before ``resolve()``. ``resolve`` waits for the copies and
     re-dispatches with a larger capacity class on the rare overflow."""
 
-    def __init__(self, words_le, n_bytes, T, nch, ends, si_bps, cap, wcap):
+    def __init__(self, words_le, n_bytes, T, nch, ends, si_bps, cap, wcap,
+                 deltas=False):
         self._key = (words_le, n_bytes, T, nch, ends, si_bps)
+        self._deltas = deltas
         self._wcap_max = max_walk_lanes(T, nch)
         self._dispatch(cap, min(wcap, self._wcap_max))
 
@@ -412,7 +416,7 @@ class PendingDemux:
         self.cap = cap
         self.wcap = wcap
         self.stream, self.walk, summary, counts = fused_demux_run(
-            words_le, n_bytes, T, nch, ends, si_bps, cap, wcap)
+            words_le, n_bytes, T, nch, ends, si_bps, cap, wcap, self._deltas)
         self._summary = _fetch_async(summary)
         self._counts = _fetch_async(counts)
         self._event = None
@@ -443,7 +447,7 @@ class PendingDemux:
 
 
 def fused_demux_async(words_le, n_bytes, T, nch, stream_ends, si_bps,
-                      frames_est=None):
+                      frames_est=None, deltas=False):
     """Queue the fused demux of one group and start the summary copy.
 
     Args:
@@ -453,6 +457,8 @@ def fused_demux_async(words_le, n_bytes, T, nch, stream_ends, si_bps,
       stream_ends: end byte of each stream in the upload (host ints).
       si_bps:      each stream's STREAMINFO bits per sample.
       frames_est:  frame-count estimate for the capacity classes, or None.
+      deltas:      have K7 emit its per-code bit advances (``walk["deltas"]``)
+                   for the segmented delta decode.
     """
     S = -(-max(len(stream_ends), 1) // S_QUANTUM) * S_QUANTUM
     ends = np.full(S, n_bytes, np.int32)
@@ -464,7 +470,7 @@ def fused_demux_async(words_le, n_bytes, T, nch, stream_ends, si_bps,
                         torch.from_numpy(ends).to(dev),
                         torch.from_numpy(bps_a).to(dev),
                         pick_cap(n_bytes, frames_est),
-                        pick_wcap(n_bytes, frames_est))
+                        pick_wcap(n_bytes, frames_est), deltas)
 
 
 def fused_demux(words_le, n_bytes, T, nch, stream_ends, si_bps,

@@ -2,10 +2,12 @@
 (counterpart of ``claxon_tpu.pipeline``).
 
 ``decode_streams_device`` walks every stream once on the host with the
-port's copy of the C++ core (frame CRC-16 checks deferred to the device;
-a stream of ``MAX_BATCH_BYTES`` or more in chunks of frames), plans the
-batch into fixed (L, T) buckets (``pipeline_bits``), and runs the
-hand-written kernels on ``device``. With ``segmentation="device"`` the
+port's copy of the C++ core (frame CRC-16 checks deferred to the device
+unless ``CLAXON_TPU_HOST_CRC`` is set; a stream of ``MAX_BATCH_BYTES`` or
+more in chunks of frames), plans the batch into fixed (L, T) buckets
+(``pipeline_bits``; ``CLAXON_TPU_ENTROPY=delta`` picks the delta entropy
+mode, as in the JAX package), and runs the hand-written kernels on
+``device``. With ``segmentation="device"`` the
 card finds the frames and walks the subframes itself instead
 (``pipeline_seg``). The default, as in the JAX package, is
 ``CLAXON_TPU_SEGMENTATION`` or else ``"auto"``: the first batch that
@@ -299,12 +301,32 @@ def _split_batch(sizes, limit):
     return runs
 
 
-def extract_streams_bits(datas, native):
+def _walk_options(mode=None):
+    """(mode, emit_slots, defer_crc) of a host walk, as the JAX package
+    reads them on each call (``claxon_tpu.pipeline.extract_streams_bits``):
+    ``mode`` (None: ``CLAXON_TPU_ENTROPY``) is "stream" or "delta", any
+    other value "stream"; delta mode has the walk emit the relocated slots
+    and deltas K9 reads; the frame CRC-16 checks are deferred to the
+    device (K4) only in stream mode without ``CLAXON_TPU_HOST_CRC`` (any
+    nonempty value), else the walk checks each frame as it goes and
+    raises at the first mismatch."""
+    import os
+
+    if mode is None:
+        mode = os.environ.get("CLAXON_TPU_ENTROPY", "stream")
+    if mode not in ("stream", "delta"):
+        mode = "stream"
+    defer = mode == "stream" and not os.environ.get("CLAXON_TPU_HOST_CRC")
+    return mode, mode == "delta", defer
+
+
+def extract_streams_bits(datas, native, mode=None):
     """Walk every stream of a batch with the C++ core: frame boundaries,
-    descriptors and chunk bases, the frame CRC-16 checks deferred to the
-    device. Returns [(streaminfo, BitsBatch), ...] for one plan, so the
-    batch stays below ``MAX_BATCH_BYTES`` (``decode_streams_device``
-    splits larger batches and walks large streams in chunks)."""
+    descriptors and chunk bases, and in delta ``mode`` the relocated slots
+    and deltas (see :func:`_walk_options`; None reads the environment).
+    Returns [(streaminfo, BitsBatch), ...] for one plan, so the batch
+    stays below ``MAX_BATCH_BYTES`` (``decode_streams_device`` splits
+    larger batches and walks large streams in chunks)."""
     from .pipeline_bits import MAX_BATCH_BYTES
 
     total = sum(len(d) for d in datas)
@@ -313,7 +335,8 @@ def extract_streams_bits(datas, native):
             f"claxon_tpu_torch: a batch of {total} bytes reaches the "
             f"{MAX_BATCH_BYTES}-byte limit of int32 chunk bit positions; "
             "plan it in smaller batches")
-    return [native.extract_stream_bits(d, emit_slots=False, defer_crc=True)
+    _mode, emit, defer = _walk_options(mode)
+    return [native.extract_stream_bits(d, emit_slots=emit, defer_crc=defer)
             for d in datas]
 
 
@@ -327,9 +350,11 @@ def _frame_bound(si):
             + 7) // 8 + 64 + 2 * si.channels
 
 
-def _walk_frames_chunked(si, payload, native, limit, max_frames=None):
+def _walk_frames_chunked(si, payload, native, limit, max_frames=None,
+                         emit_slots=False, defer_crc=True):
     """Walk a frame section (``payload``, a memoryview at its first frame)
-    in chunks of whole frames, each below ``limit`` bytes: the frame count
+    in chunks of whole frames, each below ``limit`` bytes, with the walk
+    options of :func:`_walk_options`: the frame count
     per chunk comes from STREAMINFO (:func:`_frame_bound`) and halves for
     a chunk that overruns. The walk ends at the end of ``payload``, or
     after ``max_frames`` frames (a container chunk declares its count).
@@ -349,8 +374,8 @@ def _walk_frames_chunked(si, payload, native, limit, max_frames=None):
             used = []
             n = per_chunk if left is None else min(per_chunk, left)
             bb = native.extract_frames_bits(
-                payload[off:], emit_slots=False, max_frames=n,
-                consumed=used, defer_crc=True)
+                payload[off:], emit_slots=emit_slots, max_frames=n,
+                consumed=used, defer_crc=defer_crc)
             if used[0] > budget and n > 1:
                 per_chunk //= 2
                 continue
@@ -382,14 +407,15 @@ def _verify_before_bad_channels(si, units):
         _host_verify_deferred(bb, len(bb.bframes))
 
 
-def _walk_chunks(data, native, limit):
+def _walk_chunks(data, native, limit, emit_slots=False, defer_crc=True):
     """Walk one stream of ``limit`` bytes or more in chunks of whole
     frames (:func:`_walk_frames_chunked`). Returns (streaminfo,
     [BitsBatch, ...])."""
     from .native.binding import _read_metadata
 
     si, pos = _read_metadata(data)
-    chunks = _walk_frames_chunked(si, memoryview(data)[pos:], native, limit)
+    chunks = _walk_frames_chunked(si, memoryview(data)[pos:], native, limit,
+                                  emit_slots=emit_slots, defer_crc=defer_crc)
     _verify_before_bad_channels(si, chunks)
     return si, chunks
 
@@ -399,17 +425,19 @@ def _unit_bytes(bb):
     return len(bb.payload) + 4
 
 
-def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device):
+def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device,
+                   mode="stream"):
     """Decode walk units ``braws`` ([(streaminfo, BitsBatch), ...], unit u
     a whole stream or a chunk of stream ``owners[u]``, in stream order,
-    of at most ``sizes[u]`` upload bytes). Chunk bases are int32 bit
+    of at most ``sizes[u]`` upload bytes) in entropy ``mode`` (the one
+    they were walked for). Chunk bases are int32 bit
     positions into one plan's upload, so the units are planned as runs
     below ``MAX_BATCH_BYTES`` and the runs' results merge, a stream's
     chunks concatenating back into its one result."""
     from . import pipeline_bits
 
     parts = [([owners[u] for u in run], pipeline_bits.decode_raw_bits_device(
-        [braws[u] for u in run], lane_quantum, device=device))
+        [braws[u] for u in run], lane_quantum, device=device, mode=mode))
         for run in _split_batch(sizes, pipeline_bits.MAX_BATCH_BYTES)]
     if len(parts) == 1 and len(braws) == n_streams:
         return parts[0][1]
@@ -419,25 +447,30 @@ def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device):
 def _decode_host_walk(datas, lane_quantum, device):
     """The host-walk bits path: every stream is walked first (a stream of
     ``MAX_BATCH_BYTES`` or more in chunks of frames, :func:`_walk_chunks`),
-    then the walked units are decoded (:func:`_decode_walked`)."""
+    then the walked units are decoded (:func:`_decode_walked`), in the
+    entropy mode and with the CRC placement the environment names
+    (:func:`_walk_options`). The JAX package switches a batch of
+    ``MAX_BATCH_BYTES`` or more to delta mode; the port splits it and
+    keeps the mode (the same PCM)."""
     from . import pipeline_bits
 
     limit = pipeline_bits.MAX_BATCH_BYTES
     native = _native()
+    mode, emit, defer = _walk_options()
     braws, owners, sizes = [], [], []
     for i, d in enumerate(datas):
         if len(d) < limit:
-            braws.append(native.extract_stream_bits(d, emit_slots=False,
-                                                    defer_crc=True))
+            braws.append(native.extract_stream_bits(d, emit_slots=emit,
+                                                    defer_crc=defer))
             owners.append(i)
             sizes.append(len(d))
             continue
-        si, chunks = _walk_chunks(d, native, limit)
+        si, chunks = _walk_chunks(d, native, limit, emit, defer)
         braws.extend((si, bb) for bb in chunks)
         owners.extend([i] * len(chunks))
         sizes.extend(_unit_bytes(bb) for bb in chunks)
     return _decode_walked(braws, owners, sizes, len(datas), lane_quantum,
-                          device)
+                          device, mode)
 
 
 #: per-process choices of segmentation="auto", one per device type

@@ -1,23 +1,32 @@
 """Bits-path device pipeline of the port: residual bits in, PCM out
-(counterpart of ``claxon_tpu.pipeline_bits``, stream mode).
+(counterpart of ``claxon_tpu.pipeline_bits``).
 
 The C++ boundary walk (``native.extract_stream_bits``, the port's copy
-of the JAX package's core) ships each stream's frame-section bytes and per-lane
-descriptors. :func:`plan_raw_bits` turns them, in numpy alone, into the
-device uploads: one stream of big-endian int32 words for the batch, one
-packed int32 ``mb`` array per (T, nch) bucket (the ``_MB_FIXED`` layout
-below), the fallback-frame buckets (their residuals as int16 pairs where
-they fit), and the frame CRC ranges ``se``. It produces the same bytes as
-the JAX package's planner, which a test holds it to.
-:func:`decode_raw_bits_device` uploads them and runs, per bucket, K2 ->
-K1 + K3 (:func:`stream_step`; K3 fused into K1's store), then (K3b
-unpack ->) K1 + K3 for fallback frames, then K4 once per batch over
-every deferred frame CRC.
+of the JAX package's core) ships each stream's frame-section bytes and
+per-lane descriptors. :func:`plan_raw_bits` turns them, in numpy alone,
+into the device uploads, in one of the JAX package's two entropy modes:
+
+* ``"stream"`` (the default): one stream of big-endian int32 words for
+  the batch, one packed int32 ``mb`` array per (T, nch) bucket (the
+  ``_MB_FIXED`` layout below) and the frame CRC ranges ``se``;
+  :func:`decode_raw_bits_device` runs K2 -> K1 + K3 per bucket
+  (:func:`stream_step`; K3 fused into K1's store) and K4 once per batch
+  over every deferred frame CRC;
+* ``"delta"`` (``CLAXON_TPU_ENTROPY=delta``; the walk emitted the
+  relocated slots and deltas, and checked the CRCs itself): per (T, nch,
+  SA) bucket the slots (L, NC * SA) int32, the deltas (L, T) uint8, the
+  Rice parameters (L, P) and the per-lane ``meta`` (L, 72) int32
+  (``_META_W``); K9 -> K1 + K3 per bucket (:func:`delta_step`), no K4.
+
+Both modes add the fallback-frame buckets (their residuals as int16 pairs
+where they fit; K3b unpack -> K1 + K3). The planner produces the same
+bytes as the JAX package's, which a test holds it to; the one difference
+is that a delta bucket's slots start zeroed (the JAX planner leaves the
+words no chunk fills uninitialised), so the upload is deterministic.
 Each bucket also carries ``out_packed``, the JAX package's rule for
 fetching it as int16 pairs (``DeviceDecoded.start_fetch`` packs then).
 
-Not carried over: delta entropy mode, host CRC verification
-(``CLAXON_TPU_HOST_CRC``) and the mesh.
+Not carried over: the mesh.
 """
 
 from dataclasses import dataclass
@@ -27,12 +36,12 @@ import torch
 
 from .error import fmt_err
 from .ops.crc import crc16_ranges
-from .ops.entropy import decode_residual_bits_stream
+from .ops.entropy import decode_residual_bits, decode_residual_bits_stream
 from .ops.epilogue import unpack_int16_pairs
 from .ops.predict import ORDER_MAX, synthesize_epilogue
 
 __all__ = ["plan_raw_bits", "decode_raw_bits_device", "stream_step",
-           "unpack_mb", "inputs_from_numpy"]
+           "delta_step", "unpack_mb", "inputs_from_numpy"]
 
 # Partition-count classes: buckets quantize their maximum partition count.
 _P_CLASSES = (1, 2, 4, 8, 16, 32, 64)
@@ -63,6 +72,12 @@ _MB_FIXED = 52
 def _mb_width(nc, p):
     """Packed mb width in int32 words."""
     return _MB_FIXED + (nc - 1 + 1) // 2 + (p + 1) // 2
+
+
+#: Delta-mode per-lane ``meta`` columns (int32): 0 order, 1 shift, 2
+#: wasted, 3 ps, 4 pbits, 5 flags, 6 length, 7 pair mode (on both lanes of
+#: a pair), 8:40 warm-up samples, 40:72 QLP coefficients.
+_META_W = 72
 
 
 #: chunk bases are int32 bit positions into the batch's stream upload, so
@@ -145,6 +160,21 @@ class BitsBucket:
 
 
 @dataclass
+class DeltaBucket:
+    """One delta-mode bucket: K9's uploads and static shape."""
+    n_ch: int
+    n_parts_max: int   # P
+    sa: int            # words per chunk slot (the bucket's slot class)
+    nc: int            # chunks per lane
+    slots: np.ndarray  # (L, NC * SA) int32
+    deltas: np.ndarray  # (L, NC * 32) uint8
+    ks: np.ndarray     # (L, P) int32
+    meta: np.ndarray   # (L, _META_W) int32
+    plan: list
+    out_packed: bool   # 16-bit audio: fetch the PCM as int16 pairs
+
+
+@dataclass
 class SampleBucket:
     """One fallback-frame bucket: host-decoded residuals for K1 + K3."""
     n_ch: int
@@ -166,7 +196,9 @@ class BitsPlan:
     results: list          # DecodedStream per input stream
     pcms: list             # their (total, channels) int32 arrays
     stream: np.ndarray     # (W,) int32 big-endian frame-section words
-    bits: list             # BitsBucket, in dispatch order
+    #                        (None in delta mode: nothing reads them)
+    bits: list             # BitsBucket (DeltaBucket in delta mode), in
+    #                        dispatch order
     samples: list          # SampleBucket, dispatched after the bits ones
     se: np.ndarray = None  # (2, F) int32 CRC ranges (starts, ends) or None
     n_crc: int = 0         # valid ranges in se
@@ -180,28 +212,33 @@ def _pack_input_i16(x):
     return x16.view(np.int32).reshape(L, T // 2)
 
 
-def plan_raw_bits(braws, lane_quantum):
-    """Plan a batch of [(streaminfo, BitsBatch), ...] (extracted with
-    ``emit_slots=False``), in numpy alone. Raises the reference's
-    ``FormatError`` for a frame whose channel count disagrees with
-    STREAMINFO, after re-checking the CRCs of the frames before it."""
+def plan_raw_bits(braws, lane_quantum, mode="stream"):
+    """Plan a batch of [(streaminfo, BitsBatch), ...] in entropy ``mode``
+    ("stream": extracted with ``emit_slots=False``; "delta": with
+    ``emit_slots=True`` and ``defer_crc=False``), in numpy alone. Raises
+    the reference's ``FormatError`` for a frame whose channel count
+    disagrees with STREAMINFO, after re-checking the CRCs of the frames
+    before it, and RuntimeError for a deferred-CRC batch in delta mode."""
     from .pipeline import (DecodedStream, _LITTLE_ENDIAN, _T_BUCKETS,
                            bucket_shape)
 
     t_buckets = np.asarray(_T_BUCKETS, dtype=np.int64)
+    delta = mode == "delta"
 
-    # One shared upload of every stream's frame-section words (big-endian
-    # bit order, int32), chunk bases rebased into it.
-    sizes = [len(b.payload) for _si, b in braws]
-    wcs = [(s + 3) // 4 for s in sizes]
-    buf = np.zeros(_pad_stream_words(sum(wcs)) * 4, dtype=np.uint8)
+    # Stream mode: one shared upload of every stream's frame-section words
+    # (big-endian bit order, int32), chunk bases rebased into it.
+    stream = None
     stream_bit_off = []
-    off = 0
-    for (_si, b), s, wc in zip(braws, sizes, wcs):
-        buf[off:off + s] = np.frombuffer(b.payload, dtype=np.uint8)
-        stream_bit_off.append(off * 8)
-        off += wc * 4
-    stream = buf.view(">i4").astype(np.int32)
+    if not delta:
+        sizes = [len(b.payload) for _si, b in braws]
+        wcs = [(s + 3) // 4 for s in sizes]
+        buf = np.zeros(_pad_stream_words(sum(wcs)) * 4, dtype=np.uint8)
+        off = 0
+        for (_si, b), s, wc in zip(braws, sizes, wcs):
+            buf[off:off + s] = np.frombuffer(b.payload, dtype=np.uint8)
+            stream_bit_off.append(off * 8)
+            off += wc * 4
+        stream = buf.view(">i4").astype(np.int32)
 
     results, pcms = [], []
     bit_groups, smp_groups = {}, {}
@@ -216,6 +253,12 @@ def plan_raw_bits(braws, lane_quantum):
             fmt_err("frame channel count does not match streaminfo")
         deferred = (bf["flags"] & 2) != 0
         if deferred.any():
+            # Only the stream upload can be CRC-checked on the device.
+            if delta:
+                raise RuntimeError(
+                    "BitsBatch extracted with defer_crc requires "
+                    "mode='stream' (the CRC verifier reads the stream "
+                    "upload)")
             off = stream_bit_off[si_idx] // 8
             crc_starts.append(bf["byte0"][deferred].astype(np.int64) + off)
             crc_ends.append(bf["byte1"][deferred].astype(np.int64) + off)
@@ -228,13 +271,19 @@ def plan_raw_bits(braws, lane_quantum):
         lane0_v = np.concatenate([[0], np.cumsum(nch_v)[:-1]])
 
         # Per-lane flat-buffer offsets: fallback lanes consume samples,
-        # bits lanes consume chunk bases; every lane consumes ks.
+        # bits lanes consume chunk bases (and deltas and slots); every
+        # lane consumes ks.
         lane_fb = np.repeat(fb_v, nch_v)
-        x_sz = np.where(lane_fb, np.repeat(bs_v, nch_v), 0)
+        lane_bs = np.repeat(bs_v, nch_v)
+        x_sz = np.where(lane_fb, lane_bs, 0)
         b_sz = np.where(lane_fb, 0, np.repeat(nc_v, nch_v))
+        d_sz = np.where(lane_fb, 0, lane_bs)
+        s_sz = np.where(lane_fb, 0, np.repeat(nc_v * sa_v, nch_v))
         k_sz = bb.bsubs["n_parts"].astype(np.int64)
         x_off = _excl_cumsum(x_sz)
         b_off = _excl_cumsum(b_sz)
+        d_off = _excl_cumsum(d_sz)
+        s_off = _excl_cumsum(s_sz)
         k_off = _excl_cumsum(k_sz)
 
         pcm = np.zeros((int(bs_v.sum()), si.channels), dtype=np.int32)
@@ -246,40 +295,54 @@ def plan_raw_bits(braws, lane_quantum):
         if len(bf) == 0:
             continue
 
-        # One composite key per frame: (fallback, T bucket, channels).
+        # One composite key per frame: (fallback, T bucket, channels, and
+        # in delta mode the slot class: its slots ship at that width).
         tb_idx = np.searchsorted(t_buckets, bs_v)
         np_max = np.maximum.reduceat(k_sz, lane0_v)
+        sa_key = sa_v if delta else np.zeros_like(sa_v)
         key_v = (fb_v.astype(np.int64) << 48) | (tb_idx << 40) \
-            | (nch_v << 20)
+            | (nch_v << 20) | sa_key
         for kv in np.unique(key_v):
             idx = np.flatnonzero(key_v == kv)
             i0 = idx[0]
+            lanes0 = lane0_v[idx]
             chunk = {
                 "si": np.full(len(idx), si_idx, dtype=np.int64),
-                "bs": bs_v[idx], "lane0": lane0_v[idx],
+                "bs": bs_v[idx], "lane0": lanes0,
                 "out0": out0_v[idx], "nc": nc_v[idx],
                 "mode": bf["mode"][idx].astype(np.int64),
                 "bps": bf["bps"][idx].astype(np.int64),
                 "sa": sa_v[idx],
-                "x0": x_off[lane0_v[idx]], "k0": k_off[lane0_v[idx]],
-                "b0": b_off[lane0_v[idx]], "np_max": np_max[idx],
+                "x0": x_off[lanes0], "k0": k_off[lanes0],
+                "b0": b_off[lanes0], "d0": d_off[lanes0],
+                "s0": s_off[lanes0], "np_max": np_max[idx],
             }
-            gkey = (int(t_buckets[tb_idx[i0]]), int(nch_v[i0]))
-            (smp_groups if fb_v[i0] else bit_groups) \
-                .setdefault(gkey, []).append(chunk)
+            t_bucket, n_ch = int(t_buckets[tb_idx[i0]]), int(nch_v[i0])
+            if fb_v[i0]:
+                smp_groups.setdefault((t_bucket, n_ch), []).append(chunk)
+            else:
+                bit_groups.setdefault((t_bucket, n_ch, int(sa_key[i0])),
+                                      []).append(chunk)
 
     bits = []
-    for (t_bucket, n_ch), chunks in bit_groups.items():
+    for (t_bucket, n_ch, sa_key), chunks in bit_groups.items():
         g = {f: np.concatenate([c[f] for c in chunks])
              for f in ("si", "bs", "lane0", "out0", "nc", "mode", "bps",
-                       "sa", "k0", "b0", "np_max")}
+                       "sa", "k0", "b0", "d0", "s0", "np_max")}
         L, T = bucket_shape(len(g["si"]) * n_ch, t_bucket, lane_quantum)
         NC = (T + 31) // 32
         P = _p_class(int(g["np_max"].max()))
-        SA = int(g["sa"].max())
+        SA = sa_key if delta else int(g["sa"].max())
         BD = (NC - 1 + 1) // 2
-        mb = np.zeros((L, _mb_width(NC, P)), dtype=np.int32)
-        mb16 = mb.view(np.int16)  # (L, 2C) little-endian halfwords
+        if delta:
+            slots = np.zeros((L, NC * SA), dtype=np.int32)
+            slots3 = slots.reshape(L, NC, SA)
+            deltas = np.zeros((L, NC * 32), dtype=np.uint8)
+            ks = np.zeros((L, P), dtype=np.int32)
+            meta = np.zeros((L, _META_W), dtype=np.int32)
+        else:
+            mb = np.zeros((L, _mb_width(NC, P)), dtype=np.int32)
+            mb16 = mb.view(np.int16)  # (L, 2C) little-endian halfwords
 
         lane = 0
         plan = []
@@ -293,6 +356,28 @@ def plan_raw_bits(braws, lane_quantum):
             plan.append((si, int(g["out0"][st]), int(en - st), bs, n_ch,
                          lane))
             subs = bb.bsubs[sub0:sub0 + nl]
+            if delta:
+                d0, s0 = int(g["d0"][st]), int(g["s0"][st])
+                deltas[lane:lane + nl, :bs] = \
+                    bb.deltas[d0:d0 + nl * bs].reshape(nl, bs)
+                slots3[lane:lane + nl, :nc, :] = \
+                    bb.slots[s0:s0 + nl * nc * SA].reshape(nl, nc, SA)
+                m = meta[lane:lane + nl]
+                m[:, 0] = subs["order"]
+                m[:, 1] = subs["shift"]
+                m[:, 2] = subs["wasted"]
+                m[:, 3] = subs["ps"]
+                m[:, 4] = subs["pbits"]
+                m[:, 5] = subs["flags"]
+                m[:, 6] = bs
+                if n_ch == 2:
+                    m[:, 7] = np.repeat(g["mode"][st:en], 2)
+                m[:, 8:40] = subs["warm"]
+                m[:, 40:72] = subs["coefs"]
+                _scatter_ks(ks, lane, nl, subs["n_parts"], bb.ks,
+                            int(g["k0"][st]))
+                lane += nl
+                continue
             b0 = int(g["b0"][st])
             bas = bb.bases[b0:b0 + nl * nc].reshape(nl, nc)
             a = (subs["order"].astype(np.int32)
@@ -321,7 +406,9 @@ def plan_raw_bits(braws, lane_quantum):
             lane += nl
         # The output is NC * 32 samples wide, so always even.
         out_packed = _LITTLE_ENDIAN and int(g["bps"].max()) <= 16
-        bits.append(BitsBucket(n_ch, P, SA, NC, mb, plan, out_packed))
+        bits.append(DeltaBucket(n_ch, P, SA, NC, slots, deltas, ks, meta,
+                                plan, out_packed) if delta else
+                    BitsBucket(n_ch, P, SA, NC, mb, plan, out_packed))
 
     # Fallback frames: the walker decoded their residuals on the host.
     samples = []
@@ -446,19 +533,47 @@ def stream_step(stream, mb, n_parts_max, sa, nc):
                                u["lengths"], u["wasted"], u["pair_modes"])
 
 
-def decode_raw_bits_device(braws, lane_quantum, device="cuda"):
-    """Decode [(streaminfo, BitsBatch), ...] into a DeviceDecoded whose
-    buckets live on ``device``."""
+def delta_step(slots, deltas, ks, meta, n_parts_max, sa):
+    """One delta-mode bucket, slots (L, NC * sa) int32, deltas (L, NC * 32)
+    uint8, ks (L, P) and meta (L, _META_W) -> (L, NC * 32) int32 PCM: K9
+    entropy decode -> K1 synthesis with the K3 epilogue fused into its
+    store (the JAX package's ``_bits_program``)."""
+    L = meta.shape[0]
+    orders, shifts, wasted, ps, pbits, flags, lengths = (
+        meta[:, i].contiguous() for i in range(7))
+    pair_modes = meta[:, 7].reshape(L // 2, 2)[:, 0].contiguous()
+    warm = meta[:, 8:40].contiguous()
+    coefs = meta[:, 40:72].contiguous()
+    x = decode_residual_bits(slots, deltas, ks, ps, orders, pbits, flags & 1,
+                             warm, n_parts_max=n_parts_max, sa=sa)
+    return synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
+                               pair_modes)
+
+
+def decode_raw_bits_device(braws, lane_quantum, device="cuda",
+                           mode="stream"):
+    """Decode [(streaminfo, BitsBatch), ...] in entropy ``mode`` into a
+    DeviceDecoded whose buckets live on ``device``."""
     from .pipeline import DeviceDecoded, _BucketDispatch
 
-    bp = plan_raw_bits(braws, lane_quantum)
-    stream_t, _, se_t = inputs_from_numpy(bp.stream, None, bp.se, device)
-    upload = bp.stream.nbytes
+    bp = plan_raw_bits(braws, lane_quantum, mode)
+    upload = 0
+    if bp.stream is not None:
+        stream_t, _, se_t = inputs_from_numpy(bp.stream, None, bp.se, device)
+        upload = bp.stream.nbytes
     dispatches, plans = [], []
     for b in bp.bits:
-        out = stream_step(stream_t, _to_device(b.mb, device),
-                          b.n_parts_max, b.sa, b.nc)
-        upload += b.mb.nbytes
+        if mode == "delta":
+            out = delta_step(_to_device(b.slots, device),
+                             torch.from_numpy(b.deltas).to(device),
+                             _to_device(b.ks, device),
+                             _to_device(b.meta, device), b.n_parts_max, b.sa)
+            upload += b.slots.nbytes + b.deltas.nbytes + b.ks.nbytes \
+                + b.meta.nbytes
+        else:
+            out = stream_step(stream_t, _to_device(b.mb, device),
+                              b.n_parts_max, b.sa, b.nc)
+            upload += b.mb.nbytes
         dispatches.append(_BucketDispatch(b.n_ch, out, b.out_packed))
         plans.append(b.plan)
     for s in bp.samples:

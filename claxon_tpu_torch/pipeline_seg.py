@@ -1,5 +1,5 @@
 """Segmented device decode of the port: frame boundaries and subframe demux
-on the card (counterpart of ``claxon_tpu.pipeline_seg``, values mode).
+on the card (counterpart of ``claxon_tpu.pipeline_seg``).
 
 The host never walks payload bytes. It parses each stream's metadata,
 groups streams by (STREAMINFO block-size bucket, channel count), and per
@@ -9,9 +9,23 @@ compaction, K7 subframe walk, K6 summary). The summary copy is started at
 once, so ``begin_segmented`` returns with the group's work in flight.
 ``finish_segmented`` waits for each summary, chains the candidates of each
 stream (a real frame starts where the previous one's CRC-16 ends), and per
-(frame block-size bucket) dispatches K8 (gather the walk's decoded values
-and warm-up samples) -> K1 synthesis with the K3 epilogue fused into its
-store, then K4 over the chained frames' CRC ranges.
+decode dispatch runs the entropy mode ``CLAXON_TPU_SEG_ENTROPY`` names
+(read once per batch, in ``begin_segmented``), then K1 synthesis with the
+K3 epilogue fused into its store, then K4 over the chained frames' CRC
+ranges:
+
+* ``"values"`` (the default; any unknown value too): K8 gathers the
+  walk's decoded values and warm-up samples; one dispatch per frame
+  block-size bucket;
+* ``"delta"``: K7 also emits each code's bit advance, and K10 decodes
+  every sample from them and the stream words at the walk's chunk bases;
+* ``"scan"``: K2 decodes each chunk's codes in order from the walk's
+  chunk bases.
+
+The delta and scan dispatches are per (partition-count class, block-size
+bucket), with the gather width SA the slot class of their frames' widest
+chunk, as in the JAX package; the walk rows they read are gathered by
+torch indexing.
 
 A stream that cannot ride this path -- more than 2 channels, a STREAMINFO
 block size above 65535, a walk-rejected frame, a chain break -- goes to
@@ -21,9 +35,9 @@ result merges into the batch; a group with more sync candidates than the
 caps allow falls back as a group, and a batch of ``MAX_BATCH_BYTES`` or
 more goes to the host walk whole. Every route is bit-exact.
 
-Not carried over from the JAX package: the delta and scan entropy modes,
-the mesh, and the ``CLAXON_TPU_SEG_DEBUG`` prints
-(the host stage times are kept in ``DeviceDecoded.stage_seconds``).
+Not carried over from the JAX package: the mesh, and the
+``CLAXON_TPU_SEG_DEBUG`` prints (the host stage times are kept in
+``DeviceDecoded.stage_seconds``).
 """
 
 import time
@@ -42,6 +56,30 @@ __all__ = ["decode_streams_segmented", "begin_segmented",
 #: MD5 are never cached, and a group overflow is not cached.
 _REJECT_CACHE = set()
 _REJECT_CACHE_CAP = 1 << 16
+
+#: chunk gather-width classes (``claxon_tpu.pipeline_seg._SA_CLASSES``,
+#: the C++ core's kSClasses), so the delta and scan dispatches come in a
+#: few SA classes.
+_SA_CLASSES = (4, 6, 8, 12, 16, 24, 32, 48, 64)
+
+
+def _sa_class(s):
+    """Words gathered per chunk for a widest chunk of ``s`` words: the
+    first class at or above it, plus one word of alignment slack."""
+    for c in _SA_CLASSES:
+        if s <= c:
+            return c + 1
+    return _SA_CLASSES[-1] + 1
+
+
+def _seg_mode():
+    """``CLAXON_TPU_SEG_ENTROPY``: "values" (the default), "delta" or
+    "scan"; any other value is "values" (``claxon_tpu.pipeline_seg.
+    _seg_mode``)."""
+    import os
+
+    mode = os.environ.get("CLAXON_TPU_SEG_ENTROPY", "values")
+    return mode if mode in ("values", "delta", "scan") else "values"
 
 
 def _si_key(si, n_bytes):
@@ -80,6 +118,8 @@ class _SegPending:
         self.datas = datas
         self.lane_quantum = lane_quantum
         self.device = device
+        #: the batch's entropy mode (``_seg_mode``), read once.
+        self.mode = _seg_mode()
         self.sis = []
         self.groups = []
         self.upload_bytes = 0
@@ -189,7 +229,8 @@ def begin_segmented(datas, lane_quantum=None, device="cuda"):
         stages.mark("upload")
         pend = fused_demux_async(
             words_le, total_q * 4, T, nch, ends_abs,
-            [sis[i].bits_per_sample for i in g_streams], frames_est)
+            [sis[i].bits_per_sample for i in g_streams], frames_est,
+            deltas=pending.mode == "delta")
         pending.groups.append((T, nch, g_streams, byte_off, ends_abs, sizes,
                                pend))
         stages.mark("demux_queue")
@@ -222,9 +263,16 @@ def _chain(k, size, idx, cpos, end_byte, ok_c, byte_off):
     return np.asarray(chain, np.int64) if exp == size else None
 
 
-def _dispatch_values(walk, rows, lengths, modes, tb32, device):
-    """K8 -> K1 + K3 for one decode dispatch: (L,) int32 walk rows,
-    lengths and modes (numpy) -> (L, tb32) int32 PCM on the device."""
+def _dispatch(mode, stream, walk, rows, lengths, modes, tb32, P, SA, device):
+    """One decode dispatch: (L,) int32 walk rows, lengths and modes (numpy)
+    -> ((L, tb32) int32 PCM on the device, bytes uploaded). The entropy
+    stage is ``mode``'s: K8 gathers the walk's values ("values"), or the
+    dispatch's walk rows are gathered by torch indexing, their chunk axis
+    cut to ``tb32`` samples, and K10 ("delta") or K2 ("scan") decodes them
+    from ``stream``, the group's big-endian words, with P partitions and
+    SA words a chunk. Then K1 + K3."""
+    from .ops.entropy import (decode_residual_bits_stream,
+                              decode_residual_bits_stream_delta)
     from .ops.predict import synthesize_epilogue
     from .ops.seg_gather import gather_values
 
@@ -232,10 +280,24 @@ def _dispatch_values(walk, rows, lengths, modes, tb32, device):
     plan = torch.from_numpy(np.stack([rows, lengths, modes])).to(device)
     rows_t, lengths_t = plan[0], plan[1]
     pair_modes = plan[2].reshape(L // 2, 2)[:, 0].contiguous()
-    x = gather_values(walk["values"], walk["warm"], walk["order"], rows_t,
-                      tb32)
     pick = lambda key: walk[key].index_select(0, rows_t)
-    out = synthesize_epilogue(x, pick("coefs"), pick("shift"), pick("order"),
+    order = pick("order")
+    if mode == "values":
+        x = gather_values(walk["values"], walk["warm"], walk["order"],
+                          rows_t, tb32)
+    else:
+        bases = pick("bases")[:, :tb32 // 32].contiguous()
+        ks = pick("ks")[:, :P].contiguous()
+        lane = (pick("ps"), order, pick("pbits"), pick("flags"),
+                pick("warm"), lengths_t)
+        if mode == "delta":
+            deltas = walk["deltas"][:, :tb32].index_select(0, rows_t)
+            x = decode_residual_bits_stream_delta(
+                stream, bases, deltas, ks, *lane, n_parts_max=P, sa=SA)
+        else:
+            x = decode_residual_bits_stream(stream, bases, ks, *lane,
+                                            n_parts_max=P, sa=SA)
+    out = synthesize_epilogue(x, pick("coefs"), pick("shift"), order,
                               lengths_t, pick("wasted"), pair_modes)
     return out, plan.numel() * 4
 
@@ -246,6 +308,7 @@ def finish_segmented(pending):
     left the device path and merge them in. Returns a DeviceDecoded."""
     from .ops.crc import crc16_ranges
     from .ops.seg_parse import SUMMARY_COLS, DemuxOverflow
+    from .pipeline_bits import _P_CLASSES
     from .pipeline import (DecodedStream, DeviceDecoded, _BucketDispatch,
                            _LITTLE_ENDIAN, _T_BUCKETS, bucket_shape,
                            merge_decoded)
@@ -253,6 +316,7 @@ def finish_segmented(pending):
     datas = pending.datas
     lane_quantum = pending.lane_quantum
     device = pending.device
+    mode = pending.mode
     sis = pending.sis
     stages = pending.stages
     stages.mark("between")
@@ -320,10 +384,19 @@ def finish_segmented(pending):
                 crc_starts.append(cpos[chain])
                 crc_ends.append(end_byte[chain] + 2)
 
-        # ---- decode dispatches, one per frame T bucket (sparse buckets
-        # merge upward, as the JAX package merges its classes).
+        # ---- decode dispatches, one per (P class, frame T bucket); values
+        # mode never reads the partitions, so it has one P class. Sparse
+        # classes merge upward, T first, as in the JAX package.
         g_idx = np.flatnonzero(chained)
         if g_idx.size:
+            if mode == "values":
+                pcls = np.ones(g_idx.size, np.int64)
+            else:
+                p_classes = np.asarray(_P_CLASSES, np.int64)
+                pcls = p_classes[np.minimum(
+                    np.searchsorted(p_classes,
+                                    np.maximum(cols["n_parts"][g_idx], 1)),
+                    len(p_classes) - 1)]
             tcls = t_buckets[np.searchsorted(t_buckets,
                                              np.maximum(bs_c[g_idx], 1))]
             uniqt = list(np.unique(tcls))
@@ -331,12 +404,18 @@ def finish_segmented(pending):
                 m = tcls == Tc
                 if m.sum() * Tc < 32 * uniqt[ci + 1]:
                     tcls[m] = uniqt[ci + 1]
-            for Tb in np.unique(tcls):
-                sub = g_idx[tcls == Tb]
+            uniq = list(np.unique(pcls))
+            for ci, P in enumerate(uniq[:-1]):
+                if (pcls == P).sum() < 32:
+                    pcls[pcls == P] = uniq[ci + 1]
+            keys = pcls << 32 | tcls
+            for key in np.unique(keys):
+                P, Tb = int(key >> 32), int(key & 0xFFFFFFFF)
+                sub = g_idx[keys == key]
                 sub = sub[np.lexsort((out0_c[sub], c_si[sub]))]
                 n_frames = sub.size
                 n_lanes = n_frames * nch
-                L, Tb = bucket_shape(n_lanes, int(Tb), lane_quantum)
+                L, Tb = bucket_shape(n_lanes, Tb, lane_quantum)
                 bs_v = bs_c[sub]
                 # Padding lanes read walk row 0 with length 0: K1 writes
                 # zeros there and to_host never reads them.
@@ -357,9 +436,11 @@ def finish_segmented(pending):
                 plan = [(g_streams[int(si_v[st])], int(out0_v[st]),
                          int(en - st), int(bs_v[st]), nch, int(st * nch))
                         for st, en in zip(starts_r, ends_r)]
-                out, nbytes = _dispatch_values(
-                    pend.walk, rows, lengths, modes, (Tb + 31) // 32 * 32,
-                    device)
+                SA = 0 if mode == "values" else \
+                    _sa_class(int(cols["sa"][sub].max()))
+                out, nbytes = _dispatch(
+                    mode, pend.stream, pend.walk, rows, lengths, modes,
+                    (Tb + 31) // 32 * 32, P, SA, device)
                 upload_bytes += nbytes
                 # 16-bit audio fetches as int16 pairs (start_fetch packs).
                 out_packed = (_LITTLE_ENDIAN and Tb % 2 == 0

@@ -192,6 +192,88 @@ def test_entropy_kernel_edges(cuda, case):
     assert torch.equal(got, want), case
 
 
+def delta_garbage(kernel, L, NC, P, SA, W=300, seed=0):
+    """Seeded garbage for K9 (``kernel`` "K9": slots, uint8 deltas) or
+    K10 ("K10": stream and chunk bases, int8 deltas), as numpy arrays in
+    the wrapper's argument order: code lengths mostly 1-23 bits with some
+    of 0 to 255 (K9) or of -128 to 127 (K10), Rice parameters 0, 1, 5,
+    13, 31, 32, 40 and -3, partition sizes 0, negative, 1, odd and huge
+    (thresholds that wrap), orders up to 44, flags of every kind, K10
+    bases before and past the stream. Lane 0 starts with a 5-bit code
+    under k = 40, so its remainder starts before the chunk's first bit.
+    Shared with the CPU tests (tests/test_torch_ops.py)."""
+    rng = np.random.default_rng(seed)
+    T = NC * 32
+    ks = rng.choice(np.array([0, 1, 5, 13, 31, 32, 40, -3]), (L, P))
+    ps = rng.permutation(np.resize(np.array(
+        [0, -7, 1, 3, 37, max(T // P, 1), (1 << 31) - 1, -(1 << 31)]), L))
+    orders = rng.integers(0, 45, L)
+    pbits = rng.integers(0, 8, L)
+    warm = rng.integers(-1000, 1000, (L, 32))
+    deltas = rng.integers(1, 24, (L, T))
+    odd = rng.random((L, T)) < 0.05
+    ks[0] = 40
+    orders[0] = 0
+    if kernel == "K9":
+        deltas[odd] = rng.integers(0, 256, int(odd.sum()))
+        deltas[0, 0], deltas[1 % L, 3] = 5, 255
+        return [rng.integers(-(1 << 31), 1 << 31, (L, NC * SA),
+                             dtype=np.int64).astype(np.int32),
+                deltas.astype(np.uint8), ks.astype(np.int32),
+                ps.astype(np.int32), orders.astype(np.int32),
+                pbits.astype(np.int32),
+                rng.integers(0, 2, L).astype(np.int32),
+                warm.astype(np.int32)]
+    deltas[odd] = rng.integers(-128, 128, int(odd.sum()))
+    deltas[0, 0] = 5
+    stream = rng.integers(-(1 << 31), 1 << 31, W, dtype=np.int64)
+    stream[::7] = 0
+    flags = rng.integers(0, 4, L)
+    flags[0] = 0
+    return [stream.astype(np.int32),
+            rng.integers(-4096, 32 * W + 4096, (L, NC)).astype(np.int32),
+            deltas.astype(np.int8), ks.astype(np.int32), ps.astype(np.int32),
+            orders.astype(np.int32), pbits.astype(np.int32),
+            flags.astype(np.int32), warm.astype(np.int32),
+            rng.integers(0, T + 8, L).astype(np.int32)]
+
+
+def _t_any(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+#: (L, NC, P, SA) of the K9 / K10 card cases: SA from 4 to 65 (and 1, and
+#: above the staged limit of 128), P from 1 to 64; L * NC never a
+#: multiple of the kernel's 8 warps a block, so the last block is partial.
+_DELTA_CASES = [(37, 3, 1, 4), (37, 3, 4, 5), (50, 5, 8, 9), (23, 9, 16, 17),
+                (41, 7, 32, 33), (19, 11, 64, 65), (13, 3, 64, 1),
+                (11, 5, 2, 200), (7, 33, 4, 25), (301, 1, 1, 13)]
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+@pytest.mark.parametrize("case", _DELTA_CASES,
+                         ids=lambda c: "L{}-NC{}-P{}-SA{}".format(*c))
+def test_delta_entropy_kernels_match_plain(cuda, kernel, case):
+    """K9 and K10 equal their plain forms (held to the JAX functions on
+    the CPU) on garbage, at every SA and P the paths use."""
+    from claxon_tpu_torch.ops import entropy
+
+    L, NC, P, SA = case
+    args = [_t_any(a, cuda) for a in delta_garbage(kernel, L, NC, P, SA,
+                                                   seed=L * NC + P)]
+    if kernel == "K9":
+        wrapper, plain = (entropy.decode_residual_bits,
+                          entropy.decode_residual_bits_plain)
+    else:
+        wrapper, plain = (entropy.decode_residual_bits_stream_delta,
+                          entropy.decode_residual_bits_stream_delta_plain)
+    n0 = wrapper.launches
+    got = wrapper(*args, n_parts_max=P, sa=SA)
+    assert wrapper.launches == n0 + 1
+    assert torch.equal(got, plain(*args, n_parts_max=P, sa=SA)), case
+    torch.cuda.synchronize()
+
+
 def test_crc_kernel_matches_plain_and_host(cuda):
     from claxon_tpu_torch.ops import crc
 
@@ -542,6 +624,34 @@ def test_generated_corpus_on_the_card(cuda):
         assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
 
 
+@pytest.mark.parametrize("route", ["ENTROPY=delta", "SEG_ENTROPY=delta",
+                                   "SEG_ENTROPY=scan", "HOST_CRC=1"])
+def test_entropy_routes_on_the_card(cuda, monkeypatch, route):
+    """The delta and scan routes, and the host CRC check, decode the
+    generated corpus and the seeded damaged streams on the card like the
+    scalar decoder, through K9, K10 or K2 as the route says."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch.ops import crc, entropy
+
+    name, value = route.split("=")
+    monkeypatch.setenv("CLAXON_TPU_" + name, value)
+    seg = "device" if name == "SEG_ENTROPY" else "host"
+    kernel = {"ENTROPY=delta": entropy.decode_residual_bits,
+              "SEG_ENTROPY=delta": entropy.decode_residual_bits_stream_delta,
+              "SEG_ENTROPY=scan": entropy.decode_residual_bits_stream,
+              "HOST_CRC=1": entropy.decode_residual_bits_stream}[route]
+    datas = [p.read_bytes() for p in sorted(GENERATED.glob("*.flac"))]
+    n0, k4 = kernel.launches, crc.crc16_ranges.launches
+    dd = ct.decode_streams_device(datas, segmentation=seg, device=cuda)
+    assert kernel.launches > n0
+    if seg == "host":  # the walk checked every frame CRC itself
+        assert crc.crc16_ranges.launches == k4 and dd.crc_check is None
+    for data, dec in zip(datas, dd.to_host()):
+        assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
+    assert_decodes_like_scalar(fuzzed_streams(), cuda, seg)
+    torch.cuda.synchronize()
+
+
 def _payload_words(data):
     """Big-endian int32 words of a stream's frame section."""
     from claxon_tpu.native.binding import _read_metadata
@@ -620,12 +730,18 @@ def test_walk_kernel_matches_plain_everywhere(cuda):
             (noise[:3], _walk_inputs(rng, 20, 3, 192), 192, 2)):
         args = [_c(stream, cuda)] + [_c(a, cuda) for a in lanes]
         n0 = demux.walk_frames.launches
-        out, end, ok = demux.walk_frames(*args, T, nch)
+        out, end, ok = demux.walk_frames(*args, T, nch, deltas=True)
         assert demux.walk_frames.launches == n0 + 1
-        p_out, p_end, p_ok = demux.walk_frames_plain(*args, T, nch)
+        p_out, p_end, p_ok = demux.walk_frames_plain(*args, T, nch,
+                                                     deltas=True)
         assert torch.equal(ok, p_ok) and torch.equal(end, p_end)
-        for k in demux.WALK_KEYS:
+        for k in demux.WALK_KEYS + ("deltas",):
             assert torch.equal(out[k], p_out[k]), (k, T, nch)
+        # Without deltas the values kernel is the other instantiation.
+        bare = demux.walk_frames(*args, T, nch)[0]
+        assert "deltas" not in bare
+        for k in demux.WALK_KEYS:
+            assert torch.equal(bare[k], out[k]), (k, T, nch)
         if lanes is real:
             assert bool(ok.all())
 
@@ -874,8 +990,9 @@ def test_walk_kernel_edges(cuda, case):
     name, words, lanes, T, nch = _walk_edge_cases(
         np.random.default_rng(9))[case]
     args = [_c(words, cuda)] + [_c(a, cuda) for a in lanes]
-    got = demux.walk_frames(*args, T, nch)
-    _assert_walk_equal(got, demux.walk_frames_plain(*args, T, nch), name)
+    got = demux.walk_frames(*args, T, nch, deltas=True)
+    _assert_walk_equal(got, demux.walk_frames_plain(*args, T, nch,
+                                                    deltas=True), name)
     if name.startswith(("refills", "8 channels", "T = ", "padding")) or \
             name == "random Rice partitions":
         real = torch.from_numpy(lanes[1] > 0)

@@ -57,18 +57,25 @@ def _inputs(data):
     return [words] + lanes, bf
 
 
-def _assert_same(args, nch):
+def _assert_same(args, nch, without_deltas=False):
     jo, je, jok = jax_walk(*(jnp.asarray(a) for a in args), T=T, nch=nch)
     to, te, tok = demux.walk_frames(*(torch.from_numpy(a) for a in args),
-                                    T, nch)
+                                    T, nch, deltas=True)
     jok = np.asarray(jok)
     assert np.array_equal(jok, tok.numpy())
     assert np.array_equal(np.asarray(je)[jok], te.numpy()[jok])
     lane_ok = np.repeat(jok, nch)
-    for key in demux.WALK_KEYS:
+    for key in demux.WALK_KEYS + ("deltas",):
         a = np.asarray(jo[key])[lane_ok]
         b = to[key].numpy()[lane_ok]
+        assert a.dtype == b.dtype or key != "deltas"
         assert a.shape == b.shape and np.array_equal(a, b), key
+    if without_deltas:
+        # Without the flag the walk returns no deltas and the same rest.
+        bare = demux.walk_frames(*(torch.from_numpy(a) for a in args), T,
+                                 nch)
+        assert "deltas" not in bare[0]
+        assert all(torch.equal(bare[0][k], to[k]) for k in demux.WALK_KEYS)
     return jok
 
 
@@ -105,7 +112,7 @@ def test_walk_mono_matches_jax():
     data = encode_flac(synth_music(3000, channels=1, bps=16, seed=9),
                        44100, 16, block_size=T)
     args, bf = _inputs(data)
-    ok = _assert_same(args, 1)
+    ok = _assert_same(args, 1, without_deltas=True)
     assert ok[:len(bf)].all() and not ok[len(bf):].any()
 
 

@@ -50,8 +50,11 @@ def test_boundary_walk_matches_jax(name):
     """extract_stream_bits, as the port calls it and with the defaults:
     every frame and subframe record, the Rice parameters, the code
     lengths, the chunk bases and the samples of fallback frames are
-    equal. (The slot words are not compared: the core leaves the words of
-    chunks without codes unwritten, and the port never asks for slots.)"""
+    equal. (The slot words are not compared here: the core leaves the
+    words past each chunk's codes unwritten. The words that hold codes
+    are compared in the delta planner's uploads,
+    tests/test_torch_pipeline.py::test_planner_uploads_are_byte_identical.)
+    """
     data = _stream(name)
     for kw in (dict(emit_slots=False, defer_crc=True), {}):
         jsi, jbb = jnative.extract_stream_bits(data, **kw)
@@ -85,6 +88,42 @@ def test_crc16_bytes_matches_jax():
     for n in (0, 1, 7, 8, 9, 100, 4099):
         raw = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
         assert tnative.crc16_bytes(raw) == jnative.crc16_bytes(raw)
+
+
+def test_route_tables_match_jax():
+    """The port's copies of the tables and knob readers of the entropy
+    routes: the segmented path's SA and P classes, the delta-mode meta
+    width, and the modes each knob value selects."""
+    import os
+
+    import claxon_tpu.pipeline as jpipe
+    import claxon_tpu.pipeline_bits as jpb
+    import claxon_tpu.pipeline_seg as jseg
+
+    import claxon_tpu_torch.pipeline as tpipe
+    import claxon_tpu_torch.pipeline_bits as tpb
+    import claxon_tpu_torch.pipeline_seg as tseg
+
+    assert tseg._SA_CLASSES == jseg._SA_CLASSES
+    assert tpb._P_CLASSES == jpb._P_CLASSES
+    assert [tseg._sa_class(s) for s in range(-1, 80)] == \
+        [jseg._sa_class(s) for s in range(-1, 80)]
+    assert tpb._META_W == jpb._META_W
+    saved = {k: os.environ.get(k) for k in
+             ("CLAXON_TPU_ENTROPY", "CLAXON_TPU_SEG_ENTROPY")}
+    try:
+        for value in ("values", "delta", "scan", "stream", "x", ""):
+            os.environ["CLAXON_TPU_ENTROPY"] = value
+            os.environ["CLAXON_TPU_SEG_ENTROPY"] = value
+            assert tseg._seg_mode() == jseg._seg_mode()
+            assert tpipe._walk_options()[0] == \
+                jpipe.extract_streams_bits([], jnative)[1]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def test_crc16_combine_matrices_match_jax():

@@ -3,8 +3,9 @@ on the machine with the card): in a fresh interpreter whose imports of
 ``jax``/``jaxlib`` and of ``claxon_tpu`` fail (the top-level name exactly,
 not ``claxon_tpu_torch``), ``claxon_tpu_torch`` and ``chip_smoke`` import,
 the port's own encoder, muxers and C++ core work, and small streams decode
-on the CPU bit-exactly through the host-walk and the segmented paths and
-from Ogg and MP4 containers."""
+on the CPU bit-exactly through the host-walk and the segmented paths, in
+the delta and scan entropy modes and with the host CRC check, and from
+Ogg and MP4 containers."""
 
 import pathlib
 import subprocess
@@ -69,6 +70,19 @@ _SCRIPT = textwrap.dedent("""
     out = dd.to_host()
     assert np.array_equal(out[0].pcm, pcm)
     assert np.array_equal(out[1].pcm, pcm[:, :1])
+    import os
+
+    for knob, seg in (("CLAXON_TPU_ENTROPY=delta", "host"),
+                      ("CLAXON_TPU_HOST_CRC=1", "host"),
+                      ("CLAXON_TPU_SEG_ENTROPY=delta", "device"),
+                      ("CLAXON_TPU_SEG_ENTROPY=scan", "device")):
+        name, value = knob.split("=")
+        os.environ[name] = value
+        out = ct.decode_streams_device([data, mono], segmentation=seg,
+                                       device="cpu").to_host()
+        del os.environ[name]
+        assert np.array_equal(out[0].pcm, pcm), knob
+        assert np.array_equal(out[1].pcm, pcm[:, :1]), knob
     ogg = ct.decode_ogg_stream(mux_ogg_flac(data), device="cpu")
     mp4 = ct.decode_mp4_stream(mux_mp4_flac(data, 2), device="cpu")
     assert np.array_equal(ogg.pcm, pcm) and np.array_equal(mp4.pcm, pcm)

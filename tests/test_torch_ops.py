@@ -14,7 +14,9 @@ import jax.numpy as jnp
 from claxon_tpu import native
 from claxon_tpu.crc import crc16
 from claxon_tpu.ops.crc import crc16_ranges_device
-from claxon_tpu.ops.entropy import (decode_residual_bits_stream,
+from claxon_tpu.ops.entropy import (decode_residual_bits,
+                                    decode_residual_bits_stream,
+                                    decode_residual_bits_stream_delta,
                                     decode_residual_bits_stream_reference)
 from claxon_tpu.ops.epilogue import (apply_epilogue, pack_int16_pairs,
                                      unpack_int16_pairs)
@@ -272,20 +274,25 @@ def test_pack16_wrappers_check_their_input(name):
     assert fn.launches == before
 
 
-def _captured_bucket():
-    """A real stream-mode bucket from the port's planner: streams with
-    eight partitions, verbatim subframes and constant subframes, all at
-    block size 1024 stereo, so they share one (T, nch) bucket."""
-    from claxon_tpu_torch.pipeline import extract_streams_bits
-    from claxon_tpu_torch.pipeline_bits import plan_raw_bits, unpack_mb
-
+def _captured_datas():
+    """Streams with eight partitions, verbatim subframes and constant
+    subframes, all at block size 1024 stereo."""
     pcm = synth_music(2048, channels=2, bps=16, seed=3)
     const = np.zeros_like(pcm)
     const[:, 0] = 77
-    datas = [encode_flac(pcm, 44100, 16, block_size=1024, partition_order=3),
-             encode_flac(pcm, 44100, 16, block_size=1024,
-                         force_subframe="verbatim"),
-             encode_flac(const, 44100, 16, block_size=1024)]
+    return [encode_flac(pcm, 44100, 16, block_size=1024, partition_order=3),
+            encode_flac(pcm, 44100, 16, block_size=1024,
+                        force_subframe="verbatim"),
+            encode_flac(const, 44100, 16, block_size=1024)]
+
+
+def _captured_bucket():
+    """A real stream-mode bucket from the port's planner: the streams of
+    :func:`_captured_datas` share one (T, nch) bucket."""
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import plan_raw_bits, unpack_mb
+
+    datas = _captured_datas()
     bp = plan_raw_bits(extract_streams_bits(datas, native), 128)
     assert len(bp.bits) == 1 and not bp.samples
     b = bp.bits[0]
@@ -473,6 +480,140 @@ def test_k2_model_matches_plain(case):
         want = tentropy.decode_residual_bits_stream_plain(
             *(_t(a) for a in args), n_parts_max=P, sa=sa).numpy()
         assert np.array_equal(_k2_model(*args, P=P, SA=sa), want), sa
+
+
+def _delta_args(b):
+    """K9's arguments for a delta-mode bucket, as ``delta_step`` takes them
+    from its ``meta`` columns."""
+    m = b.meta
+    return (b.slots, b.deltas, b.ks, m[:, 3], m[:, 0], m[:, 4], m[:, 5] & 1,
+            m[:, 8:40])
+
+
+def test_k9_matches_jax_on_delta_buckets():
+    """K9's plain form equals the JAX package's decode_residual_bits on
+    the port's delta-mode buckets (eight partitions, verbatim and
+    constant subframes), and decodes the residuals K2 decodes from the
+    same streams in stream mode."""
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import plan_raw_bits
+
+    datas = _captured_datas()
+    bp = plan_raw_bits(extract_streams_bits(datas, native, "delta"), 128,
+                       "delta")
+    assert bp.stream is None and bp.se is None and not bp.samples
+    assert len(bp.bits) >= 2  # one bucket per slot class
+    stream, u, P, SA = _captured_bucket()
+    want_k2 = tentropy.decode_residual_bits_stream(
+        *(_t(u[k]) if k != "stream" else _t(stream) for k in (
+            "stream", "bases", "ks", "ps", "orders", "pbits", "flags",
+            "warm", "lengths")), n_parts_max=P, sa=SA).numpy()
+    lanes = 0
+    for b in bp.bits:
+        args = _delta_args(b)
+        got = tentropy.decode_residual_bits(
+            *(_t(a) for a in args), n_parts_max=b.n_parts_max,
+            sa=b.sa).numpy()
+        want = np.asarray(decode_residual_bits(
+            *(jnp.asarray(a) for a in args), n_parts_max=b.n_parts_max,
+            sa=b.sa))
+        assert np.array_equal(got, want)
+        # The same subframes' residuals as K2's (stream-mode lane order is
+        # stream, then frame, then channel, as a run's lanes are here).
+        for si, out0, nf, bs, nch, lane0 in b.plan:
+            for f in range(nf):
+                for c in range(nch):
+                    row = lane0 + f * nch + c
+                    k2_row = (sum(len(_frames(d)) for d in datas[:si]) * 2
+                              + out0 // 1024 * 2 + f * nch + c)
+                    assert np.array_equal(got[row, :bs],
+                                          want_k2[k2_row, :bs])
+                    lanes += 1
+    assert lanes == sum(len(_frames(d)) for d in datas) * 2
+
+
+def _frames(data):
+    return native.extract_stream_bits(data, emit_slots=False,
+                                      defer_crc=True)[1].bframes
+
+
+def test_k10_matches_jax_on_walk_inputs(monkeypatch):
+    """K10's plain form equals the JAX package's decode_residual_bits_
+    stream_delta on the inputs the segmented delta decode gives it: the
+    walk's int8 deltas and chunk bases of two stereo streams."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch.ops import entropy
+
+    calls = []
+    fn = entropy.decode_residual_bits_stream_delta
+
+    def spy(*args, **kw):
+        calls.append(([a.numpy() for a in args], kw))
+        return fn(*args, **kw)
+
+    monkeypatch.setattr(entropy, "decode_residual_bits_stream_delta", spy)
+    monkeypatch.setenv("CLAXON_TPU_SEG_ENTROPY", "delta")
+    datas = _captured_datas()[:2]
+    out = ct.decode_streams_device(datas, segmentation="device",
+                                   device="cpu").to_host()
+    for d, r in zip(datas, out):
+        assert np.array_equal(r.pcm, native.decode_stream_scalar(d)[1])
+    assert calls
+    for args, kw in calls:
+        assert args[2].dtype == np.int8 and (args[2] > 0).any()
+        got = fn(*(_t(a) for a in args), **kw).numpy()
+        want = np.asarray(decode_residual_bits_stream_delta(
+            *(jnp.asarray(a) for a in args), **kw))
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+@pytest.mark.parametrize("P, SA", [(1, 1), (4, 5)])
+def test_delta_entropy_matches_jax_on_garbage(kernel, P, SA):
+    """Fuzzed inputs (``test_torch_cuda.delta_garbage``): uint8 deltas up to
+    255 and int8 deltas below 0, k of 0, 31, 32 and 40, partition sizes
+    0 and negative, orders above 32, remainders before the chunk's first
+    bit, bases outside the stream -- K9's and K10's plain forms give the
+    JAX programs' exact output."""
+    from test_torch_cuda import delta_garbage
+
+    args = delta_garbage(kernel, 12, 3, P, SA, W=64, seed=P + SA)
+    assert (args[1 if kernel == "K9" else 2] > 31).any()
+    if kernel == "K9":
+        assert args[1].max() == 255 and (args[4] > 32).any()
+        assert (args[3] <= 0).any()
+        fn, jfn = tentropy.decode_residual_bits, decode_residual_bits
+    else:
+        assert (args[2] < 0).any() and (args[1] < 0).any()
+        fn, jfn = (tentropy.decode_residual_bits_stream_delta,
+                   decode_residual_bits_stream_delta)
+    assert set(np.unique(args[2 if kernel == "K9" else 3])) >= {0, 31, 32,
+                                                                 40}
+    got = fn(*(_t(a) for a in args), n_parts_max=P, sa=SA).numpy()
+    want = np.asarray(jfn(*(jnp.asarray(a) for a in args), n_parts_max=P,
+                          sa=SA))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["decode_residual_bits",
+                                  "decode_residual_bits_stream_delta"])
+def test_delta_wrappers_refuse_non_cpu_tensors(name):
+    """Given tensors that are not on the CPU, K9's and K10's wrappers
+    launch their kernel or raise; they never fall back."""
+    fn = getattr(tentropy, name)
+    meta = lambda *s, dtype=torch.int32: torch.empty(s, dtype=dtype,
+                                                     device="meta")
+    lane = [meta(4) for _ in range(4)]
+    if name == "decode_residual_bits":
+        args = (meta(4, 10), meta(4, 64, dtype=torch.uint8), meta(4, 1),
+                *lane, meta(4, 32))
+    else:
+        args = (meta(40), meta(4, 2), meta(4, 64, dtype=torch.int8),
+                meta(4, 1), *lane, meta(4, 32), meta(4))
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(*args, n_parts_max=1, sa=5)
+    assert fn.launches == before
 
 
 def test_crc16_ranges_matches_jax_and_host():

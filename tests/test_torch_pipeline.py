@@ -54,10 +54,11 @@ def _fallback_stream():
                        partition_order=7)
 
 
-def _capture_jax_uploads(monkeypatch, datas, lane_quantum):
-    """Run the JAX package's planner on ``datas`` and capture the arrays
-    its device programs receive, without compiling or running them."""
-    monkeypatch.delenv("CLAXON_TPU_ENTROPY", raising=False)
+def _capture_jax_uploads(monkeypatch, datas, lane_quantum, mode="stream"):
+    """Run the JAX package's planner on ``datas`` in entropy ``mode`` and
+    capture the arrays its device programs receive, without compiling or
+    running them."""
+    monkeypatch.setenv("CLAXON_TPU_ENTROPY", mode)
     monkeypatch.delenv("CLAXON_TPU_HOST_CRC", raising=False)
     got = {"bits": [], "samples": [], "crc": []}
 
@@ -71,6 +72,14 @@ def _capture_jax_uploads(monkeypatch, datas, lane_quantum):
             got["bits"].append((P, SA, NC, np.asarray(stream),
                                 np.asarray(mb), out_packed))
             return result(out_packed, mb.shape[0], NC * 32)
+        return run
+
+    def bits_program(P, SA, out_packed, **_kw):
+        def run(slots, deltas, ks, meta):
+            got["bits"].append((P, SA, np.asarray(slots),
+                                np.asarray(deltas), np.asarray(ks),
+                                np.asarray(meta), out_packed))
+            return result(out_packed, meta.shape[0], deltas.shape[1])
         return run
 
     def decode_program(in_packed, out_packed, chunked=True):
@@ -89,34 +98,77 @@ def _capture_jax_uploads(monkeypatch, datas, lane_quantum):
         return run
 
     monkeypatch.setattr(jpb, "_stream_program", stream_program)
+    monkeypatch.setattr(jpb, "_bits_program", bits_program)
     monkeypatch.setattr(jpb, "_crc_program", crc_program)
     monkeypatch.setattr(jpipe, "_decode_program", decode_program)
-    braws, mode = jpipe.extract_streams_bits(datas, native)
-    assert mode == "stream"
+    braws, jmode = jpipe.extract_streams_bits(datas, native)
+    assert jmode == mode
     dd = jpb.decode_raw_bits_device(braws, lane_quantum, mode)
     return got, dd.lane_plans()
 
 
-@pytest.mark.parametrize("lane_quantum", [128, 32])
-def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum):
+def _assert_delta_buckets(bp, jax_bits):
+    """Each delta bucket equals the JAX package's upload: the static P and
+    SA, the packing flag, deltas, ks and meta; the slot words of every
+    chunk of a real lane that hold its codes' bits (the sum of the
+    chunk's deltas). The JAX planner leaves the other slot words
+    uninitialised, the port zeroes them outside the real lanes' chunks
+    (inside, the walk leaves words past a chunk's bits unwritten in both
+    packages, and no output reads them)."""
+    assert len(bp.bits) == len(jax_bits) > 1
+    assert bp.stream is None and bp.se is None
+    for b, (P, SA, slots, deltas, ks, meta, out_packed) in zip(bp.bits,
+                                                              jax_bits):
+        assert (b.n_parts_max, b.sa) == (P, SA)
+        assert b.out_packed is out_packed
+        for mine, theirs in ((b.deltas, deltas), (b.ks, ks),
+                             (b.meta, meta)):
+            assert mine.dtype == theirs.dtype
+            assert np.array_equal(mine, theirs)
+        assert b.slots.dtype == slots.dtype and b.slots.shape == slots.shape
+        L = slots.shape[0]
+        mine3 = b.slots.reshape(L, b.nc, SA)
+        theirs3 = slots.reshape(L, b.nc, SA)
+        filled = np.zeros((L, b.nc), bool)
+        bits = b.deltas.reshape(L, b.nc, 32).astype(np.int64).sum(axis=2)
+        for _si, _out0, nf, bs, nch, lane0 in b.plan:
+            filled[lane0:lane0 + nf * nch, :(bs + 31) // 32] = True
+        for lane, c in zip(*np.nonzero(filled)):
+            n = (bits[lane, c] + 31) // 32
+            assert np.array_equal(mine3[lane, c, :n], theirs3[lane, c, :n])
+        assert not mine3[~filled].any()
+
+
+@pytest.mark.parametrize("lane_quantum, mode", [
+    (128, "stream"), (32, "stream"), (128, "delta"), (32, "delta")],
+    ids=["128", "32", "128-delta", "32-delta"])
+def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum, mode):
     """The port's numpy planner builds exactly the uploads the JAX
-    package's programs receive: stream words, packed mb per bucket (same
-    order, same static P/SA/NC), fallback buckets (their residuals as the
-    same int16 pairs), CRC ranges se, and the int16 packing flags the JAX
-    programs were built with."""
+    package's programs receive: in stream mode the stream words, packed
+    mb per bucket (same order, same static P/SA/NC) and CRC ranges se; in
+    delta mode the (T, nch, SA) buckets' slots, deltas, ks and meta; in
+    both the fallback buckets (their residuals as the same int16 pairs)
+    and the int16 packing flags the JAX programs were built with."""
     datas = _generated() + _configs() + [_fallback_stream()]
     jax_up, jax_plans = _capture_jax_uploads(monkeypatch, datas,
-                                             lane_quantum)
-    bp = tpb.plan_raw_bits(extract_streams_bits(datas, native),
-                           lane_quantum)
+                                             lane_quantum, mode)
+    bp = tpb.plan_raw_bits(extract_streams_bits(datas, native, mode),
+                           lane_quantum, mode)
 
-    assert len(bp.bits) == len(jax_up["bits"]) > 1
-    for b, (P, SA, NC, stream, mb, out_packed) in zip(bp.bits,
-                                                      jax_up["bits"]):
-        assert (b.n_parts_max, b.sa, b.nc) == (P, SA, NC)
-        assert b.out_packed is out_packed
+    if mode == "delta":
+        _assert_delta_buckets(bp, jax_up["bits"])
+        assert not jax_up["crc"]
+    else:
+        assert len(bp.bits) == len(jax_up["bits"]) > 1
+        for b, (P, SA, NC, stream, mb, out_packed) in zip(bp.bits,
+                                                          jax_up["bits"]):
+            assert (b.n_parts_max, b.sa, b.nc) == (P, SA, NC)
+            assert b.out_packed is out_packed
+            assert np.array_equal(bp.stream, stream)
+            assert b.mb.dtype == mb.dtype and np.array_equal(b.mb, mb)
+        [(stream, se)] = jax_up["crc"]
         assert np.array_equal(bp.stream, stream)
-        assert b.mb.dtype == mb.dtype and np.array_equal(b.mb, mb)
+        assert bp.se.dtype == se.dtype and np.array_equal(bp.se, se)
     assert len(bp.samples) == len(jax_up["samples"]) == 1
     for s, (x, coefs, shifts, orders, wasted, pair_modes, lengths,
             in_packed, out_packed) in zip(bp.samples, jax_up["samples"]):
@@ -128,13 +180,12 @@ def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum):
                              (s.pair_modes, pair_modes),
                              (s.lengths, lengths)):
             assert np.array_equal(mine, theirs)
-    [(stream, se)] = jax_up["crc"]
-    assert np.array_equal(bp.stream, stream)
-    assert bp.se.dtype == se.dtype and np.array_equal(bp.se, se)
     assert [b.plan for b in bp.bits] + [s.plan for s in bp.samples] == \
         jax_plans
     # 16-bit buckets pack, the 24- and 32-bit ones do not.
     assert {b.out_packed for b in bp.bits} == {True, False}
+    if mode == "delta":
+        return
 
     # inputs_from_numpy turns the captured arrays into the port's tensors.
     P, SA, NC, stream, mb, _packed = jax_up["bits"][0]
@@ -553,3 +604,135 @@ def test_single_stream_above_the_byte_limit_walks_in_chunks(monkeypatch,
         dd.to_host()
     with pytest.raises(FormatError, match="frame CRC mismatch"):
         dd.sync()
+
+
+def test_delta_mode_matches_jax_and_md5(monkeypatch):
+    """CLAXON_TPU_ENTROPY=delta (K9 on host-relocated slots, no K4): the
+    generated corpus decodes to the JAX package's delta-mode PCM and the
+    stored MD5s (tests/test_bits.py::test_entropy_modes_end_to_end)."""
+    monkeypatch.setenv("CLAXON_TPU_ENTROPY", "delta")
+    datas = _generated()
+    dd = ct.decode_streams_device(datas, device="cpu")
+    assert dd.crc_check is None  # the walk checked every frame CRC
+    port = dd.to_host()
+    _assert_oracle(datas, port)
+    for a, b in zip(port, jpipe.decode_streams(datas)):
+        assert np.array_equal(a.pcm, b.pcm)
+        assert a.frame_times == b.frame_times
+
+
+def _outcome(decode):
+    """("pcm", array) of a decode, or ("error", class name, message)."""
+    try:
+        return ("pcm", decode())
+    except (Error, RefError) as e:
+        return ("error", type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("knob", ["CLAXON_TPU_ENTROPY=delta",
+                                  "CLAXON_TPU_HOST_CRC=1"])
+def test_damaged_streams_raise_the_jax_errors(monkeypatch, knob):
+    """The 24 seeded damaged streams under delta mode and under the host
+    CRC check: the port decodes the JAX package's PCM or raises its error
+    class with its message, stream by stream."""
+    from test_torch_cuda import fuzzed_streams
+
+    name, value = knob.split("=")
+    monkeypatch.setenv(name, value)
+    errors = 0
+    for data in fuzzed_streams():
+        got = _outcome(lambda: ct.decode_streams_device(
+            [data], device="cpu").to_host()[0].pcm)
+        want = _outcome(lambda: jpipe.decode_streams_device(
+            [data], segmentation="host").to_host()[0].pcm)
+        assert got[0] == want[0]
+        if got[0] == "pcm":
+            assert np.array_equal(got[1], want[1])
+        else:
+            assert got[1:] == want[1:]
+            errors += 1
+    assert errors >= 12
+
+
+def test_host_crc_raises_from_the_call(monkeypatch):
+    """CLAXON_TPU_HOST_CRC=1 moves the frame CRC check into the walk: a
+    corrupted CRC raises from decode_streams_device itself, before any
+    device work (tests/test_bits.py::test_device_crc_host_knob), as it
+    does in delta mode; without either the call returns and to_host()
+    raises (K4's verdict). The Ogg and MP4 calls honour the knob too."""
+    from claxon_tpu_torch.testing import mux_mp4_flac, mux_ogg_flac
+
+    data = encode_flac(synth_music(1024 * 2, channels=1, bps=16, seed=78),
+                       44100, 16, block_size=1024)
+    bad = _corrupt_crc(data)
+    monkeypatch.delenv("CLAXON_TPU_HOST_CRC", raising=False)
+    monkeypatch.delenv("CLAXON_TPU_ENTROPY", raising=False)
+    dd = ct.decode_streams_device([bad], device="cpu")
+    assert dd.crc_check is not None
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.to_host()
+    calls = []
+    monkeypatch.setattr(tpb, "crc16_ranges",
+                        lambda *a: calls.append(1) or tpb.crc16_ranges(*a))
+    for name, value in (("CLAXON_TPU_HOST_CRC", "1"),
+                        ("CLAXON_TPU_ENTROPY", "delta")):
+        monkeypatch.setenv(name, value)
+        with pytest.raises(FormatError, match="frame CRC mismatch"):
+            ct.decode_streams_device([bad], device="cpu")
+        with pytest.raises(RefError, match="frame CRC mismatch"):
+            jpipe.decode_streams_device([bad], segmentation="host")
+        monkeypatch.delenv(name)
+    monkeypatch.setenv("CLAXON_TPU_HOST_CRC", "1")
+    for mux in (mux_ogg_flac, lambda d: mux_mp4_flac(d, 1)):
+        with pytest.raises(FormatError, match="frame CRC mismatch"):
+            ct.decode_ogg_stream(mux(bad), device="cpu") \
+                if mux is mux_ogg_flac else \
+                ct.decode_mp4_stream(mux(bad), device="cpu")
+        _assert_oracle([data], [ct.decode_ogg_stream(mux(data), device="cpu")
+                                if mux is mux_ogg_flac else
+                                ct.decode_mp4_stream(mux(data),
+                                                     device="cpu")])
+    assert not calls  # K4 never ran
+
+
+def test_unknown_knob_values_fall_back(monkeypatch):
+    """An unknown CLAXON_TPU_ENTROPY is stream mode and an unknown
+    CLAXON_TPU_SEG_ENTROPY values mode, as in the JAX package; an empty
+    CLAXON_TPU_HOST_CRC leaves the check on the device, any other value
+    moves it to the walk."""
+    import claxon_tpu.pipeline_seg as jseg
+
+    import claxon_tpu_torch.pipeline_seg as tseg
+    from claxon_tpu_torch.pipeline import _walk_options
+
+    data = _configs()[1]
+    for value in ("bogus", "", "DELTA", "delta", "stream"):
+        monkeypatch.setenv("CLAXON_TPU_ENTROPY", value)
+        monkeypatch.setenv("CLAXON_TPU_SEG_ENTROPY", value or "scan")
+        mode = _walk_options()[0]
+        assert mode == jpipe.extract_streams_bits([data], native)[1]
+        assert tseg._seg_mode() == jseg._seg_mode()
+    for value, defer in (("", True), ("0", False), ("1", False)):
+        monkeypatch.setenv("CLAXON_TPU_ENTROPY", "x")
+        monkeypatch.setenv("CLAXON_TPU_HOST_CRC", value)
+        assert _walk_options() == ("stream", False, defer)
+        jbb = jpipe.extract_streams_bits([data], native)[0][0][1]
+        tbb = extract_streams_bits([data], native)[0][1]
+        assert np.array_equal(jbb.bframes["flags"], tbb.bframes["flags"])
+    monkeypatch.setenv("CLAXON_TPU_HOST_CRC", "")
+    dd = ct.decode_streams_device([data], device="cpu")
+    assert dd.crc_check is not None
+    _assert_oracle([data], dd.to_host())
+
+
+def test_delta_mode_rejects_deferred_crc_batches():
+    """Internal contract (tests/test_bits.py::test_delta_mode_rejects_
+    deferred_crc_batches): a batch walked with defer_crc must take stream
+    mode, whose upload K4 reads."""
+    data = encode_flac(synth_music(1024, channels=1, bps=16, seed=90),
+                       44100, 16, block_size=1024)
+    si, bb = ct.pipeline._native().extract_stream_bits(
+        data, emit_slots=True, defer_crc=True)
+    with pytest.raises(RuntimeError, match="defer_crc"):
+        tpb.decode_raw_bits_device([(si, bb)], 128, device="cpu",
+                                   mode="delta")

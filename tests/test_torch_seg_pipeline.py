@@ -326,3 +326,49 @@ def test_wrappers_refuse_non_cpu_tensors(name):
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn(*args)
     assert fn.launches == before
+
+
+@pytest.mark.parametrize("mode", ["values", "delta", "scan"])
+def test_seg_entropy_modes_match(monkeypatch, mode):
+    """CLAXON_TPU_SEG_ENTROPY: the walk's values (K8), the delta decode
+    from the walk's deltas (K10) and the in-chunk scan from its chunk
+    bases (K2) give the scalar decoder's PCM on the inputs of
+    tests/test_seg_pipeline.py::test_seg_entropy_modes_match, and the
+    same dispatches; values mode is held to the JAX package by
+    test_slice_matches_jax. K7 emits its deltas in delta mode only."""
+    from claxon_tpu_torch.ops import entropy, seg_gather
+
+    datas = []
+    for seed, (bs, ch) in enumerate([(4096, 2), (576, 1)]):
+        pcm = synth_music(4000 + 619 * seed, channels=ch, bps=16, seed=seed)
+        datas.append(encode_flac(pcm, 44100, 16, block_size=bs,
+                                 partition_order=3))
+    # Two frames or more, so that the stream rides the device demux.
+    datas.append(_enc(2500, 21, partition_order=3))
+    calls = {}
+    for mod, name in ((entropy, "decode_residual_bits_stream_delta"),
+                      (entropy, "decode_residual_bits_stream"),
+                      (seg_gather, "gather_values")):
+        fn = getattr(mod, name)
+        calls[name] = []
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **kw:
+                            calls[_n].append(1) or _f(*a, **kw))
+    monkeypatch.setenv("CLAXON_TPU_SEG_ENTROPY", mode)
+    pend = tseg.begin_segmented(datas, device="cpu")
+    assert pend.mode == mode
+    assert all(("deltas" in g[-1].walk) == (mode == "delta")
+               for g in pend.groups)
+    dd = tseg.finish_segmented(pend)
+    assert dd.segmented and dd.fallback_streams == [0]
+    want = {"values": "gather_values",
+            "delta": "decode_residual_bits_stream_delta",
+            "scan": "decode_residual_bits_stream"}[mode]
+    assert len(calls[want]) == len(dd.dispatches) - 1  # one host-walked
+    got = dd.to_host()
+    _assert_oracle(datas, got)
+    if mode == "values":
+        return
+    monkeypatch.setenv("CLAXON_TPU_SEG_ENTROPY", "values")
+    for a, b in zip(got, _seg(datas).to_host()):
+        assert np.array_equal(a.pcm, b.pcm)
+        assert a.frame_times == b.frame_times

@@ -36,12 +36,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
       the ptxas report of entropy.cu, on every headline, mixed and
       generated bucket and, when build/k2_parent/entropy.cu holds the
       parent's source, beside the parent kernel (timed parent, new, new,
-      parent) at each headline and mixed bucket; then K5 sync scan,
-      K6 fused-demux body (bswap, header fields and compaction, summary),
-      K7 subframe walk and K8 values gather on every group the segmented
-      path builds for the headline and mixed corpora, and on every K8
-      dispatch of those decodes (K1 + K3 there too), and K4 on the
-      segmented groups' ranges (beside its parent);
+      parent) at each headline and mixed bucket; then the fused front
+      (K6 bswap, K5 sync scan and header check, K6 fields and compaction
+      in two kernels and one pass over the upload, with the ptxas report
+      of seg_parse.cu), timed
+      against the parent's seven operations in the same call (parent,
+      new, new, parent), those pieces themselves (K6 bswap, K5, K6
+      fields and compaction), K6's summary, K7 subframe walk and K8
+      values gather on every group the segmented path builds for the
+      headline and mixed corpora, and on every K8 dispatch of those
+      decodes (K1 + K3 there too), and K4 on the segmented groups' ranges
+      (beside its parent); the fused front also on every group of the
+      segmented decodes of the fallback corpus, of one headline stream
+      whose capacity classes are forced to 8 (the demux regrows), and of
+      the generated and mixed corpora in (c);
       at each of those groups K7's time beside its parent kernel's (when
       build/k7_parent/demux.cu holds the parent's source), its bound and
       cycles per step, with the ptxas report of both sources, and on the
@@ -79,7 +87,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
       lane_plans() must launch no K3b kernel; the segmented headline
       decode must not fall back, and the mixed 24-bit and generated
       6-channel streams must; on every default-route run K9 and K10
-      launch 0 times and K7 writes no deltas. Then the JAX package's
+      launch 0 times and K7 writes no deltas, and on every run the
+      parent front's wrappers (K6 bswap, K5, K6 fields) launch 0 times. Then the JAX package's
       other entropy routes, each variable set only around its calls:
       CLAXON_TPU_ENTROPY=delta (K9, no K2 or K4), CLAXON_TPU_SEG_ENTROPY=
       delta (K7 with deltas, K10, no K8) and =scan (K2 on the walk's
@@ -102,8 +111,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
       below the int32 limit, bit-exact against the scalar decoder and the
       STREAMINFO MD5; K4 against its plain form (and parent) on the
       frame ranges of each run, K2 on each bucket of each run (and its
-      parent); K7 against its plain form on its distinct
-      frames as one 8-channel group;
+      parent); the fused front against its plain form on the stream's
+      whole upload, and K7 on its distinct frames, each as one 8-channel
+      group;
   (g) mux each of the 8 headline streams, and the mixed 24-bit stream
       (whose bucket must not pack), into Ogg and into MP4 (3 frames per
       chunk) and decode them with decode_ogg_stream / decode_mp4_stream
@@ -858,9 +868,88 @@ def phase_b_pack16():
             f"{int(lanes.sum())} lane(s) flagged")
 
 
+def front_report(tag, args):
+    """The fused front (bswap, K5, fields and compaction in two kernels,
+    ``seg_parse.demux_front``) on one group's arguments: equal to its plain
+    form and to the parent's seven operations (the bswap kernel, K5's
+    three launches and torch.cumsum, the fields and compaction kernels) on
+    every output, timed in the order parent, new, new, parent, with its
+    byte bound. Returns a dict of the numbers."""
+    import torch
+
+    from claxon_tpu_torch.ops import seg_parse, segment
+
+    words_le, n_bytes, ends, si_bps, T, nch, cap, wcap = args
+
+    def new():
+        return seg_parse.demux_front(*args)
+
+    def parent():
+        stream = seg_parse.bswap_words(words_le)
+        pos, valid, count, win = segment.find_frame_headers(stream, n_bytes,
+                                                            cap)
+        return (stream, pos, valid, count, win) + seg_parse.parse_candidates(
+            pos, valid, win, count, ends, si_bps, T, nch, wcap)
+
+    r = compare(f"front {tag}", new,
+                lambda: seg_parse.demux_front_plain(*args))
+    if not all(torch.equal(a, b) for a, b in zip(flat_tensors(parent()),
+                                                 flat_tensors(new()))):
+        raise AssertionError(f"front {tag}: parent != new kernel")
+    runs = [cuda_ms(parent, 10), cuda_ms(new, 20), cuda_ms(new, 20),
+            cuda_ms(parent, 10)]
+    out = new()
+    nbytes = tensor_bytes(words_le, ends, si_bps, out[:3], out[4:])
+    nb = bound(nbytes)
+    rep = {"group": tag, "max_abs_err": r[0], "ms": (runs[1] + runs[2]) / 2,
+           "plain_ms": r[2], "parent_ms": (runs[0] + runs[3]) / 2,
+           "runs": runs, "bound_ms": nb[0], "bound_by": nb[1],
+           "bytes": nbytes, "sync_hits": int(out[3]), "walkable": int(out[8][1])}
+    log(f"(b) front {tag}: == plain and == the parent's seven operations, "
+        f"every output; new {rep['ms']:.4f} ms, parent "
+        f"{rep['parent_ms']:.4f} ms (runs parent, new, new, parent: "
+        f"{', '.join(f'{t:.4f}' for t in runs)}); bound {nb[0]:.4f} ms "
+        f"({nb[1]}); {rep['sync_hits']} sync hits, {rep['walkable']} "
+        "walkable")
+    return rep
+
+
+def front_checked(label, fn):
+    """Run ``fn()`` with ``seg_parse.demux_front`` recording its arguments
+    (the decode calls it through the module), then hold the kernel to its
+    plain form on every output of every recorded call. Returns (fn's
+    result, the recorded arguments)."""
+    from claxon_tpu_torch.ops import seg_parse
+
+    calls = []
+    front = seg_parse.demux_front
+
+    def recording(*args):
+        calls.append(args)
+        return front(*args)
+
+    # The wrapper counts its launches on the module's name.
+    recording.launches = 0
+    seg_parse.demux_front = recording
+    try:
+        out = fn()
+    finally:
+        seg_parse.demux_front = front
+    if not calls:
+        raise AssertionError(f"{label}: the fused front did not run")
+    for i, args in enumerate(calls):
+        r = compare(f"front {label}[{i}]", lambda: front(*args),
+                    lambda: seg_parse.demux_front_plain(*args), 1)
+        log(f"(b) front {label}[{i}] W={args[0].shape[0]} cap={args[6]} "
+            f"wcap={args[7]} T={args[4]} nch={args[5]}: == plain, every "
+            f"output ({r[1]:.3f} ms vs {r[2]:.1f} ms)")
+    return out, calls
+
+
 def phase_b_seg(datas4, mixed):
     """K5-K8 against their plain forms on the segmented path's own
-    inputs: every group of the headline and mixed decodes, and every K8
+    inputs: every group of the headline and mixed decodes (the fused front
+    also against the parent's seven operations), and every K8
     dispatch."""
     import torch
 
@@ -873,6 +962,8 @@ def phase_b_seg(datas4, mixed):
     k4_parent = k4_parent_crc()
     log("(b) K7 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
                                  "demux.cu"))
+    log("(b) K5 + K6 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
+                                      "seg_parse.cu"))
     clock = None
     for label, datas in (("headline", datas4), ("mixed", mixed)):
         k8_calls, k1_calls, k4_calls = [], [], []
@@ -951,6 +1042,9 @@ def phase_b_seg(datas4, mixed):
                 lambda: seg_parse.parse_candidates_plain(*pargs))
             fields, lane_of, walk_in, counts = \
                 seg_parse.parse_candidates(*pargs)
+            front = front_report(tag, (words_le, n_bytes, ends, si_bps, T,
+                                       nch, cap, wcap))
+            rows.setdefault("front_groups", []).append(front)
             if label == "mixed":
                 # The delta-writing K7 (the segmented delta route's) against
                 # the plain walk, every output; the values-only K7 equal to
@@ -997,26 +1091,35 @@ def phase_b_seg(datas4, mixed):
             r6 = (max(r6a[0], r6b[0], r6c[0]), r6a[1] + r6b[1] + r6c[1],
                   r6a[2] + r6b[2] + r6c[2])
             log(f"(b) {tag}: {int(count)} sync hits, {n_walk} walked "
-                f"frames, {values_mb:.0f} MB of walk values; K5 == plain "
-                f"({r5[1]:.3f} ms vs {r5[2]:.1f} ms), K6 == plain "
-                f"({r6[1]:.3f} ms vs {r6[2]:.1f} ms: bswap {r6a[1]:.3f}, "
-                f"fields {r6b[1]:.3f}, summary {r6c[1]:.3f}), K7 == plain "
-                f"({r7[1]:.3f} ms vs {r7[2]:.1f} ms)")
+                f"frames, {values_mb:.0f} MB of walk values; front == "
+                f"plain ({front['ms']:.3f} ms vs {front['plain_ms']:.1f} "
+                f"ms), summary == plain ({r6c[1]:.3f} ms vs {r6c[2]:.1f} "
+                f"ms), K7 == plain ({r7[1]:.3f} ms vs {r7[2]:.1f} ms); "
+                f"the parent's pieces == plain: K5 ({r5[1]:.3f} ms vs "
+                f"{r5[2]:.1f} ms), K6 bswap {r6a[1]:.3f}, fields "
+                f"{r6b[1]:.3f}")
             if label == "headline" and gi == 0:
                 rows["seg_W"] = stream.shape[0]
-                rows.update(K5=r5, K6=r6, K7=r7)
+                # K5's row is the fused front; K6's, the front and the
+                # summary kernel, its two launches on the path.
+                rows.update(K5=(front["max_abs_err"], front["ms"],
+                                front["plain_ms"]),
+                            K6=(max(front["max_abs_err"], r6c[0]),
+                                front["ms"] + r6c[1],
+                                front["plain_ms"] + r6c[2]),
+                            K6_summary=r6c, K7=r7,
+                            K5_K6_parent=(max(r5[0], r6a[0], r6b[0]),
+                                          r5[1] + r6a[1] + r6b[1],
+                                          r5[2] + r6a[2] + r6b[2]))
                 rows["K7_deltas_ms"] = cuda_ms(lambda: demux.walk_frames(
                     stream, *walk_in, T, nch, True), 20)
                 log(f"(b) K7 with deltas {tag}: "
                     f"{rows['K7_deltas_ms']:.4f} ms (values only "
                     f"{r7[1]:.4f} ms)")
                 rows["seg_shape"] = shape
-                bounds["K5"] = bound(tensor_bytes(
-                    stream, segment.find_frame_headers(stream, n_bytes,
-                                                       cap)))
-                bounds["K6"] = bound(tensor_bytes(
-                    words_le, stream, pargs, fields, lane_of, walk_in,
-                    counts, sargs, seg_parse.pack_summary(*sargs)))
+                bounds["K5"] = (front["bound_ms"], front["bound_by"])
+                bounds["K6"] = bound(front["bytes"] + tensor_bytes(
+                    sargs, seg_parse.pack_summary(*sargs)))
                 bounds["K7"] = bound(tensor_bytes(
                     stream, walk_in, walk, end_bits, ok))
         if not k8_calls:
@@ -1054,6 +1157,35 @@ def phase_b_seg(datas4, mixed):
                 n = rws.shape[0]
                 bounds["K8"] = bound(4 * (2 * n * tb32 + 34 * n))
     return rows, bounds
+
+
+def phase_b_front(stream, fallback):
+    """The fused front on the segmented decodes of the fallback corpus
+    (its frames pass the front and fail the walk) and of one headline
+    ``stream`` with the capacity classes forced to 8, so the pending demux
+    regrows: kernel == plain at every capacity, every PCM bit-exact."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch.ops import seg_parse
+
+    dd, _calls = front_checked("fallback corpus", lambda: (
+        ct.decode_streams_device(fallback, segmentation="device",
+                                 device=DEVICE)))
+    check_decoded("fallback corpus, segmented", fallback, dd.to_host())
+    log(f"(b) fallback corpus, segmented: fallback streams "
+        f"{dd.fallback_streams}")
+    pick = seg_parse.pick_cap, seg_parse.pick_wcap
+    seg_parse.pick_cap = seg_parse.pick_wcap = lambda *a: 8
+    try:
+        dd, calls = front_checked("regrow", lambda: ct.decode_streams_device(
+            [stream], segmentation="device", device=DEVICE))
+    finally:
+        seg_parse.pick_cap, seg_parse.pick_wcap = pick
+    caps = [(a[6], a[7]) for a in calls]
+    if caps[0] != (8, 8) or min(caps[-1]) <= 8 or dd.fallback_streams:
+        raise AssertionError(f"regrow: capacities {caps}, fallback "
+                             f"{dd.fallback_streams}")
+    check_decoded("regrow, segmented", [stream], dd.to_host())
+    log(f"(b) regrow: the demux ran at (cap, wcap) {caps}")
 
 
 def phase_b_routes(datas4, mixed):
@@ -1540,7 +1672,7 @@ def phase_f():
 
     import claxon_tpu_torch as ct
     from claxon_tpu_torch import native, pipeline_bits
-    from claxon_tpu_torch.ops import crc, demux, entropy, seg_parse, segment
+    from claxon_tpu_torch.ops import crc, demux, entropy, seg_parse
     from claxon_tpu_torch.pipeline_bits import MAX_BATCH_BYTES
     from claxon_tpu_torch.testing import pcm_md5
 
@@ -1628,20 +1760,27 @@ def phase_f():
     log(f"(f) large stream: K2 == plain on its {len(k2_reps)} buckets")
     # The segmented path hands this stream to the host walk whole (past
     # the byte limit, and more than 2 channels, as the JAX package does),
-    # so K7 is held to its plain form on its frames directly: the source
-    # frames' sync scan and header parse (K5, K6) as one 8-channel group.
-    src, _pcm = large_source()
-    words_le = torch.from_numpy(np.frombuffer(
-        src + bytes(-len(src) % 4), "<i4").copy()).to(DEVICE)
+    # so the fused front is held to its plain form on its whole upload as
+    # one 8-channel group, and K7 on its frames directly: the source
+    # frames' front as one 8-channel group.
     i32 = dict(dtype=torch.int32, device=DEVICE)
-    ends = torch.full((8,), len(src), **i32)
-    stream = seg_parse.bswap_words(words_le)
-    cap, wcap = seg_parse.pick_cap(len(src)), 64
-    pos, valid, count, win = segment.find_frame_headers(stream, len(src),
-                                                        cap)
-    _f, _l, walk_in, counts = seg_parse.parse_candidates(
-        pos, valid, win, count, ends, torch.full((8,), 24, **i32), 4096, 8,
-        wcap)
+    for label, raw in (("large stream's upload", data), ("large stream's "
+                       "frames", large_source()[0])):
+        words_le = torch.from_numpy(np.frombuffer(
+            raw + bytes(-len(raw) % 4), "<i4").copy()).to(DEVICE)
+        args = (words_le, len(raw), torch.full((8,), len(raw), **i32),
+                torch.full((8,), 24, **i32), 4096, 8,
+                seg_parse.pick_cap(len(raw)),
+                64 if raw is not data else seg_parse.pick_wcap(len(raw)))
+        rf = compare(f"front {label}", lambda: seg_parse.demux_front(*args),
+                     lambda: seg_parse.demux_front_plain(*args), 1)
+        stream, _p, _v, count, _w, _f, _l, walk_in, counts = \
+            seg_parse.demux_front(*args)
+        log(f"(f) {label}: W={words_le.shape[0]} cap={args[6]} "
+            f"wcap={args[7]}, {int(count)} sync hits, {int(counts[1])} "
+            f"walkable: the fused front == plain, every output "
+            f"({rf[1]:.3f} ms vs {rf[2]:.1f} ms)")
+    cap, wcap = args[6], args[7]
     n = int(counts[1])  # the frames, and any sync mimic that parses
     if int(count) > cap or not LARGE_SOURCE_FRAMES <= n <= wcap:
         raise AssertionError(f"large stream's frames: {int(count)} sync "
@@ -1795,6 +1934,7 @@ def main():
     phase_b_fallback(fallback)
     phase_b_pack16()
     seg_rows, seg_bounds = phase_b_seg(datas4, mixed)
+    phase_b_front(base[0], fallback)
     rows.update(seg_rows)
     bounds.update(seg_bounds)
     t_routes = time.perf_counter()
@@ -1809,11 +1949,15 @@ def main():
         "; ".join(f"{k} {v:.4f} ms" for k, v in queued.items()))
 
     # (c) each path, through the public calls.
+    # The fused front does K5's work and K6's bswap, fields and compaction
+    # in two kernels: it counts under both. The parent's wrappers of
+    # those pieces run on no path.
     seg_wrappers = {
-        "K5": [segment.find_frame_headers],
-        "K6": [seg_parse.bswap_words, seg_parse.parse_candidates,
-               seg_parse.pack_summary],
-        "K7": [demux.walk_frames], "K8": [seg_gather.gather_values]}
+        "K5": [seg_parse.demux_front],
+        "K6": [seg_parse.demux_front, seg_parse.pack_summary],
+        "K7": [demux.walk_frames], "K8": [seg_gather.gather_values],
+        "K5_K6_parent": [segment.find_frame_headers, seg_parse.bswap_words,
+                         seg_parse.parse_candidates]}
     wrappers = {"K1+K3": [predict.synthesize_epilogue],
                 "K1": [predict.synthesize],
                 "K2": [entropy.decode_residual_bits_stream],
@@ -1834,7 +1978,8 @@ def main():
     def drive(path_kernels, fn):
         """Run fn with every launch count at 0; return every kernel's count
         (a kernel's count sums its wrappers), the path's kernels at least
-        1 each. K1 alone and K3's torch ops must not run on the card; on
+        1 each. K1 alone, K3's torch ops and the parent front's wrappers
+        must not run on the card; on
         the default routes (neither entropy variable set) K9 and K10 must
         not run either, and K7 must emit no deltas."""
         for ws in wrappers.values():
@@ -1855,6 +2000,9 @@ def main():
             if any(w.launches <= 0 for w in wrappers[k]):
                 raise AssertionError(f"{k} was not launched by the path "
                                      f"(counts {counts})")
+        if counts["K5_K6_parent"]:
+            raise AssertionError(f"the path ran the parent front's wrappers "
+                                 f"(counts {counts})")
         if predict.synthesize.launches or k3_on_card[0]:
             raise AssertionError(
                 f"the path ran K1 alone {predict.synthesize.launches} "
@@ -2048,7 +2196,8 @@ def main():
             ("generated", generated,
              [i for i, n in enumerate(generated_names)
               if n == "sixchan.flac"])):
-        dd = seg_decode(datas)
+        dd, _calls = front_checked(f"{label} segmented",
+                                   lambda: seg_decode(datas))
         log(f"(c) {label}, segmented: fallback streams "
             f"{dd.fallback_streams}")
         if not set(want_fb) <= set(dd.fallback_streams) or \
@@ -2308,7 +2457,7 @@ def main():
                        "claxon_tpu/ops/entropy.py:279"),
                "K4": ("claxon_tpu_torch/csrc/crc.cu",
                       "claxon_tpu/ops/crc.py:193"),
-               "K5": ("claxon_tpu_torch/csrc/segment.cu",
+               "K5": ("claxon_tpu_torch/csrc/seg_parse.cu",
                       "claxon_tpu/ops/segment.py:74"),
                "K6": ("claxon_tpu_torch/csrc/seg_parse.cu",
                       "claxon_tpu/ops/seg_parse.py:164"),
@@ -2371,6 +2520,20 @@ def main():
             k["buckets"] = rows[k["name"] + "_buckets"]
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
+        if k["name"] in ("K5", "K6"):
+            # One fused front (csrc/seg_parse.cu, demux_front: the scan
+            # kernel, then the rank kernel) does K5's work and K6's
+            # bswap, fields and compaction; K6 adds the summary kernel.
+            # The parent's seven operations (bswap, K5's three launches and
+            # torch.cumsum, fields, compaction) timed beside it in the
+            # same call; every headline and mixed group.
+            front = rows["front_groups"][0]
+            k.update(front_ms=front["ms"], parent_ms=front["parent_ms"],
+                     runs=front["runs"], front_bound_ms=front["bound_ms"],
+                     groups=rows["front_groups"],
+                     parent_pieces_ms=rows["K5_K6_parent"][1])
+        if k["name"] == "K6":
+            k["summary_ms"] = rows["K6_summary"][1]
         if k["name"] == "K7":
             # "launches" counts wrapper calls, each two kernel launches
             # (walk, then values). Each segmented group: new and parent

@@ -21,10 +21,15 @@
 // candidate builds the window, -1 fills positions past the count, and the
 // CRC-8 table sits in shared memory. The TPU form's top_k compaction and
 // gather-free GF(2) CRC steps are not carried over.
+//
+// The decode path runs none of this: the fused front in seg_parse.cu does
+// the scan and the check in its one pass over the upload. These launches
+// stay as the front's parent design and the CUDA form of the K5 wrapper.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "header.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -32,8 +37,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWordsPerThread = 4;
 constexpr int64_t kTile = (int64_t)kThreads * kWordsPerThread;
-constexpr int kWin = 16;
-constexpr int kMaxHeader = 15;
 
 __device__ __forceinline__ unsigned word_at(const unsigned* s, int64_t W,
                                             int64_t i) {
@@ -92,10 +95,6 @@ __global__ void sync_write_kernel(const unsigned* __restrict__ s, int64_t W,
   }
 }
 
-__device__ __forceinline__ int leading_ones8(unsigned b) {
-  return __clz(~(b << 24));  // b << 24 has zero low bits: the ~ stops at 8
-}
-
 __global__ void header_check_kernel(const unsigned* __restrict__ s,
                                     int64_t W, int64_t n_bytes,
                                     const int* __restrict__ count,
@@ -103,11 +102,7 @@ __global__ void header_check_kernel(const unsigned* __restrict__ s,
                                     unsigned char* __restrict__ valid,
                                     int* __restrict__ win, int64_t C) {
   __shared__ unsigned char table[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    unsigned c = (unsigned)i;
-    for (int b = 0; b < 8; ++b) c = (c & 0x80u) ? ((c << 1) ^ 0x07u) : (c << 1);
-    table[i] = (unsigned char)(c & 0xFFu);
-  }
+  fill_crc8_table(table);
   __syncthreads();
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
@@ -123,27 +118,7 @@ __global__ void header_check_kernel(const unsigned* __restrict__ s,
     w[j] = (s[wi] >> (24 - 8 * (int)(q & 3))) & 0xFFu;
     win[c * kWin + j] = (int)w[j];
   }
-  const unsigned bs_code = w[2] >> 4, sr_code = w[2] & 15u;
-  const unsigned ca = w[3] >> 4, bps_code = (w[3] >> 1) & 7u;
-  bool ok = bs_code != 0 && sr_code != 15 && ca <= 10 && bps_code != 3 &&
-            bps_code != 7 && (w[3] & 1u) == 0;
-  const int lead = leading_ones8(w[4]);
-  const int utf8_len = lead == 0 ? 1 : lead;
-  ok = ok && lead != 1 && lead != 8;
-#pragma unroll
-  for (int j = 1; j < 7; ++j)
-    ok = ok && (j >= utf8_len || (w[4 + j] & 0xC0u) == 0x80u);
-  const int bs_extra = (bs_code == 6 ? 1 : 0) + (bs_code == 7 ? 2 : 0);
-  const int sr_extra =
-      (sr_code == 12 ? 1 : 0) + (sr_code == 13 || sr_code == 14 ? 2 : 0);
-  const int hlen = 4 + utf8_len + bs_extra + sr_extra;
-  unsigned state = 0;
-#pragma unroll
-  for (int j = 0; j < kMaxHeader; ++j)
-    if (j < hlen) state = table[state ^ w[j]];
-  const unsigned stored = w[hlen < kWin - 1 ? hlen : kWin - 1];
-  ok = ok && state == stored && pos >= 0 && p + hlen < n_bytes;
-  valid[c] = ok ? 1 : 0;
+  valid[c] = header_valid(w, pos, n_bytes, table) ? 1 : 0;
 }
 
 }  // namespace

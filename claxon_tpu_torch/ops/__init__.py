@@ -8,9 +8,12 @@ PyTorch form.
 * ``epilogue`` -- K3 wasted bits + stereo decorrelation (torch ops, the
   plain form of the fused kernel) and K3b int16-pair pack and unpack
   (CUDA, ``csrc/pack16.cu``);
-* ``segment``  -- K5 sync scan and header CRC-8 (CUDA, ``csrc/segment.cu``);
-* ``seg_parse`` -- K6 fused-demux body: bswap, header fields and
-  compaction, summary (CUDA, ``csrc/seg_parse.cu``), and the fused run;
+* ``segment``  -- K5 sync scan and header CRC-8 (CUDA, ``csrc/segment.cu``;
+  the decode path runs it inside the fused front);
+* ``seg_parse`` -- K6 fused-demux body: the fused front (bswap, K5, header
+  fields and compaction in two kernels), the summary, and the parent
+  front's bswap and fields kernels (CUDA, ``csrc/seg_parse.cu``), and the
+  fused run;
 * ``demux``    -- K7 subframe walk (CUDA, ``csrc/demux.cu``);
 * ``seg_gather`` -- K8 values gather (CUDA, ``csrc/seg_gather.cu``).
 

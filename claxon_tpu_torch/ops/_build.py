@@ -30,7 +30,7 @@ _SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu", "crc.cu",
             "segment.cu", "seg_parse.cu", "demux.cu", "seg_gather.cu",
             "pack16.cu")
 #: headers the sources include (hashed with them).
-_HEADERS = ("scan.cuh",)
+_HEADERS = ("scan.cuh", "header.cuh")
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -75,6 +75,12 @@ _SIGNATURES = {
     "cxk_seg_fields": [_P, _P, _P, _N, _P, _P, _N, _N, _N, _P, _P],
     "cxk_seg_compact": [_P, _P, _N, _P, _N, _P, _P, _P, _P, _P, _P, _P],
     "cxk_seg_summary": [_P, _P, _P, _N, _P, _P, _P, _P, _N, _P, _P],
+    # K5 + K6 fused front -- W -> scratch ints; words_le, W, n_bytes,
+    # ends, si_bps, S, T, nch, C, wcap, stream, positions, valid, win,
+    # fields, lane_of, start_bits, bs, modes, bps, counts, scratch, stream
+    "cxk_front_scratch": [_N],
+    "cxk_demux_front": [_P, _N, _N, _P, _P, _N, _N, _N, _N, _N]
+                       + [_P] * 13,
     # K7 -- stream, W, start_bits, bs, modes, bps0, F, T, nch, then the
     # 13 per-lane outputs (demux.WALK_KEYS order), deltas (or null),
     # end_bits, ok, the scratch state and desc, stream
@@ -89,7 +95,8 @@ _SIGNATURES = {
 }
 
 #: entry points that return a value rather than a CUDA error code.
-_VALUED = {"cxk_sync_blocks": ctypes.c_int64}
+_VALUED = {"cxk_sync_blocks": ctypes.c_int64,
+           "cxk_front_scratch": ctypes.c_int64}
 
 _lib = None
 #: wall-clock seconds the last build (or cache hit) of this process took.

@@ -5,13 +5,16 @@ row per sync candidate.
 
 One group's run (:func:`fused_demux_run`) is
 
-  K6 bswap -> K5 sync scan -> K6 fields + compaction -> K7 walk ->
-  K6 summary
+  front (K6 bswap + K5 sync scan and header check + K6 fields and
+  compaction, one pass) -> K7 walk -> K6 summary
 
 all queued on the current stream with no host round trip; the host then
 copies the (cap, 5) summary and the two counts back (:class:`PendingDemux`:
 a non-blocking copy into pinned memory and an event). The K6 pieces:
 
+* :func:`demux_front` -- the front in two kernels that read the upload
+  once (``csrc/seg_parse.cu``); its plain form is the composition of the
+  three below;
 * :func:`bswap_words` -- the little-endian word upload to the big-endian
   stream every other kernel indexes;
 * :func:`parse_candidates` -- the frame-header fields of every candidate
@@ -23,6 +26,9 @@ a non-blocking copy into pinned memory and an event). The K6 pieces:
   partition count and gather width back in candidate order, packed into 5
   int32 words with the JAX program's bit widths.
 
+``bswap_words``, K5's ``find_frame_headers`` and ``parse_candidates`` keep
+their kernels (the front's parent design) but run on no decode path.
+
 The capacity classes, the regrow loop and the overflow exception carry the
 JAX package's values unchanged, so both packages route the same streams.
 """
@@ -33,14 +39,15 @@ import torch
 from . import _build
 from ._checks import on_cpu, require_cuda_int32
 from .demux import walk_frames
-from .segment import _leading_ones8, find_frame_headers
+from .segment import WIN, _leading_ones8, find_frame_headers_plain
 
 __all__ = ["fused_demux", "fused_demux_async", "fused_demux_run",
            "PendingDemux", "DemuxOverflow", "SUMMARY_COLS", "PACKED_WORDS",
            "S_QUANTUM", "MAX_CAP", "MAX_WALK_BYTES", "max_walk_lanes",
            "pick_cap", "pick_wcap", "bswap_words", "bswap_words_plain",
            "parse_candidates", "parse_candidates_plain", "pack_summary",
-           "pack_summary_plain", "FIELDS"]
+           "pack_summary_plain", "demux_front", "demux_front_plain",
+           "FIELDS"]
 
 #: summary columns, per candidate (int64 after unpacking). 'valid' is
 #: valid AND walkable: the host recomputes the device's compaction rank as
@@ -294,6 +301,73 @@ def parse_candidates(positions, valid, win, count, ends, si_bps, T, nch,
     return fields, lane_of, walk_in, counts
 
 
+# ---- the fused front ---------------------------------------------------
+
+def demux_front_plain(words_le, n_bytes, ends, si_bps, T, nch, cap, wcap):
+    """The plain PyTorch form of :func:`demux_front`: bswap, K5's sync scan
+    and header check, then the fields and compaction."""
+    stream = bswap_words_plain(words_le)
+    positions, valid, count, win = find_frame_headers_plain(stream, n_bytes,
+                                                            cap)
+    fields, lane_of, walk_in, counts = parse_candidates_plain(
+        positions, valid, win, count, ends, si_bps, T, nch, wcap)
+    return (stream, positions, valid, count, win, fields, lane_of, walk_in,
+            counts)
+
+
+def demux_front(words_le, n_bytes, ends, si_bps, T, nch, cap, wcap):
+    """The fused front's wrapper: the plain form for CPU tensors; for CUDA
+    tensors the kernels (``csrc/seg_parse.cu``: the scan over the upload,
+    then the ranks and rows), or an exception.
+
+    Args:
+      words_le: (W,) int32 little-endian word upload.
+      n_bytes:  bytes of the upload to scan.
+      ends, si_bps, T, nch, wcap: as for :func:`parse_candidates`.
+      cap:      candidate capacity C.
+
+    Returns:
+      (stream (W,) int32 big-endian words, then K5's positions, valid,
+      count and win, then :func:`parse_candidates`' fields, lane_of,
+      walk_in and counts), as the three wrappers return them.
+    """
+    if on_cpu(words_le, ends, si_bps):
+        return demux_front_plain(words_le, n_bytes, ends, si_bps, T, nch,
+                                 cap, wcap)
+    dev = require_cuda_int32("demux_front", words_le=words_le, ends=ends,
+                             si_bps=si_bps)
+    S = ends.shape[0]
+    if words_le.dim() != 1 or words_le.shape[0] >= 1 << 29 or \
+            si_bps.shape != (S,) or S < 1 or cap < 1 or wcap < 1:
+        raise ValueError("demux_front: expected a (W,) upload below 2^31 "
+                         "bytes (int32 positions), (S,) ends/si_bps with "
+                         "S >= 1, cap >= 1, wcap >= 1")
+    lib = _build.load()
+    i32 = dict(dtype=torch.int32, device=dev)
+    C = cap
+    stream = torch.empty_like(words_le)
+    positions = torch.empty((C,), **i32)
+    valid = torch.empty((C,), dtype=torch.bool, device=dev)
+    win = torch.empty((C, WIN), **i32)
+    fields = torch.empty((C, len(FIELDS)), **i32)
+    lane_of = torch.empty((C,), **i32)
+    walk_in = tuple(torch.empty((wcap,), **i32) for _ in range(4))
+    counts = torch.empty((2,), **i32)
+    # Each tile's counts and first hits, for the second kernel.
+    scratch = torch.empty((int(lib.cxk_front_scratch(words_le.shape[0])),),
+                          **i32)
+    _build.check(lib.cxk_demux_front(
+        words_le.data_ptr(), words_le.shape[0], n_bytes, ends.data_ptr(),
+        si_bps.data_ptr(), S, T, nch, C, wcap, stream.data_ptr(),
+        positions.data_ptr(), valid.data_ptr(), win.data_ptr(),
+        fields.data_ptr(), lane_of.data_ptr(),
+        *(a.data_ptr() for a in walk_in), counts.data_ptr(),
+        scratch.data_ptr(), _build.stream_handle(dev)), "cxk_demux_front")
+    demux_front.launches += 1
+    return (stream, positions, valid, counts[0], win, fields, lane_of,
+            walk_in, counts)
+
+
 # ---- summary -----------------------------------------------------------
 
 def pack_summary_plain(positions, fields, lane_of, end_bits, walk_ok,
@@ -366,6 +440,7 @@ def pack_summary(positions, fields, lane_of, end_bits, walk_ok, n_parts,
 #: kernel launches through the wrappers (CUDA tensors only).
 bswap_words.launches = 0
 parse_candidates.launches = 0
+demux_front.launches = 0
 pack_summary.launches = 0
 
 
@@ -373,15 +448,14 @@ pack_summary.launches = 0
 
 def fused_demux_run(words_le, n_bytes, T, nch, ends, si_bps, cap, wcap,
                     deltas=False):
-    """Queue one group's fused demux: bswap, K5, fields + compaction, K7
-    (emitting its ``deltas`` too when asked), summary. Returns (stream
-    (W,) int32 big-endian, walk (dict of K7's per-lane outputs), summary
-    (cap, 5) int32, counts (2,) int32), all on the device of
-    ``words_le``, nothing synchronised."""
-    stream = bswap_words(words_le)
-    positions, valid, count, win = find_frame_headers(stream, n_bytes, cap)
-    fields, lane_of, walk_in, counts = parse_candidates(
-        positions, valid, win, count, ends, si_bps, T, nch, wcap)
+    """Queue one group's fused demux: the front (bswap, K5, fields +
+    compaction), K7 (emitting its ``deltas`` too when asked), summary.
+    Returns (stream (W,) int32 big-endian, walk (dict of K7's per-lane
+    outputs), summary (cap, 5) int32, counts (2,) int32), all on the
+    device of ``words_le``, nothing synchronised."""
+    stream, positions, _valid, _count, _win, fields, lane_of, walk_in, \
+        counts = demux_front(words_le, n_bytes, ends, si_bps, T, nch, cap,
+                             wcap)
     walk, end_bits, walk_ok = walk_frames(stream, *walk_in, T, nch, deltas)
     summary = pack_summary(positions, fields, lane_of, end_bits, walk_ok,
                            walk["n_parts"], walk["sa_words"], nch)

@@ -673,7 +673,27 @@ def _small_streams():
                         force_subframe="verbatim")]
 
 
+def _assert_front_matches(*args):
+    """The fused front's kernel equals its plain form on every output, and
+    launched once."""
+    from claxon_tpu_torch.ops import seg_parse
+
+    n = seg_parse.demux_front.launches
+    got = seg_parse.demux_front(*args)
+    assert seg_parse.demux_front.launches == n + 1
+    want = seg_parse.demux_front_plain(*args)
+    got = got[:7] + got[7] + got[8:]
+    want = want[:7] + want[7] + want[8:]
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), (k, args[1:])
+    torch.cuda.synchronize()
+    return got
+
+
 def test_sync_scan_kernel_matches_plain(cuda):
+    """K5's kernels, and the fused front, equal their plain forms on a
+    real stream, dense sync runs and noise, with capacities below the
+    count and n_bytes below the upload."""
     from claxon_tpu_torch.ops import segment
 
     rng = np.random.default_rng(4)
@@ -692,6 +712,10 @@ def test_sync_scan_kernel_matches_plain(cuda):
         want = segment.find_frame_headers_plain(s, nb, C)
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b), (len(w), nb, C)
+        # The fused front on the same bytes (its upload is little-endian).
+        le = _c(np.asarray(w).astype(np.int32).byteswap(), cuda)
+        _assert_front_matches(le, nb, _c(np.full(8, nb), cuda),
+                              _c(np.full(8, 16), cuda), 1024, 2, C, 64)
 
 
 def _walk_inputs(rng, n_frames, W, T):
@@ -746,13 +770,56 @@ def test_walk_kernel_matches_plain_everywhere(cuda):
             assert bool(ok.all())
 
 
+def _generated_groups(device):
+    """begin_segmented's group arguments for the fused demux on the
+    generated corpus (uploaded to ``device``), without running it."""
+    import claxon_tpu_torch.pipeline_seg as tseg
+    from claxon_tpu_torch.ops import seg_parse
+
+    datas = [p.read_bytes() for p in sorted(GENERATED.glob("*.flac"))]
+    calls = []
+    real = seg_parse.fused_demux_async
+    seg_parse.fused_demux_async = lambda *a, **kw: calls.append(a)
+    try:
+        tseg.begin_segmented(datas, device=device)
+    finally:
+        seg_parse.fused_demux_async = real
+    out = []
+    for words_le, n_bytes, T, nch, ends_abs, bps, frames_est in calls:
+        ends = np.full(8 * -(-len(ends_abs) // 8), n_bytes)
+        ends[:len(ends_abs)] = ends_abs
+        si_bps = np.ones(len(ends))
+        si_bps[:len(bps)] = bps
+        out.append((words_le, n_bytes, _c(ends, device), _c(si_bps, device),
+                    T, nch, seg_parse.pick_cap(n_bytes, frames_est),
+                    seg_parse.pick_wcap(n_bytes, frames_est)))
+    return out
+
+
 def test_fused_demux_kernels_match_plain(cuda):
-    """K6's bswap, field parse + compaction and summary kernels equal
-    their plain forms on a real group and on noise, and the whole fused
-    run equals the plain run on the CPU."""
+    """K6's bswap, field parse + compaction and summary kernels and the
+    fused front equal their plain forms on a real group and on noise, and
+    the whole fused run equals the plain run on the CPU. The fused front
+    also on the edge cases of its CPU model test (tests/front_cases.py:
+    header copies at every offset around tile boundaries, dense sync runs
+    cut at C mid-tile, more than 256 streams, W below 4, n_bytes below the
+    upload), on an upload that is not 16-byte aligned and on every group
+    of the generated corpus."""
     from claxon_tpu_torch.ops import seg_parse
     from claxon_tpu_torch.ops.demux import walk_frames
     from claxon_tpu_torch.ops.segment import find_frame_headers
+
+    from front_cases import FRONT_CASES, front_case
+
+    for case in FRONT_CASES:
+        words, n_bytes, ends, si_bps, T, nch, C, wcap = front_case(case)
+        _assert_front_matches(_c(words, cuda), n_bytes, _c(ends, cuda),
+                              _c(si_bps, cuda), T, nch, C, wcap)
+    groups = _generated_groups(cuda)
+    assert len(groups) >= 3
+    for args in groups:
+        counts = _assert_front_matches(*args)[-1]
+        assert int(counts[1]) >= 1
 
     rng = np.random.default_rng(6)
     streams = _small_streams()
@@ -785,6 +852,13 @@ def test_fused_demux_kernels_match_plain(cuda):
                  walk["sa_words"], nch)
         assert torch.equal(seg_parse.pack_summary(*sargs),
                            seg_parse.pack_summary_plain(*sargs))
+        front = _assert_front_matches(w_t, n_bytes, ends_t, bps_t, T, nch,
+                                      512, wcap)
+        assert torch.equal(front[0], stream)
+        # An upload that is not 16-byte aligned takes the kernels' word
+        # loads.
+        _assert_front_matches(w_t[1:], n_bytes - 4, ends_t, bps_t, T, nch,
+                              512, wcap)
         dev_run = seg_parse.fused_demux_run(w_t, n_bytes, T, nch, ends_t,
                                             bps_t, 512, wcap)
         cpu_run = seg_parse.fused_demux_run(w_t.cpu(), n_bytes, T, nch,
@@ -814,22 +888,75 @@ def test_gather_kernel_matches_plain(cuda):
 
 def test_segmented_decode_on_the_card(cuda):
     """The segmented path on the card: bit-exact against the scalar
-    decoder, through every new kernel, with nothing falling back."""
+    decoder and the stored MD5s, through the fused front, the summary, K7
+    and K8 (the front's parent wrappers launch nothing)."""
     import claxon_tpu_torch as ct
     from claxon_tpu_torch.ops import demux, seg_gather, seg_parse, segment
 
     datas = _small_streams() + [p.read_bytes()
                                 for p in sorted(GENERATED.glob("*.flac"))]
-    wrappers = (segment.find_frame_headers, seg_parse.bswap_words,
-                seg_parse.parse_candidates, seg_parse.pack_summary,
+    wrappers = (seg_parse.demux_front, seg_parse.pack_summary,
                 demux.walk_frames, seg_gather.gather_values)
-    before = [w.launches for w in wrappers]
+    parent = (segment.find_frame_headers, seg_parse.bswap_words,
+              seg_parse.parse_candidates)
+    before = [w.launches for w in wrappers + parent]
     dd = ct.decode_streams_device(datas, segmentation="device", device=cuda)
-    assert all(w.launches > n for w, n in zip(wrappers, before))
+    after = [w.launches for w in wrappers + parent]
+    assert all(a > b for a, b in zip(after, before[:len(wrappers)]))
+    assert after[len(wrappers):] == before[len(wrappers):]
     assert dd.segmented
-    for data, dec in zip(datas, dd.to_host()):
-        assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
+    _assert_scalar_and_md5(datas, dd.to_host())
     assert_decodes_like_scalar(fuzzed_streams(), cuda, "device")
+
+
+def _assert_scalar_and_md5(datas, results):
+    """Each decode equals the scalar decoder's PCM and, where STREAMINFO
+    stores one, its MD5."""
+    from claxon_tpu_torch.testing import pcm_md5
+
+    md5s = 0
+    for data, dec in zip(datas, results):
+        si, want = native.decode_stream_scalar(data)
+        assert np.array_equal(dec.pcm, want)
+        if any(si.md5sum):
+            assert pcm_md5(dec.pcm, si.bits_per_sample) == si.md5sum
+            md5s += 1
+    assert md5s >= 1
+
+
+def test_front_regrows_on_the_card(cuda, monkeypatch):
+    """test_torch_seg_pipeline.py::test_capacity_overflow_regrows on the
+    card: capacities of 8 re-dispatch the fused demux with larger classes,
+    the fused front equals its plain form at every capacity, and the
+    decode stays bit-exact."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu.testing import encode_flac, synth_music
+    from claxon_tpu_torch.ops import seg_parse
+
+    data = encode_flac(synth_music(6000, channels=2, bps=16, seed=11),
+                       44100, 16, block_size=576)
+    calls = []
+    front = seg_parse.demux_front
+    monkeypatch.setattr(seg_parse, "pick_cap", lambda *a: 8)
+    monkeypatch.setattr(seg_parse, "pick_wcap", lambda *a: 8)
+
+    def recording(*args):
+        calls.append(args)
+        return front(*args)
+
+    # The wrapper counts its launches on the module's name.
+    recording.launches = 0
+    monkeypatch.setattr(seg_parse, "demux_front", recording)
+    dd = ct.decode_streams_device([data], segmentation="device",
+                                  device=cuda)
+    assert dd.segmented and dd.fallback_streams == []
+    _assert_scalar_and_md5([data], dd.to_host())
+    caps = [(a[6], a[7]) for a in calls]
+    assert caps[0] == (8, 8) and len(caps) >= 2
+    assert caps[-1][0] > 8 and caps[-1][1] > 8
+    monkeypatch.undo()
+    for a in calls:
+        _assert_front_matches(*a)
 
 
 def test_segmented_65535_bucket_on_the_card(cuda):

@@ -296,7 +296,8 @@ def test_group_merge_one_upload():
 
 @pytest.mark.parametrize("name", ["find_frame_headers", "bswap_words",
                                   "parse_candidates", "pack_summary",
-                                  "walk_frames", "gather_values"])
+                                  "walk_frames", "gather_values",
+                                  "demux_front"])
 def test_wrappers_refuse_non_cpu_tensors(name):
     """Given tensors that are not on the CPU, each K5-K8 wrapper launches
     its kernel or raises; it never falls back to its plain form."""
@@ -320,6 +321,8 @@ def test_wrappers_refuse_non_cpu_tensors(name):
                          2)),
         "gather_values": (seg_gather.gather_values,
                           (meta(4, 64), meta(4, 32), meta(4), meta(8), 64)),
+        "demux_front": (tsp.demux_front,
+                        (meta(64), 256, meta(8), meta(8), 1024, 2, 8, 8)),
     }
     fn, args = calls[name]
     before = fn.launches

@@ -58,8 +58,17 @@ Phases, each of which raises on failure (so the script exits non-zero):
       entropy routes' kernels, with the ptxas report of entropy_delta.cu:
       K9 on every bucket the delta planner builds for the headline and
       mixed corpora, K10 and K2 on every dispatch of their segmented delta
-      and scan decodes, each timed with its byte bound; and the byte
-      bounds of the device functions still to port;
+      and scan decodes, each timed with its byte bound; then the three
+      device functions that no decode route calls, with the ptxas report
+      of rice.cu and crc_lanes.cu: rice_decode, crc16_device and
+      crc16_frames_device against their plain forms on the CPU tests'
+      garbage cases and at the headline x4 shapes (rice_decode over the
+      main bucket's L x P partitions of T / P codes, held to the values
+      that made its buffer too; crc16_device on the (F, B) byte matrix of
+      the headline frames and crc16_frames_device on the headline upload
+      with the host walk's ranges, every frame 0 and equal to K4), each
+      timed with its byte bound; every decode run below must launch them
+      0 times;
   (c) the default route: with CLAXON_TPU_SEGMENTATION unset and the
       cached choice reset, decode_streams_device(datas) calibrates
       ("auto") on the mixed corpus, then on headline x4, printing the
@@ -1311,23 +1320,135 @@ def corrupt_first_frame_crc(data):
     return bytes(bad)
 
 
-def queued_bounds(L, T, P, SA, W, F, B):
-    """Byte bounds (ms) of the device functions still to port, at the
-    headline x4 host-walk bucket's shapes (L lanes, T, P partitions, SA,
-    its stream of W words and F frames of at most B bytes). Each input
-    read once, each output written once, in the JAX package's dtypes."""
-    out = L * T * 4  # (L, T) int32
-    nbytes = {
-        "claxon_tpu/ops/rice.py:126 rice_decode":
-            # one partition a lane: start_bits/params/counts, end_bits
-            W * 4 + 4 * L * P * 4 + out,
-        "claxon_tpu/ops/crc.py:33 crc16_device":
-            # (F, B) int32 byte values, lengths, CRCs
-            F * B * 4 + 2 * F * 4,
-        "claxon_tpu/ops/crc.py:284 crc16_frames_device":
-            W * 4 + 3 * F * 4,
-    }
-    return {k: bound(v)[0] for k, v in nbytes.items()}
+def phase_b_rice_crc(datas4, dims):
+    """The JAX package's three device functions that no decode route
+    calls, rice_decode (csrc/rice.cu), crc16_device and
+    crc16_frames_device (csrc/crc_lanes.cu): each kernel against its plain
+    form on the CPU tests' garbage cases (claxon_tpu_torch/testing/
+    rice_crc_cases.py) and at the headline x4 shapes ``dims`` (the host
+    walk's main bucket: L lanes of P partitions, T): rice_decode over L x
+    P partitions of T / P codes of a buffer made from a seed, also held to
+    the values that made it; crc16_device on the (F, B) byte matrix of
+    the headline upload's frames, stored CRC included (every row 0);
+    crc16_frames_device on that upload with the host walk's frame ranges
+    (every frame 0, and equal to K4). Returns (rows, bounds) keyed by the
+    function's name."""
+    import numpy as np
+    import torch
+
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch.ops import crc, rice
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import plan_raw_bits
+    from claxon_tpu_torch.testing import rice_crc_cases as cases
+
+    csrc = REPO / "claxon_tpu_torch" / "csrc"
+    log("(b) rice_decode " + ptxas_report(csrc / "rice.cu"))
+    log("(b) crc16_device, crc16_frames_device " +
+        ptxas_report(csrc / "crc_lanes.cu"))
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
+
+    for call in cases.rice_calls():
+        words, sb, ks, cs, T = call["args"]
+        T = max(int(cs.max()), 0) if T is None else T
+        args = [dev(a) for a in (words, sb, ks, cs)]
+        compare(f"rice_decode on {', '.join(call['labels'])}",
+                lambda: rice.rice_decode(*args, max_count=T),
+                lambda: rice.rice_decode_plain(*args, T), 1)
+    for call in cases.crc16_rows_calls():
+        args = [dev(a) for a in call["args"]]
+        compare(f"crc16_device on {', '.join(call['labels'])}",
+                lambda: crc.crc16_device(*args),
+                lambda: crc.crc16_device_plain(*args), 1)
+    for call in cases.crc16_windows_calls():
+        stream, starts, ends, n_words = call["args"]
+        args = [dev(a) for a in (stream, starts, ends)]
+        compare(f"crc16_frames_device on {', '.join(call['labels'])}",
+                lambda: crc.crc16_frames_device(*args, n_words),
+                lambda: crc.crc16_frames_device_plain(*args, n_words), 1)
+    log("(b) rice_decode, crc16_device and crc16_frames_device == plain on "
+        "every garbage case")
+
+    rows, bounds = {}, {}
+    n_parts, codes = dims["L"] * dims["P"], dims["T"] // dims["P"]
+    t0 = time.perf_counter()
+    st = cases.rice_stream(np.full(n_parts, codes), seed=1100)
+    gen_s = time.perf_counter() - t0
+    args = [dev(st[k]) for k in ("words", "start_bits", "params", "counts")]
+    # max_count given: without it the wrapper reads max(counts) from the
+    # card, a sync that would pace the timed launches.
+    rows["rice_decode"] = compare(
+        f"rice_decode {n_parts} x {codes}",
+        lambda: rice.rice_decode(*args, max_count=codes),
+        lambda: rice.rice_decode_plain(*args, codes))
+    out, end = rice.rice_decode(*args, max_count=codes)
+    if not np.array_equal(out.cpu().numpy(), st["values"]) or \
+            not np.array_equal(end.cpu().numpy()[:-1], st["start_bits"][1:]):
+        raise AssertionError("rice_decode: != the values that made the "
+                             "buffer")
+    bounds["rice_decode"] = bound(tensor_bytes(args, out, end))
+    # One warp alone (its 32 lanes' chains, nothing to hide them behind)
+    # against the whole input: how much of the time is one lane's chain.
+    one = [args[0]] + [a[:32] for a in args[1:]]
+    one_ms = cuda_ms(lambda: rice.rice_decode(*one, max_count=codes), 20)
+    rows["rice_decode_one_warp_ms"] = one_ms
+    log(f"(b) rice_decode on {n_parts} partitions of {codes} codes (W="
+        f"{st['words'].size}, made in {gen_s:.1f} s): == plain == the "
+        f"values that made the buffer; {rows['rice_decode'][1]:.4f} ms "
+        f"(plain {rows['rice_decode'][2]:.1f} ms), bound "
+        f"{bounds['rice_decode'][0]:.4f} ms ({bounds['rice_decode'][1]}); "
+        f"the first 32 lanes alone {one_ms:.4f} ms "
+        f"({one_ms * 1e-3 * 1.98e9 / codes:.0f} cycles per step at 1.98 "
+        "GHz)")
+    del st, out, end, args
+
+    bp = plan_raw_bits(extract_streams_bits(datas4, native), 128)
+    n = bp.n_crc
+    s_np, e_np = bp.se[0][:n].astype(np.int64), bp.se[1][:n].astype(np.int64)
+    B = int((e_np - s_np).max())
+    upload = np.frombuffer(bp.stream.astype(">i4").tobytes(), np.uint8)
+    at = np.minimum(s_np[:, None] + np.arange(B)[None, :], upload.size - 1)
+    data, lengths = dev(upload[at]), dev(e_np - s_np)
+    rows["crc16_device"] = compare(
+        f"crc16_device ({n}, {B})", lambda: crc.crc16_device(data, lengths),
+        lambda: crc.crc16_device_plain(data, lengths))
+    if crc.crc16_device(data, lengths).any():
+        raise AssertionError("crc16_device: an intact frame failed")
+    # The bytes the function needs: each row's first clamp(lengths, 0, B)
+    # elements (all the kernel reads of the padded matrix), the lengths
+    # and the output.
+    bounds["crc16_device"] = bound(
+        4 * int(lengths.clamp(0, B).sum()) + tensor_bytes(lengths, lengths))
+    log(f"(b) crc16_device on the headline frames ({n}, {B}): == plain, "
+        f"every frame 0; {rows['crc16_device'][1]:.4f} ms (plain "
+        f"{rows['crc16_device'][2]:.1f} ms), bound "
+        f"{bounds['crc16_device'][0]:.4f} ms ({bounds['crc16_device'][1]})")
+    del data, at
+
+    stream = dev(bp.stream)
+    starts, ends = dev(bp.se[0]), dev(bp.se[1])
+    n_words = 1 << max(0, (B + 3) // 4 - 1).bit_length()
+    rows["crc16_frames_device"] = compare(
+        f"crc16_frames_device (F={starts.shape[0]}, n_words={n_words})",
+        lambda: crc.crc16_frames_device(stream, starts, ends, n_words),
+        lambda: crc.crc16_frames_device_plain(stream, starts, ends, n_words))
+    got = crc.crc16_frames_device(stream, starts, ends, n_words)
+    if got[:n].any() or not torch.equal(got, crc.crc16_ranges(stream, starts,
+                                                               ends)):
+        raise AssertionError("crc16_frames_device: an intact frame failed, "
+                             "or != K4 on the same ranges")
+    bounds["crc16_frames_device"] = bound(tensor_bytes(stream, starts, ends,
+                                                       got))
+    log(f"(b) crc16_frames_device on the headline upload (W="
+        f"{stream.shape[0]}, F={starts.shape[0]}, n_words={n_words}): == "
+        "plain == K4, every frame 0; "
+        f"{rows['crc16_frames_device'][1]:.4f} ms (plain "
+        f"{rows['crc16_frames_device'][2]:.1f} ms), bound "
+        f"{bounds['crc16_frames_device'][0]:.4f} ms "
+        f"({bounds['crc16_frames_device'][1]})")
+    return rows, bounds
 
 
 def build_parent(label, src):
@@ -1898,7 +2019,7 @@ def main():
     import claxon_tpu_torch as ct
     from claxon_tpu_torch import native
     from claxon_tpu_torch.ops import (_build, crc, demux, entropy, epilogue,
-                                      predict, seg_gather, seg_parse,
+                                      predict, rice, seg_gather, seg_parse,
                                       segment)
     from claxon_tpu_torch.pipeline import extract_streams_bits
     from claxon_tpu_torch.pipeline_bits import plan_raw_bits
@@ -1943,15 +2064,21 @@ def main():
         f"{time.perf_counter() - t_routes:.1f} s")
     rows.update(route_rows)
     bounds.update(route_bounds)
-    queued = queued_bounds(**rows["main_dims"])
-    log("(b) byte bounds at the headline x4 shapes of the functions still "
-        f"to port ({rows['main_dims']}): " +
-        "; ".join(f"{k} {v:.4f} ms" for k, v in queued.items()))
+    t_rc = time.perf_counter()
+    rc_rows, rc_bounds = phase_b_rice_crc(datas4, rows["main_dims"])
+    log(f"(b) rice_decode, crc16_device and crc16_frames_device took "
+        f"{time.perf_counter() - t_rc:.1f} s")
+    rows.update(rc_rows)
+    bounds.update(rc_bounds)
 
     # (c) each path, through the public calls.
     # The fused front does K5's work and K6's bswap, fields and compaction
     # in two kernels: it counts under both. The parent's wrappers of
     # those pieces run on no path.
+    # No decode route calls these three: they run 0 times on every path.
+    test_only = {"rice_decode": rice.rice_decode,
+                 "crc16_device": crc.crc16_device,
+                 "crc16_frames_device": crc.crc16_frames_device}
     seg_wrappers = {
         "K5": [seg_parse.demux_front],
         "K6": [seg_parse.demux_front, seg_parse.pack_summary],
@@ -1965,7 +2092,8 @@ def main():
                 "K10": [entropy.decode_residual_bits_stream_delta],
                 "K4": [crc.crc16_ranges],
                 "K3b_pack": [epilogue.pack_int16_pairs],
-                "K3b_unpack": [epilogue.unpack_int16_pairs], **seg_wrappers}
+                "K3b_unpack": [epilogue.unpack_int16_pairs], **seg_wrappers,
+                **{k: [w] for k, w in test_only.items()}}
     # K3's torch ops are the fused kernel's plain form: count their calls
     # on card tensors (there must be none on a decode path).
     plain_k3 = epilogue.apply_epilogue
@@ -2003,6 +2131,9 @@ def main():
         if counts["K5_K6_parent"]:
             raise AssertionError(f"the path ran the parent front's wrappers "
                                  f"(counts {counts})")
+        if any(counts[k] for k in test_only):
+            raise AssertionError(f"the path ran rice_decode, crc16_device "
+                                 f"or crc16_frames_device (counts {counts})")
         if predict.synthesize.launches or k3_on_card[0]:
             raise AssertionError(
                 f"the path ran K1 alone {predict.synthesize.launches} "
@@ -2152,9 +2283,11 @@ def main():
                                          device=DEVICE))
     check_decoded("fallback corpus", fallback, fb_dd.to_host())
     log(f"(c) fallback corpus, launches: {fb_launches}")
-    check_decoded("generated, one stream at a time (the default route)",
+    check_decoded("generated, one stream at a time (the default route, "
+                  "use_native=True passed positionally)",
                   generated,
-                  [ct.decode_stream(d, device=DEVICE) for d in generated])
+                  [ct.decode_stream(d, True, device=DEVICE)
+                   for d in generated])
     epilogue.pack_int16_pairs.launches = 0
     dd = ct.decode_streams_device(datas4, segmentation="host",
                                   device=DEVICE).sync()
@@ -2468,7 +2601,13 @@ def main():
                "K3b_pack": ("claxon_tpu_torch/csrc/pack16.cu",
                             "claxon_tpu/ops/epilogue.py:78"),
                "K3b_unpack": ("claxon_tpu_torch/csrc/pack16.cu",
-                              "claxon_tpu/ops/epilogue.py:101")}
+                              "claxon_tpu/ops/epilogue.py:101"),
+               "rice_decode": ("claxon_tpu_torch/csrc/rice.cu",
+                               "claxon_tpu/ops/rice.py:126"),
+               "crc16_device": ("claxon_tpu_torch/csrc/crc_lanes.cu",
+                                "claxon_tpu/ops/crc.py:33"),
+               "crc16_frames_device": ("claxon_tpu_torch/csrc/crc_lanes.cu",
+                                       "claxon_tpu/ops/crc.py:284")}
 
     def entry(k, source, replaces):
         return {"name": k, "route": "cuda", "source": source,
@@ -2520,6 +2659,12 @@ def main():
             k["buckets"] = rows[k["name"] + "_buckets"]
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
+        if k["name"] == "rice_decode":
+            # "launches" counts wrapper calls, each two kernel launches
+            # (every lane alone, then the exact pass that returns at once
+            # unless a lane ran off the buffer); "ms" times both.
+            k["kernel_launches_per_call"] = 2
+            k["one_warp_ms"] = rows["rice_decode_one_warp_ms"]
         if k["name"] in ("K5", "K6"):
             # One fused front (csrc/seg_parse.cu, demux_front: the scan
             # kernel, then the rank kernel) does K5's work and K6's
@@ -2563,7 +2708,6 @@ def main():
         "were encoded")
     print(json.dumps({"kernels": kernels, "off_path_kernels": off_path,
                       "torch_ops": torch_ops,
-                      "queued_bounds_ms": queued,
                       "to_host_tail": to_host_tail,
                       "auto": auto,
                       "routes": {r: {"device_resident_ms":

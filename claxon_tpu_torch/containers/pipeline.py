@@ -38,12 +38,9 @@ __all__ = ["decode_ogg_stream", "decode_mp4_stream"]
 
 def _core(use_native):
     """The port's C++ core; the Python extractor route is not ported."""
-    from ..pipeline import _native
+    from ..pipeline import _native, _require_native
 
-    if not use_native:
-        raise NotImplementedError(
-            "claxon_tpu_torch: use_native=False (the Python extractor) is "
-            "not ported; the container decode needs the C++ core")
+    _require_native(use_native, "the container decode")
     return _native()
 
 

@@ -63,20 +63,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shifts.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;          // warps per block
 constexpr int kTileStride = 33;    // output tile row stride (words)
 constexpr int kMaxStagedSA = 65;   // the walk's largest SA class
 constexpr unsigned kFull = 0xffffffffu;
-
-// Logical shifts with XLA semantics: an amount >= 32 (as unsigned) gives 0.
-__device__ __forceinline__ unsigned shl(unsigned v, int s) {
-  return (unsigned)s >= 32u ? 0u : v << s;
-}
-__device__ __forceinline__ unsigned shr(unsigned v, int s) {
-  return (unsigned)s >= 32u ? 0u : v >> s;
-}
 
 __device__ __forceinline__ void cp_async4(unsigned* dst, const unsigned* src) {
   const uint32_t sdst = (uint32_t)__cvta_generic_to_shared(dst);

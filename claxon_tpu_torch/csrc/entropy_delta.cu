@@ -49,19 +49,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shifts.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kMaxStagedSA = 128;
 constexpr unsigned kFull = 0xffffffffu;
-
-// Logical shifts with XLA semantics: an amount >= 32 (as unsigned) gives 0.
-__device__ __forceinline__ unsigned shl(unsigned v, int s) {
-  return (unsigned)s >= 32u ? 0u : v << s;
-}
-__device__ __forceinline__ unsigned shr(unsigned v, int s) {
-  return (unsigned)s >= 32u ? 0u : v >> s;
-}
 
 __device__ __forceinline__ int64_t clamp_word(int64_t idx, int64_t W) {
   return idx < 0 ? 0 : (idx > W - 1 ? W - 1 : idx);

@@ -4,7 +4,12 @@ PyTorch form.
 * ``predict``  -- K1 synthesis, alone and with K3 fused into its store
   (CUDA, ``csrc/synth.cu``);
 * ``entropy``  -- K2 stream Rice decode (CUDA, ``csrc/entropy.cu``);
-* ``crc``      -- K4 range CRC-16 (CUDA, ``csrc/crc.cu``);
+* ``crc``      -- K4 range CRC-16 (CUDA, ``csrc/crc.cu``), and the CRC-16
+  of byte-matrix rows, ``crc16_device``, and of right-aligned windows of
+  the upload, ``crc16_frames_device`` (CUDA, ``csrc/crc_lanes.cu``; no
+  decode route calls them);
+* ``rice``     -- ``rice_decode``, one Rice partition a lane over a shared
+  packed bit buffer (CUDA, ``csrc/rice.cu``; no decode route calls it);
 * ``epilogue`` -- K3 wasted bits + stereo decorrelation (torch ops, the
   plain form of the fused kernel) and K3b int16-pair pack and unpack
   (CUDA, ``csrc/pack16.cu``);
@@ -18,5 +23,11 @@ PyTorch form.
 * ``seg_gather`` -- K8 values gather (CUDA, ``csrc/seg_gather.cu``).
 
 A wrapper takes its plain form only for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises.
+tensors it launches its kernel or raises. As in the JAX package, the
+package exports ``crc16_device`` and ``rice_decode``.
 """
+
+from .crc import crc16_device
+from .rice import rice_decode
+
+__all__ = ["crc16_device", "rice_decode"]

@@ -28,9 +28,9 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu", "crc.cu",
             "segment.cu", "seg_parse.cu", "demux.cu", "seg_gather.cu",
-            "pack16.cu")
+            "pack16.cu", "crc_lanes.cu", "rice.cu")
 #: headers the sources include (hashed with them).
-_HEADERS = ("scan.cuh", "header.cuh")
+_HEADERS = ("scan.cuh", "header.cuh", "shifts.cuh")
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -92,6 +92,14 @@ _SIGNATURES = {
     # stream
     "cxk_pack_int16_pairs": [_P, _N, _N, _N, _P, _P, _P],
     "cxk_unpack_int16_pairs": [_P, _N, _P, _P],
+    # crc16_device -- data, L, B, lengths, tables, out, stream;
+    # crc16_frames_device -- stream, S, starts, ends, F, n_words, tables,
+    # out, stream
+    "cxk_crc16_rows": [_P, _N, _N, _P, _P, _P, _P],
+    "cxk_crc16_windows": [_P, _N, _P, _P, _N, _N, _P, _P, _P],
+    # rice_decode -- words, W, start_bits, params, counts, L, T, out,
+    # end_bits, flag, stream
+    "cxk_rice_decode": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P],
 }
 
 #: entry points that return a value rather than a CUDA error code.

@@ -239,6 +239,16 @@ def _native():
     return native
 
 
+def _require_native(use_native, what):
+    """Refuse ``use_native=False``: the reference's Python extractor
+    route is not ported, and the port has no other way to walk a
+    stream."""
+    if not use_native:
+        raise NotImplementedError(
+            "claxon_tpu_torch: use_native=False (the Python extractor) is "
+            f"not ported; {what} needs the C++ core")
+
+
 def merge_decoded(n_streams, parts):
     """One DeviceDecoded over ``n_streams`` streams from ``parts``, a list
     of ``(stream_indices, DeviceDecoded)``: part stream j is batch stream
@@ -518,22 +528,25 @@ def _calibrate_segmentation(datas, lane_quantum, device):
     raises here as it would at its first sync."""
     import time
 
-    d_seg = decode_streams_device(datas, lane_quantum, "device", device)
+    def run(segmentation):
+        return decode_streams_device(datas, lane_quantum=lane_quantum,
+                                     segmentation=segmentation,
+                                     device=device)
+
+    d_seg = run("device")
     if not d_seg.segmented:
         if d_seg.seg_engaged:
             _seg_auto(device)["choice"] = "host"
         return d_seg
     d_seg.sync()
-    decode_streams_device(datas, lane_quantum, "host", device).sync()
+    run("host").sync()
     t_dev = t_host = float("inf")
     for _ in range(2):
         t0 = time.perf_counter()
-        d_seg = decode_streams_device(datas, lane_quantum, "device",
-                                      device).sync()
+        d_seg = run("device").sync()
         t_dev = min(t_dev, time.perf_counter() - t0)
         t0 = time.perf_counter()
-        d_host = decode_streams_device(datas, lane_quantum, "host",
-                                       device).sync()
+        d_host = run("host").sync()
         t_host = min(t_host, time.perf_counter() - t0)
     choice = "device" if t_dev < t_host else "host"
     _seg_auto(device).update(choice=choice, seconds={"device": t_dev,
@@ -541,9 +554,13 @@ def _calibrate_segmentation(datas, lane_quantum, device):
     return d_seg if choice == "device" else d_host
 
 
-def decode_streams_device(datas, lane_quantum=_L_QUANTUM, segmentation=None,
-                          device="cuda") -> DeviceDecoded:
+def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
+                          segmentation=None, device="cuda") -> DeviceDecoded:
     """Decode many FLAC streams (bytes) into PCM buckets on ``device``.
+
+    The arguments keep the reference's order. ``use_native=False`` (the
+    reference's Python extractor) raises NotImplementedError: the port
+    walks streams with its C++ core only.
 
     ``segmentation="device"`` takes the segmented path (``pipeline_seg``:
     frame search and subframe walk on the card, odd streams on the host
@@ -552,6 +569,7 @@ def decode_streams_device(datas, lane_quantum=_L_QUANTUM, segmentation=None,
     device's type; None reads
     ``CLAXON_TPU_SEGMENTATION`` and defaults to ``"auto"``. Every other
     value takes the host-walk bits path. All paths are bit-exact."""
+    _require_native(use_native, "the stream decode")
     segmentation = _resolve_segmentation(segmentation, device)
     if segmentation == "auto":
         return _calibrate_segmentation(datas, lane_quantum, device)
@@ -577,8 +595,8 @@ class PendingDeviceBatch:
         return self._done
 
 
-def decode_streams_device_async(datas, lane_quantum=_L_QUANTUM,
-                                segmentation=None,
+def decode_streams_device_async(datas, use_native=True,
+                                lane_quantum=_L_QUANTUM, segmentation=None,
                                 device="cuda") -> PendingDeviceBatch:
     """Two-stage form of ``decode_streams_device``: returns once the
     batch's first stage is queued; ``finish()`` returns the DeviceDecoded.
@@ -588,6 +606,7 @@ def decode_streams_device_async(datas, lane_quantum=_L_QUANTUM,
     batch n+1 before finishing batch n hides the summary wait behind the
     next batch's host work. The host-walk path decodes eagerly, and so
     does the first ``"auto"`` batch, which calibrates."""
+    _require_native(use_native, "the stream decode")
     segmentation = _resolve_segmentation(segmentation, device)
     if segmentation == "device":
         from .pipeline_seg import (_host_fallback, begin_segmented,
@@ -598,33 +617,42 @@ def decode_streams_device_async(datas, lane_quantum=_L_QUANTUM,
             return PendingDeviceBatch(lambda: finish_segmented(pending))
         dd = _host_fallback(datas, lane_quantum, device)
     else:
-        dd = decode_streams_device(datas, lane_quantum, segmentation,
-                                   device=device)
+        dd = decode_streams_device(datas, lane_quantum=lane_quantum,
+                                   segmentation=segmentation, device=device)
     return PendingDeviceBatch(lambda: dd)
 
 
-def decode_streams(datas, lane_quantum=_L_QUANTUM,
+def decode_streams(datas, use_native=True, decode_bucket=None,
+                   lane_quantum=_L_QUANTUM,
                    device="cuda") -> List[DecodedStream]:
     """Decode many FLAC streams in one batch, on the default route (see
-    ``decode_streams_device``); PCM on the host."""
-    return decode_streams_device(datas, lane_quantum,
+    ``decode_streams_device``); PCM on the host. A ``decode_bucket``
+    other than None (the reference's FrameDesc dispatch) raises
+    NotImplementedError, as ``use_native=False`` does."""
+    if decode_bucket is not None:
+        raise NotImplementedError(
+            "claxon_tpu_torch: decode_bucket (the FrameDesc dispatch) is "
+            "not ported; the stream decode runs the bits path only")
+    return decode_streams_device(datas, use_native=use_native,
+                                 lane_quantum=lane_quantum,
                                  device=device).to_host()
 
 
-def decode_stream(data, device="cuda") -> DecodedStream:
+def decode_stream(data, use_native=True, device="cuda") -> DecodedStream:
     """Decode one whole FLAC stream (bytes)."""
-    return decode_streams([data], device=device)[0]
+    return decode_streams([data], use_native=use_native, device=device)[0]
 
 
 def decode_streams_pipelined(datas, batch_streams=8, depth=2,
-                             lane_quantum=_L_QUANTUM,
+                             use_native=True, lane_quantum=_L_QUANTUM,
                              device="cuda") -> List[DecodedStream]:
     """Decode a large corpus as overlapping batches, on the default route.
     Each batch is begun with ``decode_streams_device_async`` and landed
     (finished, its PCM copies started) only after the next batch has
     begun, so a segmented batch's summary wait hides behind the next
     batch's host work. ``depth`` bounds the landed batches whose copies
-    are in flight. Results are in input order."""
+    are in flight (the reference's default depth is 6). Results are in
+    input order."""
     results = []
     in_flight = []
     pending = None
@@ -636,7 +664,9 @@ def decode_streams_pipelined(datas, batch_streams=8, depth=2,
 
     for i in range(0, len(datas), batch_streams):
         h = decode_streams_device_async(datas[i:i + batch_streams],
-                                        lane_quantum, device=device)
+                                        use_native=use_native,
+                                        lane_quantum=lane_quantum,
+                                        device=device)
         if pending is not None:
             land(pending)
         pending = h

@@ -137,8 +137,8 @@ def _host_fallback(datas, lane_quantum, device, per_stream=False):
         lane_quantum = _L_QUANTUM
     if per_stream:
         lane_quantum = min(lane_quantum, 8)
-    return decode_streams_device(datas, lane_quantum, segmentation="host",
-                                 device=device)
+    return decode_streams_device(datas, lane_quantum=lane_quantum,
+                                 segmentation="host", device=device)
 
 
 def begin_segmented(datas, lane_quantum=None, device="cuda"):

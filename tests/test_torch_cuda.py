@@ -1142,3 +1142,117 @@ def test_walk_kernel_misaligned_stream(cuda):
     _assert_walk_equal(demux.walk_frames(*args, T, nch),
                        demux.walk_frames(stream.clone(), *args[1:], T, nch),
                        "misaligned vs aligned")
+
+
+# rice_decode, crc16_device and crc16_frames_device: the JAX package's
+# device functions that no decode route calls (csrc/rice.cu,
+# csrc/crc_lanes.cu), on the CPU tests' garbage cases and at the headline
+# x4 shapes.
+
+def _rice_case_count():
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    return len(rice_crc_cases.rice_calls())
+
+
+@pytest.mark.parametrize("i", range(_rice_case_count()))
+def test_rice_kernel_matches_plain_on_garbage(cuda, i):
+    """Calls 1 and 2 run searches off the buffer: the kernel flags them
+    and its one-block exact pass decodes the input again."""
+    from claxon_tpu_torch.ops import rice
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    call = rice_crc_cases.rice_calls()[i]
+    words, sb, ks, cs, T = call["args"]
+    T = max(int(cs.max()), 0) if T is None else T
+    args = [_c(a, cuda) for a in (words, sb, ks, cs)]
+    n = rice.rice_decode.launches
+    got = rice.rice_decode(*args, max_count=T)
+    assert rice.rice_decode.launches == n + 1
+    want = rice.rice_decode_plain(*args, T)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cpu = rice.rice_decode(*[a.cpu() for a in args], max_count=T)
+    assert torch.equal(got[0].cpu(), cpu[0])
+    if "values" in call:
+        v = call["values"]
+        assert np.array_equal(got[0].cpu().numpy()[:, :v.shape[1]], v)
+
+
+@pytest.mark.parametrize("lanes, codes", [(27648, 1024), (100, 4097),
+                                          (33, 1)])
+def test_rice_kernel_at_headline_shapes(cuda, lanes, codes):
+    """27,648 partitions of 1,024 codes (the headline x4 bucket's, L x P),
+    and ragged shapes: the values that made the buffer, and the plain
+    form."""
+    from claxon_tpu_torch.ops import rice
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    st = rice_crc_cases.rice_stream(np.full(lanes, codes), seed=lanes)
+    args = [_c(st[k], cuda) for k in ("words", "start_bits", "params",
+                                      "counts")]
+    out, end = rice.rice_decode(*args)
+    assert np.array_equal(out.cpu().numpy(), st["values"])
+    assert np.array_equal(end.cpu().numpy()[:-1], st["start_bits"][1:])
+    want = rice.rice_decode_plain(*args, codes)
+    assert torch.equal(out, want[0]) and torch.equal(end, want[1])
+
+
+def test_crc16_rows_kernel_matches_plain(cuda):
+    """The CPU tests' rows (seed 12, lengths outside [0, B], values outside
+    0..255) and random ragged shapes (B not a multiple of 4, lengths
+    everywhere)."""
+    from claxon_tpu_torch.ops import crc
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    rng = np.random.default_rng(17)
+    cases = [c["args"] for c in rice_crc_cases.crc16_rows_calls()]
+    for L, B in ((1, 1), (7, 129), (300, 1023), (1000, 4097)):
+        data = rng.integers(-(1 << 31), 1 << 31, (L, B), dtype=np.int64)
+        cases.append((data, rng.integers(-5, B + 6, L)))
+    for data, lengths in cases:
+        args = [_c(data, cuda), _c(lengths, cuda)]
+        n = crc.crc16_device.launches
+        got = crc.crc16_device(*args)
+        assert crc.crc16_device.launches == n + 1
+        assert torch.equal(got, crc.crc16_device_plain(*args))
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 32, 64, 1024, 4096])
+def test_crc16_windows_kernel_matches_plain(cuda, n_words):
+    """The CPU tests' ranges (seed 21: starts > ends, negative starts,
+    ends past the upload, int32 extremes) at every window size, and
+    random ranges on a larger upload; a range inside its window equals
+    K4 (crc16_ranges), which clamps only outside the upload."""
+    from claxon_tpu_torch.ops import crc
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    stream, starts, ends, _ = rice_crc_cases.crc16_windows_calls()[0]["args"]
+    rng = np.random.default_rng(n_words)
+    big = rng.integers(-(1 << 31), 1 << 31, 50000, dtype=np.int64)
+    a = rng.integers(0, 200000 - 4 * n_words, 3000)
+    b = a + rng.integers(0, 4 * n_words + 1, a.size)  # inside the upload
+    for s, st, en in ((stream, starts, ends), (big, a, b)):
+        args = [_c(x, cuda) for x in (s, st, en)]
+        n = crc.crc16_frames_device.launches
+        got = crc.crc16_frames_device(*args, n_words)
+        assert crc.crc16_frames_device.launches == n + 1
+        assert torch.equal(got, crc.crc16_frames_device_plain(*args,
+                                                              n_words))
+    assert torch.equal(got, crc.crc16_ranges(*args))
+
+
+def test_new_wrappers_launch_or_raise(cuda):
+    """CUDA tensors of another dtype, or on two devices, raise; nothing
+    falls back to the plain forms."""
+    from claxon_tpu_torch.ops import crc, rice
+
+    w = torch.ones(8, dtype=torch.int64, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        rice.rice_decode(w, one, one, one)
+    with pytest.raises(TypeError):
+        crc.crc16_device(w.view(2, 4), one.repeat(2))
+    with pytest.raises(TypeError):
+        crc.crc16_frames_device(w, one, one, 2)
+    with pytest.raises(ValueError):
+        crc.crc16_frames_device(w.to(torch.int32), one.cpu(), one, 2)

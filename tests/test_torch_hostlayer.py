@@ -90,6 +90,21 @@ def test_crc16_bytes_matches_jax():
         assert tnative.crc16_bytes(raw) == jnative.crc16_bytes(raw)
 
 
+def test_pack_bits_be_matches_jax():
+    """The port's copy of rice_decode's host helper."""
+    from claxon_tpu.ops.rice import pack_bits_be as j_pack
+
+    from claxon_tpu_torch.ops.rice import pack_bits_be as t_pack
+
+    rng = np.random.default_rng(29)
+    for n in range(10):
+        for _ in range(3):
+            raw = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            got, want = t_pack(raw), j_pack(raw)
+            assert got.dtype == want.dtype == np.int32
+            assert np.array_equal(got, want)
+
+
 def test_route_tables_match_jax():
     """The port's copies of the tables and knob readers of the entropy
     routes: the segmented path's SA and P classes, the delta-mode meta

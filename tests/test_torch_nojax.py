@@ -5,7 +5,8 @@ not ``claxon_tpu_torch``), ``claxon_tpu_torch`` and ``chip_smoke`` import,
 the port's own encoder, muxers and C++ core work, and small streams decode
 on the CPU bit-exactly through the host-walk and the segmented paths, in
 the delta and scan entropy modes and with the host CRC check, and from
-Ogg and MP4 containers."""
+Ogg and MP4 containers; and the plain forms of rice_decode, crc16_device
+and crc16_frames_device run."""
 
 import pathlib
 import subprocess
@@ -57,6 +58,29 @@ _SCRIPT = textwrap.dedent("""
 
     assert crc16_combine_matrices(31).shape == (31, 16)
     assert kernel_tables().shape == (1024 + 31 * 512,)
+
+    import torch
+
+    import claxon_tpu_torch.ops.rice
+    from claxon_tpu_torch.crc import crc16
+    from claxon_tpu_torch.ops import crc16_device, rice_decode
+    from claxon_tpu_torch.ops.crc import crc16_frames_device
+    from claxon_tpu_torch.testing.rice_crc_cases import rice_stream
+
+    st = rice_stream(np.full(8, 16), seed=3)
+    got, end = rice_decode(torch.from_numpy(st["words"]), st["start_bits"],
+                           st["params"], st["counts"])
+    assert np.array_equal(got.numpy(), st["values"])
+    raw = np.random.default_rng(4).integers(0, 256, 64, dtype=np.uint8)
+    rows = torch.from_numpy(np.stack([raw, raw[::-1]]).astype(np.int32))
+    lens = torch.tensor([64, 10], dtype=torch.int32)
+    assert crc16_device(rows, lens).tolist() == [
+        crc16(raw.tobytes()), crc16(raw[::-1][:10].tobytes())]
+    words = torch.from_numpy(raw.view(">u4").astype(np.int64)
+                             .astype(np.int32))
+    assert crc16_frames_device(words, torch.tensor([3], dtype=torch.int32),
+                               torch.tensor([61], dtype=torch.int32),
+                               16).tolist() == [crc16(raw[3:61].tobytes())]
     pcm = synth_music(3000, channels=2, bps=16, seed=5)
     data = encode_flac(pcm, 44100, 16, block_size=1152)
     dec = ct.decode_stream(data, device="cpu")

@@ -529,6 +529,51 @@ def test_unported_options_raise(monkeypatch):
             [data], segmentation=segmentation, device="cpu").to_host())
 
 
+def _positional_calls(data):
+    """Each stream entry point called with the reference's positional
+    arguments up to ``use_native`` (claxon_tpu/pipeline.py:644-842), its
+    PCM on the host."""
+    return {
+        "decode_stream": lambda u: [ct.decode_stream(data, u,
+                                                     device="cpu")],
+        "decode_streams": lambda u: ct.decode_streams([data], u,
+                                                      device="cpu"),
+        "decode_streams_device": lambda u: ct.decode_streams_device(
+            [data], u, device="cpu").to_host(),
+        "decode_streams_device_async": lambda u:
+            ct.decode_streams_device_async([data], u,
+                                           device="cpu").finish().to_host(),
+        "decode_streams_pipelined": lambda u: ct.decode_streams_pipelined(
+            [data], 8, 6, u, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "decode_stream", "decode_streams", "decode_streams_device",
+    "decode_streams_device_async", "decode_streams_pipelined"])
+def test_positional_use_native(entry):
+    """``use_native`` sits where the reference has it: True decodes as the
+    default call does, and False (the Python extractor, not ported)
+    raises NotImplementedError, not an error from the argument landing
+    on another parameter."""
+    data = _configs()[1]
+    call = _positional_calls(data)[entry]
+    want = ct.decode_streams([data], device="cpu")[0]
+    (got,) = call(True)
+    assert np.array_equal(got.pcm, want.pcm)
+    assert got.frame_times == want.frame_times
+    with pytest.raises(NotImplementedError, match="use_native=False"):
+        call(False)
+
+
+def test_positional_decode_bucket_raises():
+    """The reference's third positional argument of ``decode_streams``
+    (its FrameDesc dispatch) is not ported either."""
+    data = _configs()[1]
+    with pytest.raises(NotImplementedError, match="decode_bucket"):
+        ct.decode_streams([data], True, lambda *a: None, device="cpu")
+
+
 @pytest.mark.parametrize("segmentation", ["host", "device"])
 def test_batch_above_the_byte_limit_splits(monkeypatch, segmentation):
     """A batch of MAX_BATCH_BYTES or more decodes as sub-batches split at

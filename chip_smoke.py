@@ -55,10 +55,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
       cycles per step, with the ptxas report of both sources, and on the
       mixed groups K7 writing its deltas against the plain walk (the
       values-only K7 equal to it), timed at the headline group; then the
-      entropy routes' kernels, with the ptxas report of entropy_delta.cu:
-      K9 on every bucket the delta planner builds for the headline and
-      mixed corpora, K10 and K2 on every dispatch of their segmented delta
-      and scan decodes, each timed with its byte bound; then the three
+      entropy routes' kernels, with the ptxas report of entropy_delta.cu
+      and of its parent, entropy_delta_parent.cu: K9 on every bucket the
+      delta planner builds for the headline and mixed corpora, K10 and K2
+      on every dispatch of their segmented delta and scan decodes, each
+      timed with its byte bound, K9 and K10 also against their parent
+      kernels (equal outputs; timed parent, new, new, parent); then the three
       device functions that no decode route calls, with the ptxas report
       of rice.cu and crc_lanes.cu: rice_decode, crc16_device and
       crc16_frames_device against their plain forms on the CPU tests'
@@ -131,9 +133,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
       reference's errors.
 
 The last three lines are the kernels' JSON summary (time, plain time,
-bound and launches of each on each path, K9 and K10 on their routes, K2
-also on the scan route; the routes' device-resident times; K1 alone, an
-entry point that no decode path runs, under "off_path_kernels"; K3 and
+bound and launches of each on each path, K9 and K10 on their routes and
+beside their parent kernels, K2 also on the scan route; the routes'
+device-resident times; K1 alone, an entry point that no decode path
+runs, under "off_path_kernels"; K3 and
 the mb unpack, which are torch ops, under "torch_ops", K3 with its calls
 on the card), the card's name and power limit, and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -1212,20 +1215,43 @@ def phase_b_routes(datas4, mixed):
     from claxon_tpu_torch.pipeline_bits import _to_device, plan_raw_bits
 
     rows, bounds = {}, {}
-    log("(b) K9, K10 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
-                                      "entropy_delta.cu"))
+    csrc = REPO / "claxon_tpu_torch" / "csrc"
+    log("(b) K9, K10 " + ptxas_report(csrc / "entropy_delta.cu"))
+    log("(b) K9, K10 parent " + ptxas_report(csrc / "entropy_delta_parent.cu"))
+    parents = entropy.parent_kernels()
 
     def report(key, tag, kernel, plain, args, kw, main):
-        r = compare(f"{key} {tag}", lambda: kernel(*args, **kw),
-                    lambda: plain(*args, **kw))
-        nb = bound(tensor_bytes(args, kernel(*args, **kw)))
-        log(f"(b) {key} {tag}: == plain ({r[1]:.4f} ms vs {r[2]:.1f} ms); "
-            f"bound {nb[0]:.4f} ms ({nb[1]})")
-        rows.setdefault(key + "_buckets", []).append(
-            {"bucket": tag, "ms": r[1], "plain_ms": r[2], "bound_ms": nb[0]})
+        def new():
+            return kernel(*args, **kw)
+
+        r = compare(f"{key} {tag}", new, lambda: plain(*args, **kw))
+        got = new()
+        nb = bound(tensor_bytes(args, got))
+        # chunks: L * NC, which picks the kernels' walk or sample launch.
+        rep = {"bucket": tag, "chunks": got.numel() // 32, "ms": r[1],
+               "plain_ms": r[2], "bound_ms": nb[0]}
+        old_s = ""
+        if key in parents:
+            def parent():
+                return parents[key](*args, **kw)
+
+            if not torch.equal(parent(), got):
+                raise AssertionError(f"{key} {tag}: parent != new kernel")
+            runs = [cuda_ms(parent, 20), cuda_ms(new, 20), cuda_ms(new, 20),
+                    cuda_ms(parent, 20)]
+            rep.update(ms=(runs[1] + runs[2]) / 2,
+                       parent_ms=(runs[0] + runs[3]) / 2, runs=runs)
+            r = (r[0], rep["ms"], r[2])
+            old_s = (f"; parent {rep['parent_ms']:.4f} ms (runs parent, new, "
+                     f"new, parent: {', '.join(f'{t:.4f}' for t in runs)}), "
+                     "outputs equal")
+        log(f"(b) {key} {tag}: == plain ({r[1]:.4f} ms vs {r[2]:.1f} ms)"
+            f"{old_s}; bound {nb[0]:.4f} ms ({nb[1]})")
+        rows.setdefault(key + "_buckets", []).append(rep)
         if main:
             rows[key], bounds[key] = r, nb
             rows[key + "_shape"] = tag
+            rows[key + "_main"] = rep
 
     # K9: the host-walk delta planner's buckets, one per (T, nch, SA).
     for label, datas in (("headline", datas4), ("mixed", mixed)):
@@ -2655,8 +2681,12 @@ def main():
                      ["launches"]["K2"],
                      scan_dispatches=rows["K2_scan_buckets"])
         if k["name"] in ("K9", "K10"):
-            k["shape"] = rows[k["name"] + "_shape"]
-            k["buckets"] = rows[k["name"] + "_buckets"]
+            # Beside the parent kernel (csrc/entropy_delta_parent.cu) on
+            # the same inputs; every headline and mixed bucket or dispatch.
+            main_rep = rows[k["name"] + "_main"]
+            k.update(shape=rows[k["name"] + "_shape"],
+                     parent_ms=main_rep["parent_ms"], runs=main_rep["runs"],
+                     buckets=rows[k["name"] + "_buckets"])
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
         if k["name"] == "rice_decode":

@@ -26,9 +26,10 @@ __all__ = ["load", "check", "stream_handle", "build_seconds"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu", "crc.cu",
-            "segment.cu", "seg_parse.cu", "demux.cu", "seg_gather.cu",
-            "pack16.cu", "crc_lanes.cu", "rice.cu")
+_SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu",
+            "entropy_delta_parent.cu", "crc.cu", "segment.cu", "seg_parse.cu",
+            "demux.cu", "seg_gather.cu", "pack16.cu", "crc_lanes.cu",
+            "rice.cu")
 #: headers the sources include (hashed with them).
 _HEADERS = ("scan.cuh", "header.cuh", "shifts.cuh")
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
@@ -57,6 +58,12 @@ _SIGNATURES = {
     # warm, WM, lengths, out, L, NC, SA, stream
     "cxk_entropy_delta_stream": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P,
                                  _P, _N, _P, _P, _N, _N, _N, _P],
+    # K9's and K10's parent kernels (timing only), the same arguments
+    "cxk_entropy_delta_slots_parent": [_P, _P, _P, _N, _N, _P, _P, _P, _P,
+                                       _P, _N, _P, _N, _N, _N, _P],
+    "cxk_entropy_delta_stream_parent": [_P, _N, _P, _P, _P, _N, _N, _P, _P,
+                                        _P, _P, _P, _N, _P, _P, _N, _N, _N,
+                                        _P],
     # stream, W, starts, ends, out, F, tables, item_off, stream
     "cxk_crc16_ranges": [_P, _N, _P, _P, _P, _N, _P, _P, _P],
     # K5 -- W -> number of scan blocks; stream, W, n_bytes, blk, stream;

@@ -10,6 +10,7 @@ every read into their inputs exactly as the plain forms do, so garbage
 gives the same garbage and never a fault.
 """
 
+import functools
 import pathlib
 import zlib
 
@@ -243,11 +244,21 @@ def _t_any(a, dev):
 
 
 #: (L, NC, P, SA) of the K9 / K10 card cases: SA from 4 to 65 (and 1, and
-#: above the staged limit of 128), P from 1 to 64; L * NC never a
-#: multiple of the kernel's 8 warps a block, so the last block is partial.
+#: above the staged limit of 128), P from 1 to 65. Launches of fewer than
+#: 24576 chunks take the sample kernels (a warp a chunk, 4 warps a block),
+#: the last six cases the walk kernels (a thread a chunk, 32 chunks a
+#: warp): NC 3 to 67 make the walk's warps straddle lanes at every offset,
+#: NC 128 spans many blocks, and most cases leave the last warp and block
+#: partial.
 _DELTA_CASES = [(37, 3, 1, 4), (37, 3, 4, 5), (50, 5, 8, 9), (23, 9, 16, 17),
                 (41, 7, 32, 33), (19, 11, 64, 65), (13, 3, 64, 1),
-                (11, 5, 2, 200), (7, 33, 4, 25), (301, 1, 1, 13)]
+                (11, 5, 2, 200), (7, 33, 4, 25), (301, 1, 1, 13),
+                (9, 15, 4, 17), (7, 17, 64, 13), (5, 35, 16, 5),
+                (13, 128, 4, 17), (3, 128, 65, 9), (7, 31, 32, 200),
+                (11, 47, 64, 33), (6, 33, 4, 13), (4, 67, 8, 17),
+                (300, 40, 16, 13), (520, 64, 8, 13), (1100, 33, 16, 17),
+                (400, 64, 65, 9), (600, 128, 4, 17), (2200, 33, 64, 5),
+                (2100, 33, 65, 200)]
 
 
 @pytest.mark.parametrize("kernel", ["K9", "K10"])
@@ -271,6 +282,67 @@ def test_delta_entropy_kernels_match_plain(cuda, kernel, case):
     got = wrapper(*args, n_parts_max=P, sa=SA)
     assert wrapper.launches == n0 + 1
     assert torch.equal(got, plain(*args, n_parts_max=P, sa=SA)), case
+    torch.cuda.synchronize()
+
+
+@functools.lru_cache(maxsize=None)
+def _headline_x4():
+    """chip_smoke.py's headline corpus, four times: 32 streams of 10 s."""
+    import chip_smoke
+
+    return chip_smoke.headline_corpus() * 4
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+def test_delta_kernels_match_parent_on_headline(cuda, monkeypatch, kernel):
+    """The redesigned K9 and K10 equal their parent kernels (csrc/
+    entropy_delta_parent.cu) and their plain forms on the headline x4
+    corpus: every bucket of the host walk's delta planner (K9; L 6912 and
+    128, T 4096) and every dispatch of the segmented delta decode (K10)."""
+    from claxon_tpu_torch import native as tnative
+    from claxon_tpu_torch import pipeline_seg
+    from claxon_tpu_torch.ops import entropy
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import _to_device, plan_raw_bits
+
+    datas = _headline_x4()
+    calls = []
+    if kernel == "K9":
+        fn, plain = (entropy.decode_residual_bits,
+                     entropy.decode_residual_bits_plain)
+        bp = plan_raw_bits(extract_streams_bits(datas, tnative, "delta"),
+                           128, "delta")
+        for b in bp.bits:
+            m = _to_device(b.meta, cuda)
+            calls.append(((_to_device(b.slots, cuda),
+                           torch.from_numpy(b.deltas).to(cuda),
+                           _to_device(b.ks, cuda), m[:, 3].contiguous(),
+                           m[:, 0].contiguous(), m[:, 4].contiguous(),
+                           (m[:, 5] & 1).contiguous(),
+                           m[:, 8:40].contiguous()),
+                          dict(n_parts_max=b.n_parts_max, sa=b.sa)))
+    else:
+        fn, plain = (entropy.decode_residual_bits_stream_delta,
+                     entropy.decode_residual_bits_stream_delta_plain)
+
+        def spy(*args, **kw):
+            calls.append((args, kw))
+            return fn(*args, **kw)
+
+        spy.launches = 0  # the wrapper counts on the module's name
+        monkeypatch.setattr(entropy, "decode_residual_bits_stream_delta",
+                            spy)
+        monkeypatch.setenv("CLAXON_TPU_SEG_ENTROPY", "delta")
+        pipeline_seg.decode_streams_segmented(datas, device=cuda).sync()
+    assert calls
+    parent = entropy.parent_kernels()[kernel]
+    for args, kw in calls:
+        got = fn(*args, **kw)
+        assert torch.equal(got, parent(*args, **kw)), kw
+        assert torch.equal(got, plain(*args, **kw)), kw
+    # The largest bucket or dispatch has 6912 lanes (K9's slots, K10's
+    # bases).
+    assert max(a[kernel == "K10"].shape[0] for a, _ in calls) == 6912
     torch.cuda.synchronize()
 
 

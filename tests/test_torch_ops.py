@@ -616,6 +616,345 @@ def test_delta_wrappers_refuse_non_cpu_tensors(name):
     assert fn.launches == before
 
 
+#: csrc/entropy_delta.cu's staged limits (kMaxStagedSA, kMaxStagedKs).
+_DELTA_MAX_STAGED_SA, _DELTA_MAX_STAGED_KS = 128, 2048
+_M32 = 0xFFFFFFFF
+
+
+def _wrap(v):
+    return ((v + (1 << 31)) & _M32) - (1 << 31)
+
+
+def _shl(v, sh):
+    return np.where((sh >= 0) & (sh < 32), (v << np.clip(sh, 0, 31)) & _M32,
+                    0)
+
+
+def _delta_inputs(kernel, args, SA):
+    """(L, NC, flat words, flags, ps as the kernel takes it, lengths) of
+    K9's or K10's arguments."""
+    i64 = np.int64
+    if kernel == "K9":
+        slots, _deltas, _ks, ps, _orders, _pbits, vflags, _warm = args
+        return (slots.shape[0], slots.shape[1] // SA,
+                slots.reshape(-1).astype(i64) & _M32,
+                (vflags != 0).astype(i64), ps.astype(i64), None)
+    stream, bases, _deltas, _ks, ps, _orders, _pbits, flags, _warm, \
+        lengths = args
+    return (bases.shape[0], bases.shape[1], stream.astype(i64) & _M32,
+            flags.astype(i64), np.maximum(ps, 1).astype(i64), lengths)
+
+
+def _delta_walk_model(kernel, args, P, SA):
+    """numpy model of the walk kernels of K9 (``kernel`` "K9") and K10
+    ("K10") in csrc/entropy_delta.cu, every thread at once (rows: warps,
+    columns: their 32 threads). Warp w takes chunks i0 = 32 w to i0 + nv -
+    1 of the flat (L, NC) chunk grid (nv < 32 in the last warp; a warp may
+    straddle lanes), thread j chunk i0 + j of lane l, first sample t0.
+    Staged: the warp's words to rows of odd stride sp = (SA + 1) | 1 whose
+    word SA is a zero, element e = r * SA + jj (K9: slot word i0 * SA +
+    e; K10: stream word clip((bases >> 5) + jj, 0, W - 1), the base
+    shuffled from thread r), (r, jj) moved 32 elements a step without a
+    division; the Rice parameters of the warp's lanes l0 .. to rows of P.
+    Warm-up samples go to the tile first (all 32 of a lane's first chunk,
+    the walk then overwriting t >= order). Each thread walks its 32
+    samples with a running sum of the deltas, the Rice parameter's shifts
+    and masks set once a partition; where no thread of the warp meets a
+    partition threshold or a warm-up sample the partition is not stepped.
+    The values go to a tile of row stride 33 and leave as 16-byte items v
+    = (chunk v // 8, values 4 * (v % 8) ...)."""
+    M, IMAX, i64 = _M32, (1 << 31) - 1, np.int64
+    deltas, ks, orders, pbits, warm = (
+        (args[1], args[2], args[4], args[5], args[7]) if kernel == "K9"
+        else (args[2], args[3], args[5], args[6], args[8]))
+    L, NC, src, fl, ps_l, lengths = _delta_inputs(kernel, args, SA)
+    WM = warm.shape[1]
+    lanes = 2 if NC >= 32 else min(32, 31 // NC + 2)
+    staged = SA <= _DELTA_MAX_STAGED_SA and lanes * P <= _DELTA_MAX_STAGED_KS
+    sp = (SA + 1) | 1
+    n = L * NC
+    nw = -(-n // 32)
+    lane = np.arange(32)[None, :]
+    wrows = np.broadcast_to(np.arange(nw)[:, None], (nw, 32))
+    i0 = np.arange(nw)[:, None] * 32
+    nv = np.minimum(32, n - i0)
+    live = lane < nv
+    i = i0 + np.where(live, lane, 0)
+    l, l0 = i // NC, i0 // NC
+    t0 = (i - l * NC) * 32
+    dflat = deltas.reshape(-1).astype(i64)  # int8 sign-extends
+    if kernel == "K10":
+        base = np.where(live, args[1].reshape(-1)[i], 0).astype(i64)
+
+    def grid(nrows, ncols, source):
+        """stage_grid's (row, column) walk over each warp's elements."""
+        got = []
+        step_r, step_c = divmod(32, ncols)
+        r, cc = np.broadcast_to(lane // ncols, (nw, 32)), lane % ncols
+        for it in range(ncols):
+            ok = np.broadcast_to(it * 32 + lane < nrows * ncols, (nw, 32))
+            got.append((r[ok], np.broadcast_to(cc, r.shape)[ok], wrows[ok],
+                        source(r, cc)[ok]))
+            r, cc = r + step_r, cc + step_c
+            r, cc = r + (cc >= ncols), np.where(cc >= ncols, cc - ncols, cc)
+        return [np.concatenate(x) for x in zip(*got)]
+
+    rows = np.zeros((nw, 32 * sp), i64)
+    ksm = np.zeros((nw, lanes * P), i64)
+    if staged:
+        if kernel == "K9":
+            r, cc, w, v = grid(nv, SA, lambda r, cc: src[np.minimum(
+                i0 * SA + r * SA + cc, src.size - 1)])
+        else:
+            r, cc, w, v = grid(nv, SA, lambda r, cc: src[np.clip(
+                (np.take_along_axis(base, r & 31, axis=1) >> 5) + cc, 0,
+                src.size - 1)])
+        rows[w, r * sp + cc] = v
+        nl = (i0 + nv - 1) // NC - l0 + 1
+        r, cc, w, v = grid(nl, P, lambda r, cc: ks[np.minimum(l0 + r, L - 1),
+                                                   cc])
+        ksm[w, r * P + cc] = v
+
+    def word(wi):
+        if staged:
+            return np.take_along_axis(rows, lane * sp + wi, axis=1)
+        if kernel == "K9":
+            return src[np.minimum(i * SA + wi, src.size - 1)]
+        return src[np.clip((base >> 5) + wi, 0, src.size - 1)]
+
+    def k_of(p):
+        if staged:
+            return np.take_along_axis(ksm, (l - l0) * P + p, axis=1)
+        return ks[l, p].astype(i64)
+
+    order, pb = orders[l].astype(i64), pbits[l].astype(i64)
+    verb = (fl[l] & 1) != 0
+    psv = ps_l[l]
+    if kernel == "K10":
+        active_end = np.where(fl[l] & 2, 0, lengths[l])
+
+    def count(t):
+        m = np.arange(1, P)[None, None, :]
+        return (t[:, :, None] >= _wrap(m * psv[:, :, None])).sum(2)
+
+    mono = (P <= 1) | ((psv >= 1) & ((P - 1) * psv < (1 << 31)))
+    p = np.where(mono, 0 if P <= 1 else np.minimum(
+        t0 // np.maximum(psv, 1), P - 1), count(t0))
+    nxt = np.where(mono & (p + 1 < P), (p + 1) * psv, IMAX)
+    fast = (~live | (mono & (nxt > t0 + 31) & (t0 >= order))).all(
+        axis=1, keepdims=True)
+    cur = (base & 31) if kernel == "K10" else np.zeros_like(t0)
+
+    tile = np.zeros((nw, 32, 33), i64)
+    for s_ in range(32):  # warm-up samples: a lane's first chunk whole,
+        t = t0 + s_       # the chunks further on where t < order
+        first = live & ((t0 == 0) | (t < order))
+        wv = np.where(t < WM, warm[l, np.clip(t, 0, max(WM - 1, 0))]
+                      if WM else 0, 0)
+        tile[wrows[first], np.broadcast_to(lane, (nw, 32))[first],
+             s_] = wv[first]
+    for s_ in range(32):
+        t = t0 + s_
+        moved = t >= nxt
+        p2 = np.where(mono, p + moved, count(t))
+        nxt = np.where(fast | ~mono | ~moved, nxt,
+                       np.where(p2 + 1 < P, nxt + psv, IMAX))
+        p = np.where(fast, p, p2)
+        k = k_of(p)
+        kmin = np.minimum(k, 31)
+        rmask = np.where((k >= 1) & (k <= 32), M, 0)
+        qmask = np.where(kmin >= 0, M, 0)
+        sbit = _shl(np.ones_like(k), np.maximum(_wrap(k - 1), 0))
+        pstart = np.where(p == 0, order, _wrap(p * psv))
+        d = dflat[np.minimum(i * 32 + s_, dflat.size - 1)]
+        if kernel == "K10":
+            d = np.where(verb, np.where((t >= order) & (t < active_end), k,
+                                        0), d)
+        q = (d - (k + 1) - np.where(t == pstart, pb, 0)) & M
+        rpos = (cur + d - k) & M
+        cur = (cur + d) & M
+        wi = np.clip(_wrap(rpos) >> 5, 0, SA - 1)
+        w0 = word(wi)
+        if staged:
+            w1 = word(wi + 1)
+        else:
+            w1 = np.where(wi + 1 <= SA - 1, word(np.minimum(wi + 1, SA - 1)),
+                          0)
+        off = rpos & 31
+        win = np.where(off == 0, w0,
+                       ((w0 << off) & M) | (w1 >> (32 - np.maximum(off, 1))))
+        r = (win >> ((32 - k) & 31)) & rmask
+        v = ((q << (kmin & 31)) & qmask) | r
+        val = np.where(verb, ((r ^ sbit) - sbit) & M,
+                       (v >> 1) ^ ((0 - (v & 1)) & M))
+        val = np.where(d > 0, _wrap(val), 0)
+        put = live & (t >= order)
+        tile[wrows[put], np.broadcast_to(lane, (nw, 32))[put], s_] = val[put]
+
+    out = np.zeros(n * 32, i64)
+    v = np.arange(256)[None, :]
+    ok = np.broadcast_to(v < nv * 8, (nw, 256))
+    for q4 in range(4):
+        vals = tile[np.arange(nw)[:, None], v >> 3, 4 * (v & 7) + q4]
+        out[(i0 * 32 + 4 * v + q4)[ok]] = vals[ok]
+    return out.reshape(L, NC * 32).astype(np.int32)
+
+
+def _delta_sample_model(kernel, args, P, SA):
+    """numpy model of the sample kernels of K9 and K10 in
+    csrc/entropy_delta.cu: warp g takes chunk g of the flat (L, NC) grid,
+    thread j its sample t = c * 32 + j; the chunk's SA words (K10: from
+    word clip((bases >> 5) + j, 0, W - 1)) staged at [0, SA); the
+    partition index t // ps where the thresholds cannot wrap, the count
+    over P where they can; the in-chunk exclusive sum of the deltas by a
+    warp scan."""
+    M, i64 = _M32, np.int64
+    deltas, ks, orders, pbits, warm = (
+        (args[1], args[2], args[4], args[5], args[7]) if kernel == "K9"
+        else (args[2], args[3], args[5], args[6], args[8]))
+    L, NC, src, fl, ps_l, lengths = _delta_inputs(kernel, args, SA)
+    WM, n = warm.shape[1], L * NC
+    g = np.arange(n)[:, None]
+    lane = np.arange(32)[None, :]
+    l, c = g // NC, g % NC
+    t = c * 32 + lane
+    if kernel == "K9":
+        words = src.reshape(n, SA)
+        rbase = np.zeros_like(g)
+    else:
+        b = args[1].reshape(-1)[:, None].astype(i64)
+        words = src[np.clip((b >> 5) + np.arange(SA)[None, :], 0,
+                            src.size - 1)]
+        rbase = b & 31
+    order, pb, psv = orders[l].astype(i64), pbits[l].astype(i64), ps_l[l]
+    verb = (fl[l] & 1) != 0
+    mono = (P <= 1) | ((psv >= 1) & ((P - 1) * psv < (1 << 31)))
+    m = np.arange(1, P)[None, None, :]
+    p = np.where(mono, np.minimum(t // np.maximum(psv, 1), max(P - 1, 0)),
+                 (t[:, :, None] >= _wrap(m * psv[:, :, None])).sum(2))
+    k = ks[l, p].astype(i64)
+    d = deltas.reshape(n, 32).astype(i64)
+    if kernel == "K10":
+        act = (t >= order) & (t < lengths[l]) & ((fl[l] & 2) == 0)
+        d = np.where(verb, np.where(act, k, 0), d)
+    ol = _wrap(np.cumsum(d, axis=1) - d)
+    rpos = _wrap(rbase + ol + d - k)
+    wi = np.clip(rpos >> 5, 0, SA - 1)
+    off = rpos & 31
+    wa = np.take_along_axis(words, wi, axis=1)
+    wb = np.where(wi + 1 <= SA - 1, np.take_along_axis(
+        words, np.minimum(wi + 1, SA - 1), axis=1), 0)
+    win = np.where(off == 0, wa,
+                   ((wa << off) & M) | (wb >> (32 - np.maximum(off, 1))))
+    r = np.where(k == 0, 0, np.where((32 - k >= 0) & (32 - k < 32),
+                                     win >> np.clip(32 - k, 0, 31), 0))
+    pstart = np.where(p == 0, order, _wrap(p * psv))
+    q = (d - 1 - k - np.where(t == pstart, pb, 0)) & M
+    v = _shl(q, np.minimum(k, 31)) | r
+    rice = np.where(v & 1, ~(v >> 1) & M, v >> 1)
+    sbit = _shl(np.ones_like(k), np.maximum(_wrap(k - 1), 0))
+    val = np.where(d > 0, _wrap(np.where(verb, ((r ^ sbit) - sbit) & M,
+                                         rice)), 0)
+    warm_t = np.where(t < WM, warm[l, np.clip(t, 0, max(WM - 1, 0))]
+                      if WM else 0, 0)
+    val = np.where(t < order, warm_t, val)
+    return val.reshape(L, NC * 32).astype(np.int32)
+
+
+#: (L, NC, P, SA) of the models' garbage cases: NC 1, 3, 31, 33 and 67
+#: (lanes that straddle the walk's warps, a last warp that is partial); P
+#: 1, 4, 64 and 65; SA 1, 5, 17 and 200 (above the staged limit).
+_DELTA_MODEL_CASES = [(8, 1, 1, 1), (8, 3, 4, 5), (8, 31, 64, 17),
+                      (8, 33, 4, 200), (5, 67, 1, 17), (8, 33, 64, 5),
+                      (3, 67, 4, 1), (8, 31, 1, 200), (8, 3, 64, 200),
+                      (8, 33, 65, 5), (10, 1, 4, 17)]
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+@pytest.mark.parametrize("case", _DELTA_MODEL_CASES,
+                         ids=lambda c: "L{}-NC{}-P{}-SA{}".format(*c))
+def test_delta_model_matches_plain(kernel, case):
+    """The numpy models of K9's and K10's two launches equal the plain
+    forms (held to the JAX programs above) on garbage: the walk kernels
+    (a chunk a thread, 32 chunks of the flat grid a warp, straddling
+    lanes, the last warp partial; the staged rows' offsets and zero word,
+    K10's clipped windows, the staged Rice parameters, the partition
+    index and the Rice parameter's masks moved a sample at a time, the
+    warm-up samples and the tile store) and the sample kernels (a warp a
+    chunk, a thread a sample). The garbage has deltas of 0 and
+    255 (K9) or negative (K10), k of 0, 31, 32, 40 and -3, partition
+    sizes of 0, 1, 3, 37 and ones whose thresholds wrap, orders above 32,
+    bases outside the stream."""
+    from test_torch_cuda import delta_garbage
+
+    L, NC, P, SA = case
+    args = delta_garbage(kernel, L, NC, P, SA, W=64, seed=L + NC + P + SA)
+    plain = (tentropy.decode_residual_bits_plain if kernel == "K9" else
+             tentropy.decode_residual_bits_stream_delta_plain)
+    want = plain(*(_t(a) for a in args), n_parts_max=P, sa=SA).numpy()
+    assert np.array_equal(_delta_walk_model(kernel, args, P, SA), want)
+    assert np.array_equal(_delta_sample_model(kernel, args, P, SA), want)
+
+
+def _k10_walk_calls():
+    """K10's inputs, as numpy arrays, on each dispatch of a segmented delta
+    decode of two captured streams on the CPU (no JAX)."""
+    import os
+
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch.ops import entropy
+
+    calls = []
+    fn = entropy.decode_residual_bits_stream_delta
+
+    def spy(*args, **kw):
+        calls.append(([a.numpy() for a in args], kw))
+        return fn(*args, **kw)
+
+    old = os.environ.get("CLAXON_TPU_SEG_ENTROPY")
+    entropy.decode_residual_bits_stream_delta = spy
+    os.environ["CLAXON_TPU_SEG_ENTROPY"] = "delta"
+    try:
+        ct.decode_streams_device(_captured_datas()[:2], segmentation="device",
+                                 device="cpu").to_host()
+    finally:
+        entropy.decode_residual_bits_stream_delta = fn
+        if old is None:
+            del os.environ["CLAXON_TPU_SEG_ENTROPY"]
+        else:
+            os.environ["CLAXON_TPU_SEG_ENTROPY"] = old
+    return calls
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+def test_delta_model_matches_plain_on_real_buckets(kernel):
+    """The models of K9 and K10 equal their plain forms on real inputs:
+    every bucket of the port's delta planner for the captured streams
+    (eight partitions, verbatim and constant subframes), and every
+    dispatch of their segmented delta decode (the walk's int8 deltas and
+    chunk bases)."""
+    from claxon_tpu_torch.pipeline import extract_streams_bits
+    from claxon_tpu_torch.pipeline_bits import plan_raw_bits
+
+    if kernel == "K9":
+        bp = plan_raw_bits(extract_streams_bits(_captured_datas(), native,
+                                                "delta"), 128, "delta")
+        calls = [(list(_delta_args(b)), dict(n_parts_max=b.n_parts_max,
+                                              sa=b.sa)) for b in bp.bits]
+        plain = tentropy.decode_residual_bits_plain
+    else:
+        calls = _k10_walk_calls()
+        plain = tentropy.decode_residual_bits_stream_delta_plain
+    assert calls
+    for args, kw in calls:
+        args = [np.ascontiguousarray(a) for a in args]
+        want = plain(*(_t(a) for a in args), **kw).numpy()
+        assert (want != 0).any()
+        for model in (_delta_walk_model, _delta_sample_model):
+            got = model(kernel, args, kw["n_parts_max"], kw["sa"])
+            assert np.array_equal(got, want), (kw, model.__name__)
+
+
 def test_crc16_ranges_matches_jax_and_host():
     rng = np.random.default_rng(22)
     raw = rng.integers(0, 256, 5003, dtype=np.uint8).tobytes()

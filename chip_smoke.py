@@ -62,15 +62,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
       timed with its byte bound, K9 and K10 also against their parent
       kernels (equal outputs; timed parent, new, new, parent); then the three
       device functions that no decode route calls, with the ptxas report
-      of rice.cu and crc_lanes.cu: rice_decode, crc16_device and
+      of rice.cu and crc_lanes.cu and of their parents, rice_parent.cu
+      and crc_lanes_parent.cu: rice_decode, crc16_device and
       crc16_frames_device against their plain forms on the CPU tests'
-      garbage cases and at the headline x4 shapes (rice_decode over the
-      main bucket's L x P partitions of T / P codes, held to the values
-      that made its buffer too; crc16_device on the (F, B) byte matrix of
-      the headline frames and crc16_frames_device on the headline upload
-      with the host walk's ranges, every frame 0 and equal to K4), each
-      timed with its byte bound; every decode run below must launch them
-      0 times;
+      garbage and edge cases (rice_decode and crc16_frames_device also
+      against their parent kernels) and at the headline x4 shapes
+      (rice_decode over the main bucket's L x P partitions of T / P codes,
+      held to the values that made its buffer too; crc16_device on the
+      (F, B) byte matrix of the headline frames and crc16_frames_device on
+      the headline upload with the host walk's ranges, every frame 0 and
+      equal to K4), each timed with its byte bound, rice_decode and
+      crc16_frames_device beside their parents (equal outputs; timed
+      parent, new, new, parent; rice_decode's first 32 lanes alone too);
+      every decode run below must launch them 0 times;
   (c) the default route: with CLAXON_TPU_SEGMENTATION unset and the
       cached choice reset, decode_streams_device(datas) calibrates
       ("auto") on the mixed corpus, then on headline x4, printing the
@@ -1350,15 +1354,18 @@ def phase_b_rice_crc(datas4, dims):
     """The JAX package's three device functions that no decode route
     calls, rice_decode (csrc/rice.cu), crc16_device and
     crc16_frames_device (csrc/crc_lanes.cu): each kernel against its plain
-    form on the CPU tests' garbage cases (claxon_tpu_torch/testing/
-    rice_crc_cases.py) and at the headline x4 shapes ``dims`` (the host
-    walk's main bucket: L lanes of P partitions, T): rice_decode over L x
-    P partitions of T / P codes of a buffer made from a seed, also held to
-    the values that made it; crc16_device on the (F, B) byte matrix of
-    the headline upload's frames, stored CRC included (every row 0);
-    crc16_frames_device on that upload with the host walk's frame ranges
-    (every frame 0, and equal to K4). Returns (rows, bounds) keyed by the
-    function's name."""
+    form on the CPU tests' garbage and edge cases (claxon_tpu_torch/
+    testing/rice_crc_cases.py) and at the headline x4 shapes ``dims`` (the
+    host walk's main bucket: L lanes of P partitions, T): rice_decode over
+    L x P partitions of T / P codes of a buffer made from a seed, also
+    held to the values that made it; crc16_device on the (F, B) byte
+    matrix of the headline upload's frames, stored CRC included (every
+    row 0); crc16_frames_device on that upload with the host walk's frame
+    ranges (every frame 0, and equal to K4). rice_decode and
+    crc16_frames_device are also held to their parent kernels
+    (csrc/rice_parent.cu, csrc/crc_lanes_parent.cu) on every case and
+    timed beside them, parent, new, new, parent. Returns (rows, bounds)
+    keyed by the function's name."""
     import numpy as np
     import torch
 
@@ -1370,32 +1377,57 @@ def phase_b_rice_crc(datas4, dims):
 
     csrc = REPO / "claxon_tpu_torch" / "csrc"
     log("(b) rice_decode " + ptxas_report(csrc / "rice.cu"))
+    log("(b) rice_decode parent " + ptxas_report(csrc / "rice_parent.cu"))
     log("(b) crc16_device, crc16_frames_device " +
         ptxas_report(csrc / "crc_lanes.cu"))
+    log("(b) crc16_frames_device parent " +
+        ptxas_report(csrc / "crc_lanes_parent.cu"))
+    rice_parent = rice.parent_kernel()
+    windows_parent = crc.parent_windows_kernel()
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
 
-    for call in cases.rice_calls():
+    def same(name, got, old):
+        if not all(torch.equal(g, o) for g, o in zip(flat_tensors(got),
+                                                     flat_tensors(old))):
+            raise AssertionError(f"{name}: kernel != its parent")
+
+    for call in cases.rice_calls() + cases.rice_edge_calls():
         words, sb, ks, cs, T = call["args"]
         T = max(int(cs.max()), 0) if T is None else T
         args = [dev(a) for a in (words, sb, ks, cs)]
-        compare(f"rice_decode on {', '.join(call['labels'])}",
-                lambda: rice.rice_decode(*args, max_count=T),
+        name = f"rice_decode on {', '.join(call['labels'])}"
+        compare(name, lambda: rice.rice_decode(*args, max_count=T),
                 lambda: rice.rice_decode_plain(*args, T), 1)
+        same(name, rice.rice_decode(*args, max_count=T),
+             rice_parent(*args, T))
     for call in cases.crc16_rows_calls():
         args = [dev(a) for a in call["args"]]
         compare(f"crc16_device on {', '.join(call['labels'])}",
                 lambda: crc.crc16_device(*args),
                 lambda: crc.crc16_device_plain(*args), 1)
-    for call in cases.crc16_windows_calls():
+    for call in cases.crc16_windows_calls() + \
+            cases.crc16_windows_edge_calls():
         stream, starts, ends, n_words = call["args"]
         args = [dev(a) for a in (stream, starts, ends)]
-        compare(f"crc16_frames_device on {', '.join(call['labels'])}",
-                lambda: crc.crc16_frames_device(*args, n_words),
+        name = f"crc16_frames_device on {', '.join(call['labels'])}"
+        compare(name, lambda: crc.crc16_frames_device(*args, n_words),
                 lambda: crc.crc16_frames_device_plain(*args, n_words), 1)
+        same(name, crc.crc16_frames_device(*args, n_words),
+             windows_parent(*args, n_words))
     log("(b) rice_decode, crc16_device and crc16_frames_device == plain on "
-        "every garbage case")
+        "every garbage and edge case; rice_decode and crc16_frames_device "
+        "== their parents there")
+
+    def beside_parent(name, new, old):
+        """Times new and parent on the same inputs (parent, new, new,
+        parent), their outputs equal."""
+        same(name, new(), old())
+        runs = [cuda_ms(old, 20), cuda_ms(new, 20), cuda_ms(new, 20),
+                cuda_ms(old, 20)]
+        return {"ms": (runs[1] + runs[2]) / 2,
+                "parent_ms": (runs[0] + runs[3]) / 2, "runs": runs}
 
     rows, bounds = {}, {}
     n_parts, codes = dims["L"] * dims["P"], dims["T"] // dims["P"]
@@ -1405,29 +1437,44 @@ def phase_b_rice_crc(datas4, dims):
     args = [dev(st[k]) for k in ("words", "start_bits", "params", "counts")]
     # max_count given: without it the wrapper reads max(counts) from the
     # card, a sync that would pace the timed launches.
-    rows["rice_decode"] = compare(
-        f"rice_decode {n_parts} x {codes}",
-        lambda: rice.rice_decode(*args, max_count=codes),
-        lambda: rice.rice_decode_plain(*args, codes))
+    name = f"rice_decode {n_parts} x {codes}"
+    r = compare(name, lambda: rice.rice_decode(*args, max_count=codes),
+                lambda: rice.rice_decode_plain(*args, codes))
     out, end = rice.rice_decode(*args, max_count=codes)
     if not np.array_equal(out.cpu().numpy(), st["values"]) or \
             not np.array_equal(end.cpu().numpy()[:-1], st["start_bits"][1:]):
         raise AssertionError("rice_decode: != the values that made the "
                              "buffer")
     bounds["rice_decode"] = bound(tensor_bytes(args, out, end))
+    par = beside_parent(name, lambda: rice.rice_decode(*args,
+                                                       max_count=codes),
+                        lambda: rice_parent(*args, codes))
+    rows["rice_decode"] = (r[0], par["ms"], r[2])
     # One warp alone (its 32 lanes' chains, nothing to hide them behind)
     # against the whole input: how much of the time is one lane's chain.
     one = [args[0]] + [a[:32] for a in args[1:]]
-    one_ms = cuda_ms(lambda: rice.rice_decode(*one, max_count=codes), 20)
-    rows["rice_decode_one_warp_ms"] = one_ms
+    par_one = beside_parent(f"{name}, 32 lanes",
+                            lambda: rice.rice_decode(*one, max_count=codes),
+                            lambda: rice_parent(*one, codes))
+    rows["rice_decode_parent"] = dict(
+        par, one_warp_ms=par_one["ms"],
+        parent_one_warp_ms=par_one["parent_ms"],
+        one_warp_runs=par_one["runs"])
+    one_ms = rows["rice_decode_one_warp_ms"] = par_one["ms"]
+
+    def cycles(ms):
+        return ms * 1e-3 * 1.98e9 / codes
+
     log(f"(b) rice_decode on {n_parts} partitions of {codes} codes (W="
-        f"{st['words'].size}, made in {gen_s:.1f} s): == plain == the "
-        f"values that made the buffer; {rows['rice_decode'][1]:.4f} ms "
-        f"(plain {rows['rice_decode'][2]:.1f} ms), bound "
-        f"{bounds['rice_decode'][0]:.4f} ms ({bounds['rice_decode'][1]}); "
-        f"the first 32 lanes alone {one_ms:.4f} ms "
-        f"({one_ms * 1e-3 * 1.98e9 / codes:.0f} cycles per step at 1.98 "
-        "GHz)")
+        f"{st['words'].size}, made in {gen_s:.1f} s): == plain == parent "
+        f"== the values that made the buffer; {par['ms']:.4f} ms, parent "
+        f"{par['parent_ms']:.4f} ms (runs parent, new, new, parent: "
+        f"{', '.join(f'{t:.4f}' for t in par['runs'])}); plain "
+        f"{r[2]:.1f} ms; bound {bounds['rice_decode'][0]:.4f} ms "
+        f"({bounds['rice_decode'][1]}); the first 32 lanes alone "
+        f"{one_ms:.4f} ms ({cycles(one_ms):.0f} cycles per step at 1.98 "
+        f"GHz), parent {par_one['parent_ms']:.4f} ms "
+        f"({cycles(par_one['parent_ms']):.0f})")
     del st, out, end, args
 
     bp = plan_raw_bits(extract_streams_bits(datas4, native), 128)
@@ -1456,10 +1503,12 @@ def phase_b_rice_crc(datas4, dims):
     stream = dev(bp.stream)
     starts, ends = dev(bp.se[0]), dev(bp.se[1])
     n_words = 1 << max(0, (B + 3) // 4 - 1).bit_length()
-    rows["crc16_frames_device"] = compare(
-        f"crc16_frames_device (F={starts.shape[0]}, n_words={n_words})",
-        lambda: crc.crc16_frames_device(stream, starts, ends, n_words),
-        lambda: crc.crc16_frames_device_plain(stream, starts, ends, n_words))
+    name = f"crc16_frames_device (F={starts.shape[0]}, n_words={n_words})"
+    r = compare(name,
+                lambda: crc.crc16_frames_device(stream, starts, ends,
+                                                n_words),
+                lambda: crc.crc16_frames_device_plain(stream, starts, ends,
+                                                      n_words))
     got = crc.crc16_frames_device(stream, starts, ends, n_words)
     if got[:n].any() or not torch.equal(got, crc.crc16_ranges(stream, starts,
                                                                ends)):
@@ -1467,11 +1516,18 @@ def phase_b_rice_crc(datas4, dims):
                              "or != K4 on the same ranges")
     bounds["crc16_frames_device"] = bound(tensor_bytes(stream, starts, ends,
                                                        got))
+    par = beside_parent(
+        name, lambda: crc.crc16_frames_device(stream, starts, ends, n_words),
+        lambda: windows_parent(stream, starts, ends, n_words))
+    rows["crc16_frames_device"] = (r[0], par["ms"], r[2])
+    k4_ms = cuda_ms(lambda: crc.crc16_ranges(stream, starts, ends), 20)
+    rows["crc16_frames_device_parent"] = dict(par, k4_ms=k4_ms)
     log(f"(b) crc16_frames_device on the headline upload (W="
         f"{stream.shape[0]}, F={starts.shape[0]}, n_words={n_words}): == "
-        "plain == K4, every frame 0; "
-        f"{rows['crc16_frames_device'][1]:.4f} ms (plain "
-        f"{rows['crc16_frames_device'][2]:.1f} ms), bound "
+        f"plain == parent == K4, every frame 0; {par['ms']:.4f} ms, parent "
+        f"{par['parent_ms']:.4f} ms (runs parent, new, new, parent: "
+        f"{', '.join(f'{t:.4f}' for t in par['runs'])}); K4 on the same "
+        f"ranges {k4_ms:.4f} ms; plain {r[2]:.1f} ms; bound "
         f"{bounds['crc16_frames_device'][0]:.4f} ms "
         f"({bounds['crc16_frames_device'][1]})")
     return rows, bounds
@@ -2695,6 +2751,12 @@ def main():
             # unless a lane ran off the buffer); "ms" times both.
             k["kernel_launches_per_call"] = 2
             k["one_warp_ms"] = rows["rice_decode_one_warp_ms"]
+        if k["name"] in ("rice_decode", "crc16_frames_device"):
+            # Beside the parent kernel (csrc/rice_parent.cu,
+            # csrc/crc_lanes_parent.cu) on the same inputs; rice_decode's
+            # first 32 lanes alone too, crc16_frames_device beside K4.
+            k.update({key: v for key, v in
+                      rows[k["name"] + "_parent"].items() if key != "ms"})
         if k["name"] in ("K5", "K6"):
             # One fused front (csrc/seg_parse.cu, demux_front: the scan
             # kernel, then the rank kernel) does K5's work and K6's

@@ -29,7 +29,7 @@ _CSRC = _PKG / "csrc"
 _SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu",
             "entropy_delta_parent.cu", "crc.cu", "segment.cu", "seg_parse.cu",
             "demux.cu", "seg_gather.cu", "pack16.cu", "crc_lanes.cu",
-            "rice.cu")
+            "crc_lanes_parent.cu", "rice.cu", "rice_parent.cu")
 #: headers the sources include (hashed with them).
 _HEADERS = ("scan.cuh", "header.cuh", "shifts.cuh")
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
@@ -107,6 +107,9 @@ _SIGNATURES = {
     # rice_decode -- words, W, start_bits, params, counts, L, T, out,
     # end_bits, flag, stream
     "cxk_rice_decode": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P],
+    # the two kernels' parents (timing only), the same arguments
+    "cxk_crc16_windows_parent": [_P, _N, _P, _P, _N, _N, _P, _P, _P],
+    "cxk_rice_decode_parent": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P],
 }
 
 #: entry points that return a value rather than a CUDA error code.

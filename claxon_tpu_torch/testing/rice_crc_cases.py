@@ -222,3 +222,129 @@ def crc16_windows_calls(seed=21):
              "labels": {f"{k}, n_words {n_words}": v
                         for k, v in labels.items()}}
             for n_words in (1024, 1)]
+
+
+def rice_edge_calls(seed=78):
+    """Cases of ``rice_decode`` at the edges of its kernel's shared-memory
+    ring (``csrc/rice.cu``), each held to the plain form.
+
+    Call 0 has the shape of ``rice_calls``' calls 0-2 (W, 72 lanes, T =
+    48), so the JAX test compiles nothing new for it: the seed-77 buffer
+    with words 600-739 zeroed (a run of 140 words, longer than a lane's
+    ring of 128); the seed-77 partitions over it; lanes whose first codes
+    run into it; lanes whose cursors start below the buffer and enter it
+    mid-partition; lanes that start near its end and leave it; random
+    lanes of every k in 0..31 with ragged counts. Call 1: codes of 50-63
+    bits (k 28-31), whose cursors outrun the words a ring has landed.
+    Call 2: zero runs of 100 and 281 words between short codes, and lanes
+    that start inside such a run."""
+    rng = np.random.default_rng(seed)
+    base = rice_calls()[0]["args"]
+    words, s0, k0, c0 = (np.array(a) for a in base[:4])
+    s0, k0, c0 = s0[:24], k0[:24], c0[:24]
+    W, T = words.size, 48
+    words[600:740] = 0
+    nb = 32 * W
+    z = 600 * 32
+    cases = {
+        "seed 77 partitions over a zero run": (s0, k0, c0),
+        "a zero run longer than the ring": (
+            [z - 40, z - 7, z - 1, z, z + 100, z - 27], [0, 3, 14, 31, 1, 30],
+            np.full(6, T)),
+        "cursors that enter the buffer mid-partition": (
+            [-1000, -1500, -600, -700, -400, -900], [30, 31, 14, 31, 20, 31],
+            np.full(6, T)),
+        "cursors that leave the buffer mid-partition": (
+            [nb - 600, nb - 1200, nb - 300, nb - 2000, nb - 100, nb - 40],
+            [8, 14, 4, 30, 0, 31], np.full(6, T)),
+        "random lanes, k 0..31, ragged counts": (
+            rng.integers(0, nb, 30), rng.integers(0, 32, 30),
+            rng.integers(0, T + 1, 30)),
+    }
+    labels, at = {}, 0
+    for name, (a, _, _) in cases.items():
+        labels[name] = slice(at, at + len(a))
+        at += len(a)
+    args = [np.concatenate([np.asarray(c[i], np.int64)
+                            for c in cases.values()]).astype(np.int32)
+            for i in range(3)]
+    long = rice_stream(np.full(16, 160), seed, ks=(28, 29, 30, 31),
+                       long_share=0, quotients=(20, 25, 31))
+    runs = rice_stream(np.full(8, 40), seed + 1, ks=(0, 5, 12),
+                       long_share=0, quotients=(0, 1, 3200, 9000))
+    inside = runs["start_bits"][:4] + np.array([40, 900, 5000, 12000])
+    return [
+        {"args": (words, *args, T), "labels": labels},
+        {"args": (long["words"], long["start_bits"], long["params"],
+                  long["counts"], 160),
+         "labels": {"codes of 50-63 bits": slice(0, 16)},
+         "values": long["values"]},
+        {"args": (runs["words"],
+                  np.concatenate([runs["start_bits"], inside]).astype(
+                      np.int32),
+                  np.concatenate([runs["params"], [0, 5, 12, 31]]).astype(
+                      np.int32),
+                  np.concatenate([runs["counts"], [40] * 4]).astype(np.int32),
+                  40),
+         "labels": {"zero runs of 100 and 281 words": slice(0, 8),
+                    "cursors inside a zero run": slice(8, 12)},
+         "values": runs["values"]},
+    ]
+
+
+def crc16_windows_edge_calls(seed=22):
+    """Cases of ``crc16_frames_device`` at the edges of its kernel's word
+    skip, loads and items (``csrc/crc_lanes.cu``), each held to the plain
+    form.
+
+    Calls 0 and 1 have the shape of ``crc16_windows_calls`` (the seed-21
+    upload, 53 ranges; n_words 1024 and 1), so the JAX test compiles
+    nothing new for them: ranges whose ends - 4 n_words wraps (ends within
+    4 n_words of -2^31), kept suffixes of every length mod 4 at every ends
+    mod 4, ranges at the upload's edges, random ranges. Calls 2-5: a
+    24,000-byte upload and ranges of up to 16 KB (several 4 KB items at
+    n_words 4096) with the same edge ranges, at n_words 1, 2, 1024 and
+    4096."""
+    rng = np.random.default_rng(seed)
+    stream = crc16_windows_calls()[0]["args"][0]
+    lo = INT32_MIN
+    fixed = {
+        "ends - 4 n_words wraps": [
+            (lo, lo + 10), (lo + 3, lo + 4095), (lo + 5, lo + 4097),
+            (lo + 4090, lo + 4093), (-5, lo + 7), (lo, lo + 1),
+            (lo + 1000, lo + 3000), (lo, lo + 2), (lo + 1, lo + 3),
+            (INT32_MAX - 3, lo + 2), (lo + 4000, lo + 4095)],
+        "kept suffixes of every length mod 4": [
+            (e - m, e) for e in (2000, 2001, 2002, 2003)
+            for m in (1, 2, 3, 5)],
+        "ranges at the upload's edges": [
+            (2990, 3000), (2995, 3001), (0, 5), (-3, 4), (2996, 3000),
+            (1, 3000), (2999, 3003), (-8, -1)],
+    }
+    n_fixed = sum(len(v) for v in fixed.values())
+    pairs, labels = [], {}
+    for name, ranges in fixed.items():
+        labels[name] = slice(len(pairs), len(pairs) + len(ranges))
+        pairs += ranges
+    pad = 53 - n_fixed
+    a = rng.integers(-20, 3020, pad)
+    pairs += list(zip(a, a + rng.integers(0, 600, pad)))
+    labels["random ranges"] = slice(n_fixed, 53)
+    starts = np.array([p for p, _ in pairs], np.int64).astype(np.int32)
+    ends = np.array([q for _, q in pairs], np.int64).astype(np.int32)
+    calls = [{"args": (stream, starts, ends, n_words),
+              "labels": {f"{k}, n_words {n_words}": v
+                         for k, v in labels.items()}}
+             for n_words in (1024, 1)]
+    big = rng.integers(INT32_MIN, INT32_MAX, 6000, dtype=np.int64).astype(
+        np.int32)
+    a = rng.integers(-100, 24100, 60)
+    b = a + rng.integers(0, 16385, 60)
+    sb = np.concatenate([a, starts[:n_fixed]]).astype(np.int32)
+    eb = np.concatenate([b, ends[:n_fixed]]).astype(np.int32)
+    for n_words in (1, 2, 1024, 4096):
+        calls.append({"args": (big, sb, eb, n_words), "labels": {
+            f"ranges of up to 16 KB, n_words {n_words}": slice(0, 60),
+            f"the edge ranges on a larger upload, n_words {n_words}":
+                slice(60, 60 + n_fixed)}})
+    return calls

@@ -1313,6 +1313,102 @@ def test_crc16_windows_kernel_matches_plain(cuda, n_words):
     assert torch.equal(got, crc.crc16_ranges(*args))
 
 
+def _rice_edge_count():
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    return len(rice_crc_cases.rice_edge_calls())
+
+
+@pytest.mark.parametrize("i", range(_rice_edge_count()))
+def test_rice_kernel_edges_match_plain_and_parent(cuda, i):
+    """The ring's edges (rice_crc_cases.rice_edge_calls: a zero run
+    longer than a lane's ring, cursors that enter the buffer from below
+    or leave it mid-partition, codes that outrun the landed words, lanes
+    that start inside a zero run): the kernel equals the plain form and
+    the parent kernel (csrc/rice_parent.cu)."""
+    from claxon_tpu_torch.ops import rice
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    call = rice_crc_cases.rice_edge_calls()[i]
+    words, sb, ks, cs, T = call["args"]
+    args = [_c(a, cuda) for a in (words, sb, ks, cs)]
+    n = rice.rice_decode.launches
+    got = rice.rice_decode(*args, max_count=T)
+    assert rice.rice_decode.launches == n + 1
+    want = rice.rice_decode_plain(*args, T)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    old = rice.parent_kernel()(*args, T)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    assert rice.rice_decode.launches == n + 1
+    if "values" in call:
+        v = call["values"]
+        assert np.array_equal(got[0].cpu().numpy()[:v.shape[0], :v.shape[1]],
+                              v)
+
+
+@pytest.mark.parametrize("lanes, codes, long_share",
+                         [(27648, 1024, 0.01), (100, 4097, 0.3),
+                          (33, 1, 0.01)])
+def test_rice_kernel_matches_parent(cuda, lanes, codes, long_share):
+    """The headline x4 shapes and ragged ones, with the generator's long
+    unary runs at 1% and 30% of the codes: the kernel equals its parent
+    and the values that made the buffer, and the garbage calls of
+    rice_calls equal the parent too."""
+    from claxon_tpu_torch.ops import rice
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    st = rice_crc_cases.rice_stream(np.full(lanes, codes), seed=lanes + 1,
+                                    long_share=long_share)
+    calls = [(st["words"], st["start_bits"], st["params"], st["counts"],
+              codes)]
+    calls += [c["args"] for c in rice_crc_cases.rice_calls()]
+    parent = rice.parent_kernel()
+    for words, sb, ks, cs, T in calls:
+        T = max(int(cs.max()), 0) if T is None else T
+        args = [_c(a, cuda) for a in (words, sb, ks, cs)]
+        got = rice.rice_decode(*args, max_count=T)
+        old = parent(*args, T)
+        assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    out = rice.rice_decode(*[_c(st[k], cuda) for k in (
+        "words", "start_bits", "params", "counts")], max_count=codes)[0]
+    assert np.array_equal(out.cpu().numpy(), st["values"])
+
+
+def _windows_edge_calls():
+    from claxon_tpu_torch.testing import rice_crc_cases
+
+    calls = rice_crc_cases.crc16_windows_edge_calls()
+    seed21 = rice_crc_cases.crc16_windows_calls()[0]["args"][:3]
+    return calls + [{"args": (*seed21, n_words), "labels": {}}
+                    for n_words in (2, 4096)]
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_crc16_windows_kernel_edges_match_plain_and_parent(cuda, i):
+    """The word skip, the loads and the items at their edges
+    (rice_crc_cases.crc16_windows_edge_calls: ends - 4 n_words wrapping,
+    kept suffixes of every length mod 4 at every ends mod 4, the upload's
+    edges, ranges of several 4 KB items; the seed-21 ranges at n_words 2
+    and 4096), from a 16-byte-aligned stream and from one that is not
+    (its 4-byte clipped loads): the kernel equals the plain form and the
+    parent kernel (csrc/crc_lanes_parent.cu)."""
+    from claxon_tpu_torch.ops import crc
+
+    calls = _windows_edge_calls()
+    assert len(calls) == 8
+    stream, starts, ends, n_words = calls[i]["args"]
+    st, en = _c(starts, cuda), _c(ends, cuda)
+    padded = _c(np.concatenate([[7], stream]), cuda)
+    parent = crc.parent_windows_kernel()
+    for s in (_c(stream, cuda), padded[1:]):
+        n = crc.crc16_frames_device.launches
+        got = crc.crc16_frames_device(s, st, en, n_words)
+        assert crc.crc16_frames_device.launches == n + 1
+        assert torch.equal(got, crc.crc16_frames_device_plain(s, st, en,
+                                                              n_words))
+        assert torch.equal(got, parent(s, st, en, n_words))
+
+
 def test_new_wrappers_launch_or_raise(cuda):
     """CUDA tensors of another dtype, or on two devices, raise; nothing
     falls back to the plain forms."""

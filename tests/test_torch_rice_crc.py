@@ -5,10 +5,10 @@ wrapping cursors, shifts by 32 or more, reads clipped to the buffer,
 searches that run off it, lengths and ranges outside the data, int32
 extremes. Errors are compared by class name and message.
 
-The cases (claxon_tpu_torch/testing/rice_crc_cases.py) are padded to a
-few shapes per function, so the JAX package compiles few programs; each
-call's results are computed once per module and every case checks its
-own lanes, rows or ranges."""
+The cases (claxon_tpu_torch/testing/rice_crc_cases.py, the kernels'
+edge cases among them) are padded to a few shapes per function, so the
+JAX package compiles few programs; each call's results are computed once
+per module and every case checks its own lanes, rows or ranges."""
 
 import numpy as np
 import pytest
@@ -24,9 +24,13 @@ from claxon_tpu_torch.ops import crc as tcrc
 from claxon_tpu_torch.ops import rice as trice
 from claxon_tpu_torch.testing import rice_crc_cases as cases
 
-RICE = cases.rice_calls()
+# The edge calls of the shapes above (rice_edge_calls()[0]: the words,
+# lanes and T of rice_calls()[0]; crc16_windows_edge_calls()[:2]: the
+# upload, ranges and n_words of crc16_windows_calls()), so the JAX package
+# compiles no new program for them.
+RICE = cases.rice_calls() + cases.rice_edge_calls()[:1]
 ROWS = cases.crc16_rows_calls()
-WINDOWS = cases.crc16_windows_calls()
+WINDOWS = cases.crc16_windows_calls() + cases.crc16_windows_edge_calls()[:2]
 
 
 def _cases(calls):

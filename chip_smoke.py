@@ -134,12 +134,31 @@ Phases, each of which raises on failure (so the script exits non-zero):
       chunk) and decode them with decode_ogg_stream / decode_mp4_stream
       on the card: PCM equal to the scalar decoder's and the MD5; one
       corrupted Ogg page CRC and one short MP4 chunk must raise the
-      reference's errors.
+      reference's errors; the 24-bit stream and the first headline one,
+      from Ogg and from MP4, with use_native=False (the Python extractor
+      and the FrameDesc route) must give the default route's PCM;
+  (h) the FrameDesc route: (h1) decode_streams(mixed + generated, False)
+      through the Python extractor, bit-exact, launching K1 + K3 once a
+      bucket and K3b unpack and pack exactly where the packing rule says
+      (residuals that fit int16 with T even; frames of 16 bits or fewer),
+      and none of K2, K4, K5-K10, K1 alone or K3's torch ops; (h2)
+      headline x4 through decode_batches_device on the C++ extractor's
+      FrameDescs: one bucket (6912, 4096), one launch each of K3b unpack,
+      K1 + K3 and K3b pack, bit-exact, K1 + K3 held to its plain form on
+      the bucket and timed with its bound, the extraction, the dispatch
+      device-resident and to host timed (median of 5, with the range),
+      and the bytes uploaded; (h3) decode_streams(headline[:2], True,
+      device_decode_bucket), PCM equal to (h2)'s; (h4) FlacReader on the
+      generated corpus on both reader routes (the native single-frame
+      decode, and CLAXON_TPU_NO_NATIVE_READER=1), the samples' MD5 equal
+      to STREAMINFO's.
 
 The last three lines are the kernels' JSON summary (time, plain time,
 bound and launches of each on each path, K9 and K10 on their routes and
 beside their parent kernels, K2 also on the scan route; the routes'
-device-resident times; K1 alone, an entry point that no decode path
+device-resident times; K1 + K3 also on (h2)'s bucket, and each kernel's
+launches there, "launches_framedesc", with (h)'s numbers under
+"framedesc"; K1 alone, an entry point that no decode path
 runs, under "off_path_kernels"; K3 and
 the mb unpack, which are torch ops, under "torch_ops", K3 with its calls
 on the card), the card's name and power limit, and the
@@ -2079,13 +2098,182 @@ def phase_g(base, wide):
         else:
             raise AssertionError(f"(g) {name}: a malformed container "
                                  "decoded")
-    try:
-        ct.decode_ogg_stream(b"", use_native=False, device=DEVICE)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("(g) use_native=False did not raise")
+    # use_native=False: the Python extractor and the FrameDesc route, on
+    # the 24-bit stream and the first headline one (about 3 us a sample on
+    # the host, so not every stream).
+    for i, flac in ((len(base), wide), (0, base[0])):
+        for name, fn, data in (
+                ("Ogg", ct.decode_ogg_stream, mux_ogg_flac(flac)),
+                ("MP4", ct.decode_mp4_stream,
+                 mux_mp4_flac(flac, frames_per_chunk=3))):
+            t0 = time.perf_counter()
+            got = fn(data, use_native=False, device=DEVICE)
+            ms = (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(got.pcm, fn(data, device=DEVICE).pcm):
+                raise AssertionError(f"(g) stream {i} from {name}, "
+                                     "use_native=False: PCM != the default "
+                                     "route's")
+            log(f"(g) stream {i} from {name}, use_native=False (Python "
+                f"extractor, FrameDesc route): PCM == the default route's, "
+                f"{ms:.1f} ms")
     return first
+
+
+def framedesc_packing(datas):
+    """(buckets, buckets whose residuals go up as int16 pairs, buckets
+    fetched as int16 pairs) of the FrameDesc route on ``datas``, from the
+    C++ extractor's FrameDescs (equal to the Python extractor's; tier-1
+    holds them so) and the JAX package's packing rule, in numpy alone."""
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch import pipeline as tp
+
+    frames = [f for d in datas for f in native.extract_stream(d).frames]
+    n = unpacks = packs = 0
+    for (t_bucket, n_ch), idx in tp.group_frames(frames).items():
+        x = tp.pack_bucket(frames, idx, n_ch, t_bucket)[0]
+        even = x.shape[1] % 2 == 0
+        n += 1
+        unpacks += even and -32768 <= x.min() and x.max() <= 32767
+        packs += even and all(frames[i].bps <= 16 for i in idx)
+    return n, unpacks, packs
+
+
+def phase_h(drive, datas4, mixed, generated):
+    """The FrameDesc route (use_native=False, and decode_bucket): (h1)
+    decode_streams(mixed + generated, False) through the Python extractor;
+    (h2) decode_batches_device on the C++ extractor's FrameDescs of
+    headline x4, one bucket, K1 + K3 held to its plain form and timed there;
+    (h3) the decode_bucket override on two headline streams; (h4)
+    FlacReader on the generated corpus on both reader routes. Returns
+    (h2)'s K1 + K3 row and bound, its launches and the (h1)/(h2) numbers
+    for the JSON line."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch.ops import epilogue, predict
+    from claxon_tpu_torch.testing import pcm_md5
+
+    absent = ("K2", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
+    out = {}
+
+    def fetched(dd):
+        dd.to_host()
+        return dd
+
+    # (h1) the Python extractor, mixed and generated corpora.
+    datas = mixed + generated
+    n, unpacks, packs = framedesc_packing(datas)
+    t0 = time.perf_counter()
+    res, counts = drive(("K1+K3",), lambda: ct.decode_streams(
+        datas, False, device=DEVICE))
+    h1_ms = (time.perf_counter() - t0) * 1e3
+    check_decoded("(h1) mixed + generated, use_native=False", datas, res)
+    want = {"K1+K3": n, "K3b_unpack": unpacks, "K3b_pack": packs}
+    if any(counts[k] for k in absent) or any(
+            counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"(h1) launches {counts}, expected {want} and "
+                             f"none of {absent}")
+    log(f"(h1) decode_streams(mixed + generated, False): {len(datas)} "
+        f"streams, {n} buckets ({unpacks} uploaded as int16 pairs, {packs} "
+        f"fetched as int16 pairs) in {h1_ms:.1f} ms (Python extractor "
+        f"included); launches {counts}")
+    out["h1"] = {"streams": len(datas), "buckets": n, "launches": counts,
+                 "ms": h1_ms}
+
+    # (h2) the FrameDesc dispatch at full width, fed by the C++ extractor.
+    batches = [native.extract_stream(d) for d in datas4]
+    dd, counts = drive(("K1+K3", "K3b_unpack", "K3b_pack"), lambda: fetched(
+        tp.decode_batches_device(batches, device=DEVICE)))
+    # One bucket: at the full size (6912, 4096).
+    shape = tp.bucket_shape(2 * len(dd.frames), 4096)
+    if [tuple(d.out_full.shape) for d in dd.dispatches] != [shape] \
+            or [counts[k] for k in ("K1+K3", "K3b_unpack", "K3b_pack")] \
+            != [1, 1, 1] or any(counts[k] for k in absent):
+        raise AssertionError(f"(h2) buckets {len(dd.dispatches)} of "
+                             f"{dd.dispatches[0].out_full.shape}, launches "
+                             f"{counts}")
+    check_decoded(f"(h2) headline x{HEADLINE_REPLICAS}, FrameDesc dispatch",
+                  datas4, dd.results)
+    h2_pcm = [r.pcm for r in dd.results]
+    (d,) = dd.dispatches
+    x, coefs, shifts, orders, wasted, pair_modes, lengths = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+        for a in tp.pack_bucket(dd.frames, d.frame_idx, 2, 4096))
+    args = (x, coefs, shifts, orders, lengths, wasted, pair_modes)
+    row = compare("K1+K3 FrameDesc headline",
+                  lambda: predict.synthesize_epilogue(*args),
+                  lambda: predict.synthesize_epilogue_plain(*args))
+    if not torch.equal(predict.synthesize_epilogue(*args), d.out_full):
+        raise AssertionError("(h2) K1+K3 on the re-packed bucket != the "
+                             "dispatch's output")
+    b = bound(tensor_bytes(*args) + tensor_bytes(d.out_full),
+              synth_ops(orders, lengths))
+    upload = dd.upload_bytes
+    del dd, d, x, args
+
+    def windows(fn):
+        ts = []
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts), min(ts), max(ts)
+
+    extract = windows(lambda: [native.extract_stream(d) for d in datas4])
+    resident = windows(lambda: tp.decode_batches_device(
+        batches, device=DEVICE).sync())
+    host = windows(lambda: tp.decode_batches_device(
+        batches, device=DEVICE).to_host())
+    log(f"(h2) headline x{HEADLINE_REPLICAS} through the FrameDesc dispatch "
+        f"(L {shape[0]}, T {shape[1]}): K1+K3 {row[1]:.4f} ms (plain "
+        f"{row[2]:.1f} ms), bound {b[0]:.4f} ms ({b[1]}); {upload} bytes uploaded; host ms, "
+        f"median of {TIMED_RUNS} (min-max): C++ FrameDesc extraction "
+        f"{extract[0]:.1f} ({extract[1]:.1f}-{extract[2]:.1f}), dispatch "
+        f"device-resident {resident[0]:.1f} ({resident[1]:.1f}-"
+        f"{resident[2]:.1f}), to host {host[0]:.1f} ({host[1]:.1f}-"
+        f"{host[2]:.1f}); launches {counts}")
+    out["h2"] = {"shape": shape, "upload_bytes": upload,
+                 "extract_ms": extract, "device_resident_ms": resident,
+                 "to_host_ms": host}
+
+    # (h3) decode_bucket: the per-bucket device call, on the C++
+    # extractor's FrameDescs of two headline streams.
+    bucket = functools.partial(tp.device_decode_bucket, device=DEVICE)
+    res, counts3 = drive(("K1+K3",), lambda: ct.decode_streams(
+        datas4[:2], True, bucket))
+    if any(not np.array_equal(r.pcm, w) for r, w in zip(res, h2_pcm)):
+        raise AssertionError("(h3) decode_bucket PCM != (h2)'s")
+    log(f"(h3) decode_streams(headline[:2], True, device_decode_bucket): "
+        f"PCM == (h2)'s; launches {counts3}")
+
+    # (h4) the reader API on the generated corpus, both reader routes.
+    for knob in (None, "1"):
+        if knob:
+            os.environ["CLAXON_TPU_NO_NATIVE_READER"] = knob
+        try:
+            t0 = time.perf_counter()
+            for data in generated:
+                r = ct.FlacReader(data)
+                si = r.streaminfo()
+                pcm = np.array(list(r.samples()), dtype=np.int64).reshape(
+                    -1, si.channels)
+                if si.md5sum != b"\x00" * 16 and \
+                        pcm_md5(pcm, si.bits_per_sample) != si.md5sum:
+                    raise AssertionError(f"(h4) FlacReader MD5 mismatch "
+                                         f"(native reader off: {knob})")
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            os.environ.pop("CLAXON_TPU_NO_NATIVE_READER", None)
+        log(f"(h4) FlacReader samples() on {len(generated)} generated "
+            f"streams, {'Python' if knob else 'native'} reader route: MD5 "
+            f"== STREAMINFO, {ms:.1f} ms")
+    return row, b, counts, out
 
 
 def main():
@@ -2661,6 +2849,10 @@ def main():
     k2_large = phase_f()
     g_launches = phase_g(base, mixed[MIXED_SPECS.index(MIXED_24BIT)])
     log(f"(g) launches in the first Ogg decode: {g_launches}")
+    t_h = time.perf_counter()
+    h_row, h_bound, h_launches, framedesc = phase_h(drive, datas4, mixed,
+                                                    generated)
+    log(f"(h) the FrameDesc route took {time.perf_counter() - t_h:.1f} s")
 
     sources = {"K1+K3": ("claxon_tpu_torch/csrc/synth.cu",
                          "claxon_tpu/ops/pallas_synth.py:127"),
@@ -2711,10 +2903,15 @@ def main():
         # container decode, beside the host-walk path's.
         k["launches_segmented"] = seg_launches.get(k["name"], 0)
         k["launches_ogg"] = g_launches.get(k["name"], 0)
+        # The FrameDesc route's headline x4 batch (h2).
+        k["launches_framedesc"] = h_launches.get(k["name"], 0)
         if k["name"] == "K1+K3":
             k["also_replaces"] = "claxon_tpu/ops/epilogue.py:39"
             k["k1_alone_ms"] = rows["K1"][1]
             k["k3_torch_ops_ms"] = rows["K3"][1]
+            k.update(ms_framedesc=h_row[1], plain_ms_framedesc=h_row[2],
+                     max_abs_err_framedesc=h_row[0],
+                     bound_ms_framedesc=h_bound[0])
         if k["name"] == "K4":
             k["ms_segmented"] = rows["K4_seg"][1]
             k["bound_ms_segmented"] = bounds["K4_seg"][0]
@@ -2808,6 +3005,7 @@ def main():
                                  for r, v in routes.items()},
                       "pipelined": {"launches": pipe_launches,
                                     "depth_ms": depth_ms},
+                      "framedesc": framedesc,
                       "device_idle": {p: (None if v is None else
                                           {"busy_ms": v[0], "wall_ms": v[1]})
                                       for p, v in idle.items()}}))

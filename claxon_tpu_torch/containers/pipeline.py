@@ -19,8 +19,12 @@ The JAX package switches to its FrameDesc path there, with a warning; the
 port has no such path and switches nothing, so it warns of nothing. The
 PCM is the same.
 
-Not carried over: ``use_native=False`` (the Python extractor) raises
-NotImplementedError, and the environment knobs ``CLAXON_TPU_NO_BITS`` and
+``use_native=False`` extracts the frame section with the Python extractor
+(``extract.extract_frames``, frame CRC-16 checked on the host) and decodes
+its FrameDescs on the FrameDesc route (``pipeline.decode_batch``: K3b
+unpack, K1 + K3), as the JAX package does.
+
+Not carried over: the environment knobs ``CLAXON_TPU_NO_BITS`` and
 ``CLAXON_TPU_BITS_PAYLOAD_CAP`` select paths the port does not have and
 are not read.
 """
@@ -36,12 +40,22 @@ from .ogg import read_flac_from_ogg
 __all__ = ["decode_ogg_stream", "decode_mp4_stream"]
 
 
-def _core(use_native):
-    """The port's C++ core; the Python extractor route is not ported."""
-    from ..pipeline import _native, _require_native
+def _extract_section(payload, max_frames=None):
+    """FrameDescs of a frame section (bytes-like) through the Python
+    extractor; ``max_frames`` bounds the parse (an MP4 chunk declares its
+    frame count)."""
+    from ..extract import extract_frames
 
-    _require_native(use_native, "the container decode")
-    return _native()
+    return extract_frames(MemReader(payload), max_frames=max_frames)
+
+
+def _decode_frames(streaminfo, frames, device):
+    """Decode one stream's FrameDescs on the FrameDesc route."""
+    from ..extract import StreamBatch
+    from ..pipeline import decode_batch
+
+    return decode_batch(StreamBatch(streaminfo=streaminfo, frames=frames),
+                        device=device)
 
 
 def _defer_crc():
@@ -70,11 +84,11 @@ def decode_ogg_stream(data, use_native=True, verify_crc=True, device="cuda"):
     """Decode a whole FLAC-in-Ogg stream (bytes, or a file-like object)
     on ``device``; returns a ``DecodedStream``. ``verify_crc`` checks each
     Ogg page's CRC-32; frame CRC-16s are always verified, on the device
-    (on the host with ``CLAXON_TPU_HOST_CRC``)."""
+    (on the host with ``CLAXON_TPU_HOST_CRC``, and by the Python extractor
+    with ``use_native=False``)."""
     from .. import pipeline_bits
-    from ..pipeline import _walk_frames_chunked
+    from ..pipeline import _native, _walk_frames_chunked
 
-    native = _core(use_native)
     stream = _io.BytesIO(data) if isinstance(
         data, (bytes, bytearray, memoryview)) else data
     streaminfo, header_packets, audio_packets = read_flac_from_ogg(
@@ -86,6 +100,9 @@ def decode_ogg_stream(data, use_native=True, verify_crc=True, device="cuda"):
     # Every audio packet is exactly one frame, so the concatenation is a
     # plain frame section.
     payload = b"".join(p for p in audio_packets if p)
+    if not use_native:
+        return _decode_frames(streaminfo, _extract_section(payload), device)
+    native = _native()
     limit = pipeline_bits.MAX_BATCH_BYTES
     defer = _defer_crc()
     if len(payload) < limit:
@@ -101,10 +118,11 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
     """Decode a whole FLAC-in-MP4 file (bytes) on ``device``; returns a
     ``DecodedStream``."""
     from .. import pipeline_bits
-    from ..pipeline import _split_batch, _unit_bytes, _walk_frames_chunked
+    from ..pipeline import (_native, _split_batch, _unit_bytes,
+                            _walk_frames_chunked)
     from ..pipeline_bits import _host_verify_deferred
 
-    native = _core(use_native)
+    native = _native() if use_native else None
     data = bytes(data)
     view = memoryview(data)
     track = read_flac_from_mp4(data)
@@ -116,7 +134,7 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
                             zip(track.chunk_offsets,
                                 track.samples_per_chunk) if n)
     defer = _defer_crc()
-    batches = []
+    frames, batches = [], []
 
     def _crc_before_error():
         # Reference order parity: frames of EARLIER chunks (and of the
@@ -138,6 +156,12 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
         end = nxt[0] if nxt else len(data)
         # A chunk holds exactly n frames; the bounded parse stops before
         # any inter-chunk slack (`examples/decode_mp4.rs:132-167`).
+        if not use_native:
+            got = _extract_section(view[offset:end], max_frames=n)
+            if len(got) < n:
+                fmt_err("MP4 chunk ends before its declared frame count")
+            frames.extend(got)
+            continue
         try:
             if end - offset < limit:
                 used = []
@@ -158,6 +182,8 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
         if sum(len(bb.bframes) for bb in got) < n:
             _crc_before_error()
             fmt_err("MP4 chunk ends before its declared frame count")
+    if not use_native:
+        return _decode_frames(track.streaminfo, frames, device)
     # Consecutive chunks merge into walk units below the byte limit: one
     # unit, as in the JAX package, unless the file is that large.
     units = [native.merge_bits_batches([batches[k] for k in run])

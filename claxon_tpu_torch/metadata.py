@@ -1,25 +1,31 @@
 """Stream header and metadata blocks at the beginning of a FLAC stream (a
-copy of ``claxon_tpu.metadata``, trimmed to what the port calls, plus
-``read_stream_header`` from ``claxon_tpu.reader``).
+copy of ``claxon_tpu.metadata``, plus ``read_stream_header`` from
+``claxon_tpu.reader``).
 
 Mirrors claxon `src/metadata.rs`: STREAMINFO parse + validation, Vorbis
-comment parse with anti-DoS limits and block-type dispatch. The port's
-decode paths call :func:`read_stream_header` and
-:func:`read_flac_metadata` (through ``native.binding._read_metadata``),
-and its container demuxers :func:`read_metadata_block_with_header` (Ogg
-and MP4 embed metadata blocks verbatim, headers included); tags and seek
-tables are not carried over.
+comment parse with anti-DoS limits, block-type dispatch, tag iterators, and
+the two standalone entry points used for container embedding:
+
+* ``read_metadata_block_with_header`` -- Ogg embeds metadata blocks verbatim
+  including their headers (`src/metadata.rs:243-248`).
+* ``read_metadata_block`` -- MP4's "FLAC Specific Box" carries the block
+  type and raw data separately (`src/metadata.rs:260-319`).
+
+The port's decode paths call :func:`read_stream_header` and
+:func:`read_flac_metadata` (through ``native.binding._read_metadata``), as
+``FlacReader`` and the Python extractor do.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, List, Tuple
 
 from .error import Error, Unsupported, fmt_err
 
 __all__ = [
-    "StreamInfo", "VorbisComment", "MetadataBlock", "MetadataBlockReader",
+    "StreamInfo", "SeekPoint", "SeekTable", "VorbisComment",
+    "MetadataBlock", "MetadataBlockReader",
     "read_metadata_block", "read_metadata_block_with_header",
-    "read_flac_metadata", "read_stream_header",
+    "Tags", "GetTag", "read_flac_metadata", "read_stream_header",
 ]
 
 # Metadata block bodies larger than this are rejected to avoid
@@ -52,6 +58,24 @@ class StreamInfo:
     samples: Optional[int]
     #: MD5 signature of the unencoded audio data.
     md5sum: bytes
+
+
+@dataclass(frozen=True)
+class SeekPoint:
+    """A seek point in the seek table (reference `src/metadata.rs:56-66`)."""
+    sample: int
+    offset: int
+    samples: int
+
+
+@dataclass
+class SeekTable:
+    """A seek table. Deliberately never constructed: the reference defines
+    the same struct but skips SEEKTABLE blocks as padding
+    (`src/metadata.rs:69-73`, its TODO: implement seeking), and this
+    library matches that behavior exactly -- the type exists only for API
+    parity with the reference's public surface."""
+    seekpoints: List[SeekPoint] = field(default_factory=list)
 
 
 @dataclass
@@ -90,6 +114,69 @@ class MetadataBlock:
 
     def __repr__(self):
         return f"MetadataBlock(kind={self.kind!r})"
+
+
+class Tags:
+    """Iterator over (name, value) pairs of Vorbis comments
+    (reference `src/metadata.rs:131-165`)."""
+
+    def __init__(self, comments):
+        self._comments = comments
+        self._i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._i >= len(self._comments):
+            raise StopIteration
+        comment, sep = self._comments[self._i]
+        self._i += 1
+        return (comment[:sep], comment[sep + 1:])
+
+    def __len__(self):
+        return len(self._comments) - self._i
+
+
+class GetTag:
+    """Case-insensitive lookup of a named tag; yields values
+    (reference `src/metadata.rs:167-211`)."""
+
+    def __init__(self, comments, needle):
+        self._comments = comments
+        self._needle = needle
+        self._i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        needle = self._needle
+        while self._i < len(self._comments):
+            comment, sep = self._comments[self._i]
+            self._i += 1
+            name = comment[:sep]
+            if _eq_ignore_ascii_case(name, needle):
+                return comment[sep + 1:]
+        raise StopIteration
+
+
+def _eq_ignore_ascii_case(a, b):
+    """ASCII-only case-insensitive equality, like the reference's
+    eq_ignore_ascii_case (`src/metadata.rs:204`): non-ASCII characters
+    never match case-insensitively (Python's str.lower() would fold e.g.
+    the Kelvin sign into 'k')."""
+    if len(a) != len(b):
+        return False
+    for ca, cb in zip(a, b):
+        oa, ob = ord(ca), ord(cb)
+        if 65 <= oa <= 90:
+            oa += 32
+        if 65 <= ob <= 90:
+            ob += 32
+        if oa != ob:
+            return False
+    return True
 
 
 def read_metadata_block_header(input):

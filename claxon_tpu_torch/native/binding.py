@@ -1,10 +1,11 @@
 """ctypes binding to the port's C++ host core (``src/claxon_demux.cpp``; a
-copy of ``claxon_tpu.native.binding`` trimmed to what the port calls).
+copy of ``claxon_tpu.native.binding`` without the sample-shipping helpers
+of the JAX package's legacy path).
 
 Layering: Python parses the (cold, byte-aligned) stream header + metadata
 blocks; the C++ core does the hot bit-level work -- the boundary walk of
-the bits path, the scalar decode, bulk CRC-16 -- and returns flat
-descriptor arrays.
+the bits path, the FrameDesc extraction, the scalar and single-frame
+decodes, bulk CRC-16 -- and returns flat descriptor arrays.
 """
 
 import ctypes
@@ -16,8 +17,9 @@ from ..io import MemReader
 from ..metadata import read_flac_metadata, read_stream_header
 from .build import ensure_built
 
-__all__ = ["available", "extract_stream_bits", "extract_frames_bits",
-           "merge_bits_batches", "BitsBatch", "crc16_bytes",
+__all__ = ["available", "extract_stream", "extract_stream_bits",
+           "extract_frames_bits", "merge_bits_batches", "BitsBatch",
+           "crc16_bytes", "extract_frames", "decode_frames_limited",
            "decode_stream_scalar"]
 
 #: Expected cxt_abi_version() of the loaded .so; must move in lockstep with
@@ -26,6 +28,8 @@ ABI_VERSION = 5
 
 FRAME_DTYPE = np.dtype([("time", "<i8"), ("block_size", "<i4"),
                         ("channels", "<i4"), ("mode", "<i4"), ("bps", "<i4")])
+SUB_DTYPE = np.dtype([("order", "<i4"), ("shift", "<i4"), ("wasted", "<i4"),
+                      ("pad", "<i4"), ("coefs", "<i4", (32,))])
 # Bits-path records (CxtBFrame / CxtBSub in claxon_demux.cpp).
 BFRAME_DTYPE = np.dtype([("time", "<i8"), ("block_size", "<i4"),
                          ("channels", "<i4"), ("mode", "<i4"), ("bps", "<i4"),
@@ -53,11 +57,22 @@ def _load():
     try:
         lib = ctypes.CDLL(str(path))
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.cxt_extract.restype = ctypes.c_void_p
+        lib.cxt_extract.argtypes = [u8p, ctypes.c_uint64,
+                                    ctypes.POINTER(ctypes.c_int32),
+                                    ctypes.c_char_p, ctypes.c_uint64]
         lib.cxt_decode.restype = ctypes.c_void_p
-        lib.cxt_decode.argtypes = [u8p, ctypes.c_uint64,
-                                   ctypes.POINTER(ctypes.c_int32),
-                                   ctypes.c_char_p, ctypes.c_uint64]
-        for name in ("cxt_n_frames", "cxt_pcm_len"):
+        lib.cxt_decode.argtypes = lib.cxt_extract.argtypes
+        lib.cxt_decode_limited.restype = ctypes.c_void_p
+        lib.cxt_decode_limited.argtypes = [u8p, ctypes.c_uint64,
+                                           ctypes.c_int64,
+                                           ctypes.POINTER(ctypes.c_uint64),
+                                           ctypes.POINTER(ctypes.c_int32),
+                                           ctypes.c_char_p, ctypes.c_uint64]
+        lib.cxt_extract_limited.restype = ctypes.c_void_p
+        lib.cxt_extract_limited.argtypes = lib.cxt_decode_limited.argtypes
+        for name in ("cxt_n_frames", "cxt_n_subframes",
+                     "cxt_n_lane_samples", "cxt_pcm_len"):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_uint64
             fn.argtypes = [ctypes.c_void_p]
@@ -122,7 +137,7 @@ def _checked(h, err, msg):
 
 
 def _call(fn, data):
-    """Invoke cxt_decode, mapping errors; returns a handle."""
+    """Invoke cxt_extract/cxt_decode, mapping errors; returns a handle."""
     buf = np.frombuffer(data, dtype=np.uint8)
     err = ctypes.c_int32(0)
     msg = ctypes.create_string_buffer(256)
@@ -276,6 +291,118 @@ def crc16_bytes(data):
     buf = np.frombuffer(data, dtype=np.uint8)
     return int(lib.cxt_crc16(
         buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(buf)))
+
+
+def _extract_frames_raw(payload, max_frames=None):
+    """Extract the flat descriptor arrays of a stream's frame section (the
+    JAX package's ``extract_frames_raw``, private here: the port calls it
+    only from :func:`extract_frames`):
+    (frames_buf FRAME_DTYPE, subs_buf SUB_DTYPE, samples int32). The
+    samples array holds each lane's block (warm-up ++ residuals)
+    consecutively, frame-major, channel-minor. ``max_frames`` bounds the
+    parse (container chunks hold a known frame count followed by slack)."""
+    lib = _require()
+    if max_frames is None:
+        h = _call(lib.cxt_extract, payload)
+    else:
+        buf = np.frombuffer(payload, dtype=np.uint8)
+        err = ctypes.c_int32(0)
+        consumed = ctypes.c_uint64(0)
+        msg = ctypes.create_string_buffer(256)
+        h = lib.cxt_extract_limited(
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(buf),
+            max_frames, ctypes.byref(consumed), ctypes.byref(err), msg, 256)
+        _checked(h, err, msg)
+    try:
+        n_frames = lib.cxt_n_frames(h)
+        n_subs = lib.cxt_n_subframes(h)
+        n_samp = lib.cxt_n_lane_samples(h)
+        frames_buf = np.empty(n_frames, dtype=FRAME_DTYPE)
+        subs_buf = np.empty(n_subs, dtype=SUB_DTYPE)
+        samples = np.empty(n_samp, dtype=np.int32)
+        lib.cxt_fill(h, frames_buf.ctypes.data, subs_buf.ctypes.data,
+                     samples.ctypes.data)
+    finally:
+        lib.cxt_free(h)
+    return frames_buf, subs_buf, samples
+
+
+def extract_frames(payload, max_frames=None):
+    """Extract FrameDescs from the frame section of a stream (bytes
+    positioned at the first frame). Native counterpart of
+    ``claxon_tpu_torch.extract.extract_frames``."""
+    from ..extract import FrameDesc, SubframeDesc
+
+    frames_buf, subs_buf, samples = _extract_frames_raw(payload,
+                                                        max_frames)
+    n_frames = len(frames_buf)
+
+    frames = []
+    lane = 0
+    off = 0
+    coefs_all = subs_buf["coefs"]
+    for i in range(n_frames):
+        f = frames_buf[i]
+        bs = int(f["block_size"])
+        nch = int(f["channels"])
+        fd = FrameDesc(block_size=bs, channels=nch, mode=int(f["mode"]),
+                       bps=int(f["bps"]), time=int(f["time"]))
+        for _ in range(nch):
+            s = subs_buf[lane]
+            order = int(s["order"])
+            fd.subframes.append(SubframeDesc(
+                x=samples[off:off + bs],
+                order=order,
+                shift=int(s["shift"]),
+                coefs=coefs_all[lane, 32 - order:] if order else
+                      np.zeros(0, np.int32),
+                wasted=int(s["wasted"])))
+            lane += 1
+            off += bs
+        frames.append(fd)
+    return frames
+
+
+def extract_stream(data):
+    """Extract a whole FLAC stream (bytes) into a StreamBatch using the
+    C++ core for the frame section."""
+    from ..extract import StreamBatch
+
+    data = bytes(data)
+    streaminfo, pos = _read_metadata(data)
+    return StreamBatch(streaminfo=streaminfo,
+                       frames=extract_frames(memoryview(data)[pos:]))
+
+
+def decode_frames_limited(payload, max_frames=1):
+    """Decode up to ``max_frames`` frames from ``payload`` (bytes-like,
+    positioned at a frame boundary) fully on the host.
+
+    Returns (consumed_bytes, frames_buf FRAME_DTYPE, pcm int32) where pcm
+    is interleaved (sum(block_size), channels-of-each-frame) row-major in
+    frame order. ``consumed_bytes`` counts only fully decoded frames, so a
+    streaming caller can retry with a larger window after an ``IoError``
+    (the mid-frame EOF signal). The FrameReader fast path.
+    """
+    lib = _require()
+    buf = np.frombuffer(payload, dtype=np.uint8)
+    err = ctypes.c_int32(0)
+    consumed = ctypes.c_uint64(0)
+    msg = ctypes.create_string_buffer(256)
+    h = lib.cxt_decode_limited(
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(buf),
+        max_frames, ctypes.byref(consumed), ctypes.byref(err), msg, 256)
+    _checked(h, err, msg)
+    try:
+        n_frames = lib.cxt_n_frames(h)
+        frames_buf = np.empty(n_frames, dtype=FRAME_DTYPE)
+        lib.cxt_fill(h, frames_buf.ctypes.data, None, None)
+        n = lib.cxt_pcm_len(h)
+        pcm = np.empty(n, dtype=np.int32)
+        lib.cxt_pcm_fill(h, pcm.ctypes.data)
+    finally:
+        lib.cxt_free(h)
+    return int(consumed.value), frames_buf, pcm
 
 
 def decode_stream_scalar(data):

@@ -19,6 +19,7 @@ apply_epilogue``: wasted bits and stereo decorrelation) fused into the
 kernel's store, as XLA fused them on the TPU; the decode paths call it.
 """
 
+import numpy as np
 import torch
 
 from . import _build
@@ -26,9 +27,21 @@ from ._checks import on_cpu, require_cuda_int32
 from .epilogue import apply_epilogue
 
 __all__ = ["synthesize", "synthesize_plain", "synthesize_epilogue",
-           "synthesize_epilogue_plain", "ORDER_MAX"]
+           "synthesize_epilogue_plain", "pack_coefficients", "ORDER_MAX"]
 
 ORDER_MAX = 32
+
+
+def pack_coefficients(coef_lists):
+    """Pack per-subframe coefficient lists (oldest-sample-first, the
+    convention of ``claxon_tpu_torch.subframe.decode_lpc``) into an (L, 32)
+    int32 array, left-padded with zeros so column 31 multiplies out[t-1]
+    (a copy of ``claxon_tpu.ops.predict.pack_coefficients``)."""
+    out = np.zeros((len(coef_lists), ORDER_MAX), dtype=np.int32)
+    for i, coefs in enumerate(coef_lists):
+        if len(coefs):
+            out[i, ORDER_MAX - len(coefs):] = coefs
+    return out
 
 
 def synthesize_plain(x, coefs, shifts, orders, lengths):

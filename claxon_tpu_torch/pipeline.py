@@ -17,13 +17,22 @@ PCM on the device bucket by bucket; ``to_host()`` fetches it (16-bit
 buckets as int16 pairs, K3b) and scatters it into per-stream interleaved
 PCM.
 
+``use_native=False`` takes the JAX package's FrameDesc route instead: the
+Python extractor (``extract``, the reference-fidelity parse, frame CRC-16
+checked on the host) emits per-subframe descriptors, which are grouped
+into (L, T) buckets of residuals (:func:`pack_bucket`) and decoded on
+``device`` by K1 + K3 (K3b unpack first when the residuals fit int16).
+``decode_batches_device`` runs that dispatch on any extracted batches
+(for example ``native.extract_stream``'s), and ``decode_streams``'
+``decode_bucket`` argument replaces its per-bucket device call.
+
 Every call takes an explicit ``device`` (default ``"cuda"``): nothing
 probes for a GPU, and CPU tensors take the kernels' plain PyTorch forms.
-The C++ core is required.
+The C++ core is required unless ``use_native=False``.
 """
 
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
@@ -31,10 +40,11 @@ import torch
 
 from .error import fmt_err
 
-__all__ = ["decode_stream", "decode_streams", "decode_streams_device",
+__all__ = ["decode_stream", "decode_streams", "decode_batch",
+           "decode_batches", "decode_batches_device", "decode_streams_device",
            "decode_streams_device_async", "decode_streams_pipelined",
            "extract_streams_bits", "merge_decoded", "DeviceDecoded",
-           "DecodedStream", "bucket_shape"]
+           "DecodedStream", "bucket_shape", "device_decode_bucket"]
 
 # Time-axis bucket sizes: the common FLAC block sizes plus power-of-two
 # fill-ins, so a stream with one block size makes one bucket shape.
@@ -83,6 +93,9 @@ class _BucketDispatch:
     flag: torch.Tensor = None   # packed: () int32 host overflow flag
     host: torch.Tensor = None   # (L, T) int32 host copy (not packed, or
     #                             refetched after the flag fired)
+    #: the FrameDesc route: indices into ``DeviceDecoded.frames`` of the
+    #: bucket's frames, in lane order (empty on the bits paths).
+    frame_idx: list = field(default_factory=list)
 
 
 class DeviceDecoded:
@@ -96,10 +109,12 @@ class DeviceDecoded:
     stream's garbage can cause. The JAX package packs inside each bucket's
     device program; the port packs in ``start_fetch()``, so a consumer that
     reads ``device_buckets()`` and never fetches pays neither the launch
-    nor the (L, T // 2) buffer. Frame CRC-16 verification runs on the
-    device, and its verdict surfaces only through ``verify_crc()``, which
-    ``sync()`` and ``to_host()`` call: a consumer reading buckets directly
-    calls ``sync()`` before trusting them.
+    nor the (L, T // 2) buffer. On the bits paths frame CRC-16
+    verification runs on the device, and its verdict surfaces only through
+    ``verify_crc()``, which ``sync()`` and ``to_host()`` call: a consumer
+    reading buckets directly calls ``sync()`` before trusting them
+    (``block_until_ready()`` waits without the verdict). The FrameDesc
+    route's extractors check every frame on the host.
     """
 
     def __init__(self, results, dispatches, plans, pcms):
@@ -121,15 +136,24 @@ class DeviceDecoded:
         self.fallback_streams = []
         #: segmented path: host seconds per stage of the batch.
         self.stage_seconds = {}
+        #: the FrameDesc route: every FrameDesc of the batch, in stream
+        #: order (``device_buckets()``' frame indices point here).
+        self.frames = []
         self._crc_host = None
         self._fetched = None   # CUDA event after the host copies, or True
+
+    def block_until_ready(self):
+        """Wait for every bucket's kernels; unlike ``sync()``, give no CRC
+        verdict."""
+        for dev in {d.out_full.device for d in self.dispatches
+                    if d.out_full.is_cuda}:
+            torch.cuda.synchronize(dev)
+        return self
 
     def sync(self):
         """Wait for every bucket's kernels, then surface a frame CRC
         mismatch (see verify_crc)."""
-        for dev in {d.out_full.device for d in self.dispatches
-                    if d.out_full.is_cuda}:
-            torch.cuda.synchronize(dev)
+        self.block_until_ready()
         self.verify_crc()
         return self
 
@@ -194,9 +218,12 @@ class DeviceDecoded:
             self._fetched.synchronize()
 
     def device_buckets(self):
-        """[([], n_ch, (L, T) int32 device tensor), ...]; the lane layout
-        of each bucket is in ``lane_plans()``."""
-        return [([], d.n_ch, d.out_full) for d in self.dispatches]
+        """[(frame_idx, n_ch, (L, T) int32 device tensor), ...]; the lane
+        layout of each bucket is in ``lane_plans()``. ``frame_idx`` indexes
+        ``self.frames`` on the FrameDesc route and is [] on the bits
+        paths, which carry no FrameDesc objects."""
+        return [(list(d.frame_idx), d.n_ch, d.out_full)
+                for d in self.dispatches]
 
     def lane_plans(self):
         """Per bucket (parallel to ``device_buckets()``), a list of runs
@@ -239,14 +266,230 @@ def _native():
     return native
 
 
-def _require_native(use_native, what):
-    """Refuse ``use_native=False``: the reference's Python extractor
-    route is not ported, and the port has no other way to walk a
-    stream."""
-    if not use_native:
-        raise NotImplementedError(
-            "claxon_tpu_torch: use_native=False (the Python extractor) is "
-            f"not ported; {what} needs the C++ core")
+def group_frames(frames, lane_quantum=_L_QUANTUM):
+    """Group frame indices by (block_size bucket, channels)."""
+    groups = {}
+    for i, f in enumerate(frames):
+        key = (bucket_shape(0, f.block_size, lane_quantum)[1], f.channels)
+        groups.setdefault(key, []).append(i)
+    return groups
+
+
+def pack_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum=_L_QUANTUM):
+    """Pack one group of frames into the padded device-bucket arrays.
+
+    Returns (x, coefs, shifts, orders, wasted, pair_modes, lengths), numpy
+    int32, all padded to the (L, T) = ``bucket_shape`` shape, lanes
+    pair-aligned; ``lengths`` holds each lane's valid sample count. The
+    same bytes as ``claxon_tpu.pipeline.pack_bucket``.
+    """
+    from .extract import MODE_CODES
+    from .ops.predict import pack_coefficients
+
+    n_lanes = len(frame_idx) * n_ch
+    L, T = bucket_shape(n_lanes, t_bucket, lane_quantum)
+
+    x = np.zeros((L, T), dtype=np.int32)
+    coef_lists = []
+    shifts = np.zeros(L, dtype=np.int32)
+    orders = np.zeros(L, dtype=np.int32)
+    wasted = np.zeros(L, dtype=np.int32)
+    pair_modes = np.zeros(L // 2, dtype=np.int32)
+    lengths = np.zeros(L, dtype=np.int32)
+
+    lane = 0
+    for fi in frame_idx:
+        f = frames[fi]
+        for sf in f.subframes:
+            x[lane, :f.block_size] = sf.x
+            coef_lists.append(sf.coefs)
+            shifts[lane] = sf.shift
+            orders[lane] = sf.order
+            wasted[lane] = sf.wasted
+            lengths[lane] = f.block_size
+            lane += 1
+        if f.mode != MODE_CODES["independent"] and n_ch == 2:
+            # Stereo lanes are pair-aligned: this frame occupies lanes
+            # (lane-2, lane-1) == pair (lane-2)//2.
+            pair_modes[(lane - 2) // 2] = f.mode
+    coef_lists.extend([[]] * (L - lane))
+    coefs = pack_coefficients(coef_lists)
+    return x, coefs, shifts, orders, wasted, pair_modes, lengths
+
+
+def scatter_bucket(out, frames, frame_idx, n_ch, targets):
+    """Scatter one bucket's output (an (L, T) host array) back into
+    interleaved PCM. ``targets[fi]`` is the (pcm array, sample offset)
+    destination of frame ``fi`` -- frames in one bucket may belong to
+    different output streams."""
+    lane = 0
+    for fi in frame_idx:
+        f = frames[fi]
+        pcm, o = targets[fi]
+        for ci in range(n_ch):
+            pcm[o:o + f.block_size, ci] = out[lane, :f.block_size]
+            lane += 1
+
+
+def device_decode_bucket(x, coefs, shifts, orders, wasted, pair_modes,
+                         lengths=None, device="cuda"):
+    """Run K1 + K3 on one bucket of :func:`pack_bucket`'s numpy arrays,
+    uploaded to ``device``; returns the (L, T) int32 PCM tensor there.
+    Lanes pair-aligned; ``lengths`` defaults to T for every lane."""
+    from .ops.predict import synthesize_epilogue
+    from .pipeline_bits import _to_device
+
+    if lengths is None:
+        lengths = np.full(x.shape[0], x.shape[1], dtype=np.int32)
+    x, coefs, shifts, orders, wasted, pair_modes, lengths = (
+        _to_device(a, device)
+        for a in (x, coefs, shifts, orders, wasted, pair_modes, lengths))
+    return synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
+                               pair_modes)
+
+
+def decode_frames_to(frames, targets, decode_bucket=None,
+                     lane_quantum=_L_QUANTUM, device="cuda"):
+    """Decode a list of FrameDescs bucket by bucket, scattering each frame
+    into its ``targets`` destination. ``decode_bucket`` receives each
+    bucket's seven numpy arrays (:func:`pack_bucket`) and returns its
+    (L, T) PCM, a numpy array or a tensor; None is
+    :func:`device_decode_bucket` on ``device``."""
+    if decode_bucket is None:
+        def decode_bucket(*packed):
+            return device_decode_bucket(*packed, device=device)
+    for (t_bucket, n_ch), frame_idx in group_frames(
+            frames, lane_quantum).items():
+        packed = pack_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum)
+        out = decode_bucket(*packed)
+        # A tensor, on the card or the CPU, comes back through .cpu().
+        out = out.cpu().numpy() if isinstance(out, torch.Tensor) else \
+            np.asarray(out)
+        scatter_bucket(out, frames, frame_idx, n_ch, targets)
+
+
+def _dispatch_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum,
+                     device):
+    """Pack one bucket, upload it and queue its kernels on ``device``:
+    K3b unpack when the residuals went up as int16 pairs, then K1 + K3.
+    Returns (the bucket's dispatch, bytes uploaded). K3b pack runs later,
+    in ``DeviceDecoded.start_fetch``, when ``packed`` is set."""
+    from .ops.epilogue import unpack_int16_pairs
+    from .ops.predict import synthesize_epilogue
+    from .pipeline_bits import _pack_input_i16, _to_device
+
+    arrays = pack_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum)
+    x = arrays[0]
+    L, T = x.shape
+    # Input packing: when every value (residuals + warm-up) fits int16 and
+    # T is even, ship half the bytes and unpack on the card.
+    in_packed = (_LITTLE_ENDIAN and T % 2 == 0 and
+                 x.min() >= -32768 and x.max() <= 32767)
+    if in_packed:
+        arrays = (_pack_input_i16(x),) + arrays[1:]
+    # Output packing: final PCM fits bps bits for valid streams; the
+    # overflow flag guards invalid ones.
+    out_packed = (_LITTLE_ENDIAN and T % 2 == 0 and
+                  all(frames[fi].bps <= 16 for fi in frame_idx))
+    x, coefs, shifts, orders, wasted, pair_modes, lengths = (
+        _to_device(a, device) for a in arrays)
+    if in_packed:
+        x = unpack_int16_pairs(x)
+    out = synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
+                              pair_modes)
+    return (_BucketDispatch(n_ch, out, out_packed, frame_idx=frame_idx),
+            sum(a.nbytes for a in arrays))
+
+
+def frame_offsets(frames):
+    """Output-sample start offset of each frame (len(frames)+1 entries)."""
+    offsets = np.zeros(len(frames) + 1, dtype=np.int64)
+    for i, f in enumerate(frames):
+        offsets[i + 1] = offsets[i] + f.block_size
+    return offsets
+
+
+def _prepare_outputs(batches):
+    """Allocate per-stream PCM and the flat frame/target lists."""
+    frames, targets, results = [], [], []
+    for batch in batches:
+        si = batch.streaminfo
+        # The aggregated (total, channels) output requires a consistent
+        # channel count; the streaming blocks() API handles per-frame
+        # variation, but here it is a format error (crash-free reject).
+        for f in batch.frames:
+            if f.channels != si.channels:
+                fmt_err("frame channel count does not match streaminfo")
+        total = sum(f.block_size for f in batch.frames)
+        pcm = np.zeros((total, si.channels), dtype=np.int32)
+        offsets = frame_offsets(batch.frames)
+        for i, f in enumerate(batch.frames):
+            frames.append(f)
+            targets.append((pcm, int(offsets[i])))
+        results.append(DecodedStream(
+            streaminfo=si, pcm=pcm,
+            frame_times=[f.time for f in batch.frames],
+            frame_sizes=[f.block_size for f in batch.frames]))
+    return frames, targets, results
+
+
+def decode_batches_device(batches, lane_quantum=_L_QUANTUM,
+                          device="cuda") -> DeviceDecoded:
+    """Decode many StreamBatches (``extract.extract_stream`` or
+    ``native.extract_stream``) into buckets on ``device``, the FrameDesc
+    route. Every bucket is queued before any result is awaited. Each
+    bucket's lane plan holds one run per frame. ``crc_check`` stays None:
+    both extractors checked every frame's CRC-16 on the host."""
+    frames, targets, results = _prepare_outputs(batches)
+    stream_of_pcm = {id(r.pcm): i for i, r in enumerate(results)}
+    dispatches, plans, upload = [], [], 0
+    for (t_bucket, n_ch), frame_idx in group_frames(
+            frames, lane_quantum).items():
+        d, nbytes = _dispatch_bucket(frames, frame_idx, n_ch, t_bucket,
+                                     lane_quantum, device)
+        dispatches.append(d)
+        upload += nbytes
+        plan, lane = [], 0
+        for fi in frame_idx:
+            pcm, off = targets[fi]
+            plan.append((stream_of_pcm[id(pcm)], off, 1,
+                         frames[fi].block_size, n_ch, lane))
+            lane += n_ch
+        plans.append(plan)
+    dd = DeviceDecoded(results, dispatches, plans,
+                       [r.pcm for r in results])
+    dd.frames = frames
+    dd.upload_bytes = upload
+    return dd
+
+
+def decode_batches(batches, decode_bucket=None, lane_quantum=_L_QUANTUM,
+                   device="cuda") -> List[DecodedStream]:
+    """Decode many StreamBatches at once; frames from *all* streams share
+    buckets. ``decode_bucket`` replaces the per-bucket device call (see
+    :func:`decode_frames_to`)."""
+    if decode_bucket is None:
+        return decode_batches_device(batches, lane_quantum,
+                                     device).start_fetch().to_host()
+    frames, targets, results = _prepare_outputs(batches)
+    decode_frames_to(frames, targets, decode_bucket, lane_quantum, device)
+    return results
+
+
+def decode_batch(batch, decode_bucket=None, lane_quantum=_L_QUANTUM,
+                 device="cuda") -> DecodedStream:
+    """Decode one extracted StreamBatch (see :func:`decode_batches`)."""
+    return decode_batches([batch], decode_bucket, lane_quantum, device)[0]
+
+
+def _extract(data, use_native):
+    """One stream's StreamBatch: the C++ core's FrameDesc extraction, or
+    with ``use_native=False`` the Python extractor."""
+    if use_native:
+        return _native().extract_stream(data)
+    from .extract import extract_stream
+
+    return extract_stream(data)
 
 
 def merge_decoded(n_streams, parts):
@@ -558,9 +801,10 @@ def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
                           segmentation=None, device="cuda") -> DeviceDecoded:
     """Decode many FLAC streams (bytes) into PCM buckets on ``device``.
 
-    The arguments keep the reference's order. ``use_native=False`` (the
-    reference's Python extractor) raises NotImplementedError: the port
-    walks streams with its C++ core only.
+    The arguments keep the reference's order. ``use_native=False``
+    extracts every stream with the Python extractor and takes the
+    FrameDesc route (:func:`decode_batches_device`) whatever
+    ``segmentation`` says; ``"auto"`` calibrates nothing then.
 
     ``segmentation="device"`` takes the segmented path (``pipeline_seg``:
     frame search and subframe walk on the card, odd streams on the host
@@ -569,7 +813,9 @@ def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
     device's type; None reads
     ``CLAXON_TPU_SEGMENTATION`` and defaults to ``"auto"``. Every other
     value takes the host-walk bits path. All paths are bit-exact."""
-    _require_native(use_native, "the stream decode")
+    if not use_native:
+        return decode_batches_device([_extract(d, False) for d in datas],
+                                     lane_quantum, device)
     segmentation = _resolve_segmentation(segmentation, device)
     if segmentation == "auto":
         return _calibrate_segmentation(datas, lane_quantum, device)
@@ -604,11 +850,11 @@ def decode_streams_device_async(datas, use_native=True,
     Only the segmented path has a first stage (uploads, frame search and
     subframe walk, the summary copy started), so a caller that begins
     batch n+1 before finishing batch n hides the summary wait behind the
-    next batch's host work. The host-walk path decodes eagerly, and so
-    does the first ``"auto"`` batch, which calibrates."""
-    _require_native(use_native, "the stream decode")
+    next batch's host work. The host-walk path and the FrameDesc route
+    (``use_native=False``) decode eagerly, and so does the first
+    ``"auto"`` batch, which calibrates."""
     segmentation = _resolve_segmentation(segmentation, device)
-    if segmentation == "device":
+    if use_native and segmentation == "device":
         from .pipeline_seg import (_host_fallback, begin_segmented,
                                    finish_segmented)
 
@@ -617,8 +863,8 @@ def decode_streams_device_async(datas, use_native=True,
             return PendingDeviceBatch(lambda: finish_segmented(pending))
         dd = _host_fallback(datas, lane_quantum, device)
     else:
-        dd = decode_streams_device(datas, lane_quantum=lane_quantum,
-                                   segmentation=segmentation, device=device)
+        dd = decode_streams_device(datas, use_native, lane_quantum,
+                                   segmentation, device)
     return PendingDeviceBatch(lambda: dd)
 
 
@@ -627,15 +873,15 @@ def decode_streams(datas, use_native=True, decode_bucket=None,
                    device="cuda") -> List[DecodedStream]:
     """Decode many FLAC streams in one batch, on the default route (see
     ``decode_streams_device``); PCM on the host. A ``decode_bucket``
-    other than None (the reference's FrameDesc dispatch) raises
-    NotImplementedError, as ``use_native=False`` does."""
-    if decode_bucket is not None:
-        raise NotImplementedError(
-            "claxon_tpu_torch: decode_bucket (the FrameDesc dispatch) is "
-            "not ported; the stream decode runs the bits path only")
-    return decode_streams_device(datas, use_native=use_native,
-                                 lane_quantum=lane_quantum,
-                                 device=device).to_host()
+    other than None takes the FrameDesc route with that per-bucket call
+    (:func:`decode_frames_to`), the streams extracted as ``use_native``
+    says."""
+    if decode_bucket is None:
+        return decode_streams_device(datas, use_native,
+                                     lane_quantum=lane_quantum,
+                                     device=device).to_host()
+    return decode_batches([_extract(d, use_native) for d in datas],
+                          decode_bucket, lane_quantum, device)
 
 
 def decode_stream(data, use_native=True, device="cuda") -> DecodedStream:

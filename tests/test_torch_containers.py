@@ -284,16 +284,17 @@ def test_payload_above_the_byte_limit_decodes(monkeypatch, fmt):
 @pytest.mark.parametrize("name", ["decode_ogg_stream", "decode_mp4_stream"])
 def test_entry_point_contract(name):
     """Exported at the package root, on the card by default, the Python
-    extractor route refused, and the fetch goes through K3b's plain form
-    on the CPU (no kernel launch is counted)."""
+    extractor route (use_native=False) decoding the same PCM, and the
+    fetch going through K3b's plain form on the CPU (no kernel launch is
+    counted)."""
     fn = getattr(ct, name)
     assert fn is getattr(tc, name)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="use_native=False"):
-        fn(b"", use_native=False, device="cpu")
     flac = _flac(n=2000)
     data = ttesting.mux_ogg_flac(flac) if "ogg" in name else \
         ttesting.mux_mp4_flac(flac)
+    assert np.array_equal(fn(data, use_native=False, device="cpu").pcm,
+                          tnative.decode_stream_scalar(flac)[1])
     before = (tepilogue.pack_int16_pairs.launches,
               tepilogue.unpack_int16_pairs.launches)
     dec = fn(data, device="cpu")

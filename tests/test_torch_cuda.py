@@ -1424,3 +1424,61 @@ def test_new_wrappers_launch_or_raise(cuda):
         crc.crc16_frames_device(w, one, one, 2)
     with pytest.raises(ValueError):
         crc.crc16_frames_device(w.to(torch.int32), one.cpu(), one, 2)
+
+
+def test_framedesc_route_headline_bucket_matches_plain(cuda):
+    """The FrameDesc route at full width: headline x4 through
+    native.extract_stream and decode_batches_device is one bucket (L 6912,
+    T 4096) whose residuals go up as int16 pairs. K3b unpack, then K1 + K3,
+    one launch each, equal to their plain forms on the same upload; the
+    int16 fetch (one K3b pack launch) gives the scalar decoder's PCM."""
+    from claxon_tpu_torch import native as tnative
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch.ops import epilogue, predict
+    from claxon_tpu_torch.pipeline_bits import _pack_input_i16
+
+    datas = _headline_x4()
+    batches = [tnative.extract_stream(d) for d in datas]
+    wrappers = (predict.synthesize_epilogue, epilogue.unpack_int16_pairs,
+                epilogue.pack_int16_pairs, predict.synthesize)
+    before = [w.launches for w in wrappers]
+    dd = tp.decode_batches_device(batches, device=cuda)
+    assert [w.launches for w in wrappers] == [before[0] + 1, before[1] + 1,
+                                              before[2], before[3]]
+    (d,) = dd.dispatches
+    assert tuple(d.out_full.shape) == (6912, 4096) and d.packed
+    x, coefs, shifts, orders, wasted, pair_modes, lengths = tp.pack_bucket(
+        dd.frames, d.frame_idx, 2, 4096)
+    x16 = _c(_pack_input_i16(x), cuda)
+    unpacked = epilogue.unpack_int16_pairs(x16)
+    assert torch.equal(unpacked, epilogue.unpack_int16_pairs_plain(x16))
+    assert torch.equal(unpacked, _c(x, cuda))
+    args = [_c(a, cuda) for a in (coefs, shifts, orders, lengths, wasted,
+                                  pair_modes)]
+    plain = predict.synthesize_epilogue_plain(unpacked, *args)
+    assert torch.equal(d.out_full, plain)
+    out = dd.to_host()
+    assert epilogue.pack_int16_pairs.launches == before[2] + 1
+    assert int(d.flag) == 0
+    _assert_scalar_and_md5(datas, out)
+    torch.cuda.synchronize()
+
+
+def test_framedesc_route_24bit_bucket_does_not_pack(cuda):
+    """use_native=False on the generated corpus, on the card: every bucket
+    packs its output exactly when all its frames are 16-bit or narrower
+    (the 24-bit and 20-bit streams' buckets do not, and launch no K3b
+    pack), and the PCM is the scalar decoder's."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch.ops import epilogue
+
+    datas = [p.read_bytes() for p in sorted(GENERATED.glob("*.flac"))]
+    dd = ct.decode_streams_device(datas, False, device=cuda)
+    want = [all(dd.frames[fi].bps <= 16 for fi in d.frame_idx)
+            for d in dd.dispatches]
+    assert [d.packed for d in dd.dispatches] == want
+    assert not all(want) and any(want)
+    n = epilogue.pack_int16_pairs.launches
+    _assert_scalar_and_md5(datas, dd.to_host())
+    assert epilogue.pack_int16_pairs.launches == n + sum(want)
+    torch.cuda.synchronize()

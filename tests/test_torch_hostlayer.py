@@ -1,10 +1,13 @@
 """The port's own copy of the host layer (``claxon_tpu_torch.native``,
 ``metadata``, ``containers``, ``error`` and ``testing``) against the JAX
 package's originals: the C++ boundary walk field by field, the scalar
-decoder, the bulk CRC-16 and the metadata parse on the generated corpus
-and encoded streams; the batch merge and the container demuxers field by field; the
-encoder byte for byte; and the errors of malformed inputs by
-class name and message. Equality is exact."""
+decoder, the reader's single-frame decode, the bulk CRC-16 and the
+metadata parse on the generated corpus and encoded streams; the tag
+iterators and seek-table types; the batch merge and the container
+demuxers field by field; the encoder byte for byte; and the errors of
+malformed inputs by class name and message. Equality is exact. (The
+reader API, the Python extractor and the FrameDesc dispatch are held to
+theirs in tests/test_torch_reader.py and tests/test_torch_extract.py.)"""
 
 import dataclasses
 import pathlib
@@ -81,6 +84,69 @@ def test_scalar_decode_and_metadata_match_jax(name):
     assert np.array_equal(jpcm, tpcm)
     if tsi.md5sum != b"\x00" * 16:
         assert ttesting.pcm_md5(tpcm, tsi.bits_per_sample) == tsi.md5sum
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_decode_frames_limited_matches_jax(name):
+    """The FrameReader fast path's entry: one, three and every frame from
+    the first frame on, and a window cut mid-frame, whose IoError (the
+    reader's "read more" signal) is the same."""
+    from claxon_tpu.error import Error as JError
+
+    data = _stream(name)
+    _si, pos = t_read_metadata(data)
+    section = memoryview(data)[pos:]
+    for window, n in ((section, 1), (section, 3), (section, 1 << 30),
+                      (section[:len(section) // 2], 1 << 30)):
+        try:
+            want = jnative.decode_frames_limited(window, n)
+        except JError as e:
+            with pytest.raises(ct.Error) as got:
+                tnative.decode_frames_limited(window, n)
+            assert (type(got.value).__name__, str(got.value)) == \
+                (type(e).__name__, str(e))
+            continue
+        got = tnative.decode_frames_limited(window, n)
+        assert got[0] == want[0]
+        assert got[1].dtype == want[1].dtype
+        assert np.array_equal(got[1], want[1])
+        assert np.array_equal(got[2], want[2])
+
+
+def test_tag_iterators_and_seek_types_match_jax():
+    """Tags and GetTag over raw comments (ASCII-only case folding: the
+    Kelvin sign never matches 'k'), and SeekPoint / SeekTable."""
+    from claxon_tpu import metadata as jm
+
+    from claxon_tpu_torch import metadata as tm
+
+    raw = [("ARTIST=Queen", 6), ("artist=Bowie", 6), ("TITLE=x", 5),
+           ("KEY=v", 3), ("\u212aey=w", 3), ("=empty", 0)]
+    assert list(tm.Tags(raw)) == list(jm.Tags(raw))
+    assert len(tm.Tags(raw)) == len(jm.Tags(raw)) == 6
+    for needle in ("artist", "Artist", "key", "\u212aey", "", "TITLE",
+                   "missing"):
+        assert list(tm.GetTag(raw, needle)) == list(jm.GetTag(raw, needle))
+        assert tm._eq_ignore_ascii_case(needle, "KEY") == \
+            jm._eq_ignore_ascii_case(needle, "KEY")
+    assert list(tm.GetTag(raw, "key")) == ["v"]
+    point = tm.SeekPoint(sample=1, offset=2, samples=3)
+    assert dataclasses.astuple(point) == dataclasses.astuple(
+        jm.SeekPoint(sample=1, offset=2, samples=3))
+    assert tm.SeekTable().seekpoints == jm.SeekTable().seekpoints == []
+    assert set(jm.__all__) <= set(tm.__all__)
+
+
+def test_pack_coefficients_matches_jax():
+    from claxon_tpu.ops.predict import pack_coefficients as j_pack
+
+    from claxon_tpu_torch.ops.predict import pack_coefficients as t_pack
+
+    rng = np.random.default_rng(31)
+    lists = [rng.integers(-2**15, 2**15, n).astype(np.int32)
+             for n in (0, 1, 4, 12, 32)] + [[], [3, -4]]
+    got, want = t_pack(lists), j_pack(lists)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_crc16_bytes_matches_jax():

@@ -5,8 +5,12 @@ not ``claxon_tpu_torch``), ``claxon_tpu_torch`` and ``chip_smoke`` import,
 the port's own encoder, muxers and C++ core work, and small streams decode
 on the CPU bit-exactly through the host-walk and the segmented paths, in
 the delta and scan entropy modes and with the host CRC check, and from
-Ogg and MP4 containers; and the plain forms of rice_decode, crc16_device
-and crc16_frames_device run."""
+Ogg and MP4 containers; the reader API reads them (``FlacReader``'s
+samples on both reader routes, ``FrameReader`` blocks from a file-like
+input), and ``use_native=False`` decodes them through the Python
+extractor and the FrameDesc route, with and without a ``decode_bucket``;
+and the plain forms of rice_decode, crc16_device and crc16_frames_device
+run."""
 
 import pathlib
 import subprocess
@@ -110,6 +114,31 @@ _SCRIPT = textwrap.dedent("""
     ogg = ct.decode_ogg_stream(mux_ogg_flac(data), device="cpu")
     mp4 = ct.decode_mp4_stream(mux_mp4_flac(data, 2), device="cpu")
     assert np.array_equal(ogg.pcm, pcm) and np.array_equal(mp4.pcm, pcm)
+    import functools
+    import io
+
+    from claxon_tpu_torch.pipeline import device_decode_bucket
+
+    for knob in (None, "1"):
+        if knob:
+            os.environ["CLAXON_TPU_NO_NATIVE_READER"] = knob
+        got = np.array(list(ct.FlacReader(data).samples()))
+        assert np.array_equal(got, pcm.reshape(-1)), knob
+        fr = ct.FrameReader(ct.FlacReader(io.BytesIO(mono)).blocks().input)
+        blocks = []
+        while (b := fr.read_next_or_eof()) is not None:
+            blocks.append(b.channel(0).copy())
+        assert np.array_equal(np.concatenate(blocks), pcm[:, 0]), knob
+        os.environ.pop("CLAXON_TPU_NO_NATIVE_READER", None)
+    out = ct.decode_streams([data, mono], False, device="cpu")
+    assert np.array_equal(out[0].pcm, pcm)
+    assert np.array_equal(out[1].pcm, pcm[:, :1])
+    out = ct.decode_streams([data], False, functools.partial(
+        device_decode_bucket, device="cpu"), device="cpu")
+    assert np.array_equal(out[0].pcm, pcm)
+    ogg = ct.decode_ogg_stream(mux_ogg_flac(data), use_native=False,
+                               device="cpu")
+    assert np.array_equal(ogg.pcm, pcm)
     try:
         ct.decode_streams_device([data[:4] + b"!" + data[5:]], device="cpu")
     except ct.FormatError as e:

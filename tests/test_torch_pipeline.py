@@ -506,19 +506,17 @@ def test_decode_streams_device_empty_batch():
 
 
 def test_unported_options_raise(monkeypatch):
-    """The Python-extractor route (use_native=False) is not ported: the
-    container calls raise for it. segmentation="auto" is ported and no
-    longer raises: it calibrates and decodes exactly. A single stream at
-    the 2^27-byte batch limit (int32 chunk bit positions) does not raise
-    either: both paths walk it in chunks of frames and decode it
-    exactly."""
+    """Options that once raised now decode exactly. The Python-extractor
+    route (use_native=False) decodes a container through the FrameDesc
+    route. segmentation="auto" calibrates and decodes. A single stream at
+    the 2^27-byte batch limit (int32 chunk bit positions) walks in chunks
+    of frames on both paths."""
     import claxon_tpu_torch.pipeline as tp
     from claxon_tpu_torch.testing import mux_ogg_flac
 
     data = _configs()[1]
-    with pytest.raises(NotImplementedError, match="use_native"):
-        ct.decode_ogg_stream(mux_ogg_flac(data), use_native=False,
-                             device="cpu")
+    _assert_oracle([data], [ct.decode_ogg_stream(
+        mux_ogg_flac(data), use_native=False, device="cpu")])
     monkeypatch.setitem(tp._seg_auto("cpu"), "choice", None)
     _assert_oracle([data], ct.decode_streams_device(
         [data], segmentation="auto", device="cpu").to_host())
@@ -553,25 +551,40 @@ def _positional_calls(data):
     "decode_streams_device_async", "decode_streams_pipelined"])
 def test_positional_use_native(entry):
     """``use_native`` sits where the reference has it: True decodes as the
-    default call does, and False (the Python extractor, not ported)
-    raises NotImplementedError, not an error from the argument landing
-    on another parameter."""
+    default call does, and False (the Python extractor and the FrameDesc
+    route) decodes the same PCM and frame times, not an error from the
+    argument landing on another parameter."""
     data = _configs()[1]
     call = _positional_calls(data)[entry]
     want = ct.decode_streams([data], device="cpu")[0]
-    (got,) = call(True)
-    assert np.array_equal(got.pcm, want.pcm)
-    assert got.frame_times == want.frame_times
-    with pytest.raises(NotImplementedError, match="use_native=False"):
-        call(False)
+    for use_native in (True, False):
+        (got,) = call(use_native)
+        assert np.array_equal(got.pcm, want.pcm)
+        assert got.frame_times == want.frame_times
 
 
-def test_positional_decode_bucket_raises():
-    """The reference's third positional argument of ``decode_streams``
-    (its FrameDesc dispatch) is not ported either."""
+def test_positional_decode_bucket_decodes():
+    """The reference's third positional argument of ``decode_streams``, its
+    per-bucket call on the FrameDesc route, receives each bucket's numpy
+    arrays and its result is the PCM."""
+    import functools
+
+    import claxon_tpu_torch.pipeline as tp
+
     data = _configs()[1]
-    with pytest.raises(NotImplementedError, match="decode_bucket"):
-        ct.decode_streams([data], True, lambda *a: None, device="cpu")
+    calls = []
+
+    def bucket(*arrays):
+        calls.append(len(arrays))
+        return tp.device_decode_bucket(*arrays, device="cpu").numpy()
+
+    (got,) = ct.decode_streams([data], True, bucket, device="cpu")
+    _assert_oracle([data], [got])
+    assert calls and set(calls) == {7}
+    (plain,) = ct.decode_streams(
+        [data], False, functools.partial(tp.device_decode_bucket,
+                                         device="cpu"), device="cpu")
+    assert np.array_equal(plain.pcm, got.pcm)
 
 
 @pytest.mark.parametrize("segmentation", ["host", "device"])

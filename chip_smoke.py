@@ -151,14 +151,37 @@ Phases, each of which raises on failure (so the script exits non-zero):
       device_decode_bucket), PCM equal to (h2)'s; (h4) FlacReader on the
       generated corpus on both reader routes (the native single-frame
       decode, and CLAXON_TPU_NO_NATIVE_READER=1), the samples' MD5 equal
-      to STREAMINFO's.
+      to STREAMINFO's;
+  (i) the sharded route (claxon_tpu_torch.parallel): make_mesh() (one
+      card) and a mesh of two shards on the one card each decode headline
+      x4 through decode_streams_sharded on the host walk and the
+      segmented path (each per-lane kernel launched once a shard per
+      bucket or dispatch, the front, K7 and the summary once a group),
+      then mixed and generated with segmentation "host", "device" and
+      None ("auto", the cached choice reset), and mixed with
+      use_native=False, every PCM equal to the unsharded decode's, the
+      scalar decoder's and the MD5; the two-shard mesh also decodes
+      headline x4 and mixed on the other entropy routes
+      (CLAXON_TPU_ENTROPY=delta: K9; CLAXON_TPU_SEG_ENTROPY=delta: K10;
+      =scan: K2), each per-lane kernel launched twice where (c)'s
+      unsharded decode of the route launched it once; K2 and K1 + K3 on
+      each shard of the
+      headline bucket, and K4 on each shard's half of its CRC ranges,
+      against their plain forms and timed; the overflow
+      stream through two shards (its shard's per-lane flag fires, that
+      shard alone comes back as int32); the device-resident decode of
+      headline x4 on both meshes, both paths, timed in turns (median of
+      5, with the range).
 
 The last three lines are the kernels' JSON summary (time, plain time,
 bound and launches of each on each path, K9 and K10 on their routes and
 beside their parent kernels, K2 also on the scan route; the routes'
 device-resident times; K1 + K3 also on (h2)'s bucket, and each kernel's
 launches there, "launches_framedesc", with (h)'s numbers under
-"framedesc"; K1 alone, an entry point that no decode path
+"framedesc"; the two-shard headline decodes' launches,
+"launches_sharded" and "launches_sharded_segmented", and on the other
+entropy routes "launches_sharded_routes", with (i)'s numbers under
+"sharded"; K1 alone, an entry point that no decode path
 runs, under "off_path_kernels"; K3 and
 the mb unpack, which are torch ops, under "torch_ops", K3 with its calls
 on the card), the card's name and power limit, and the
@@ -988,7 +1011,7 @@ def phase_b_seg(datas4, mixed):
     dispatch."""
     import torch
 
-    from claxon_tpu_torch import pipeline_seg
+    from claxon_tpu_torch import pipeline_bits, pipeline_seg
     from claxon_tpu_torch.ops import (crc, demux, epilogue, predict,
                                       seg_gather, seg_parse, segment)
 
@@ -1003,14 +1026,10 @@ def phase_b_seg(datas4, mixed):
     for label, datas in (("headline", datas4), ("mixed", mixed)):
         k8_calls, k1_calls, k4_calls = [], [], []
         dispatch = pipeline_seg._dispatch
-        crc16_ranges = crc.crc16_ranges
 
         def recording_crc(stream, starts, ends):
             k4_calls.append((stream, starts, ends))
-            return crc16_ranges(stream, starts, ends)
-
-        # The wrapper counts its launches on the module's name.
-        recording_crc.launches = 0
+            return crc.crc16_ranges(stream, starts, ends)
 
         def recording(mode, stream, walk, rws, lengths, modes, tb32, *rest):
             device = rest[-1]
@@ -1023,14 +1042,15 @@ def phase_b_seg(datas4, mixed):
             return dispatch(mode, stream, walk, rws, lengths, modes, tb32,
                             *rest)
 
+        # K4 launches through pipeline_bits on both paths (_crc_shards).
         pipeline_seg._dispatch = recording
-        crc.crc16_ranges = recording_crc
+        pipeline_bits.crc16_ranges = recording_crc
         try:
             pending = pipeline_seg.begin_segmented(datas, device=DEVICE)
             pipeline_seg.finish_segmented(pending).sync()
         finally:
             pipeline_seg._dispatch = dispatch
-            crc.crc16_ranges = crc16_ranges
+            pipeline_bits.crc16_ranges = crc.crc16_ranges
         if not k4_calls:
             raise AssertionError(f"{label}: the segmented decode ran no K4")
         for gi, (stream, starts, ends) in enumerate(k4_calls):
@@ -2276,6 +2296,238 @@ def phase_h(drive, datas4, mixed, generated):
     return row, b, counts, out
 
 
+#: The JAX package's other entropy routes: (variable, value,
+#: segmentation, the kernels the headline decode must launch).
+ENTROPY_ROUTES = (("CLAXON_TPU_ENTROPY", "delta", "host",
+                   ("K9", "K1+K3", "K3b_pack")),
+                  ("CLAXON_TPU_SEG_ENTROPY", "delta", "device",
+                   ("K5", "K6", "K7", "K10", "K1+K3", "K4", "K3b_pack")),
+                  ("CLAXON_TPU_SEG_ENTROPY", "scan", "device",
+                   ("K5", "K6", "K7", "K2", "K1+K3", "K4", "K3b_pack")))
+
+
+def phase_i(drive, datas4, mixed, generated, base, host_launches,
+            seg_launches, routes):
+    """(i) The sharded route (``claxon_tpu_torch.parallel``) on the card:
+    ``make_mesh()`` (every card: one here) and a mesh of two shards on the
+    one card. Each decodes headline x4 through ``decode_streams_sharded``
+    on the host walk and the segmented path, launches counted (each
+    per-lane kernel once a shard per bucket or dispatch, the group kernels
+    once a group: the unsharded counts of (c), ``host_launches`` and
+    ``seg_launches``, times the shards), then mixed and generated with
+    segmentation "host", "device" and None ("auto", the cached choice
+    reset), and mixed with use_native=False; the two-shard mesh also
+    decodes headline x4 and mixed on each of ``ENTROPY_ROUTES``, launches
+    counted against (c)'s unsharded ``routes``; every PCM is held to the
+    unsharded decode, the scalar decoder and the MD5. K2 and K1 + K3 are
+    held to their plain forms on each shard of the headline bucket, and
+    K4 on each shard's half of its CRC ranges, and timed; the overflow stream goes through the two-shard mesh (the
+    per-lane flag of its shard fires, that shard comes back as int32);
+    the device-resident decodes of headline x4 are timed on both meshes
+    (median of 5, with the range). Returns the two-shard launches and the
+    numbers for the JSON line."""
+    import numpy as np
+    import torch
+
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch import pipeline_seg as ps
+    from claxon_tpu_torch.ops import crc, entropy, predict
+    from claxon_tpu_torch.parallel import (decode_streams_sharded,
+                                           lane_quantum, make_mesh)
+    from claxon_tpu_torch.pipeline_bits import (inputs_from_numpy,
+                                                plan_raw_bits, unpack_mb)
+
+    per_lane = ("K1+K3", "K2", "K4", "K8", "K9", "K10", "K3b_pack",
+                "K3b_unpack")
+    group = ("K5", "K6", "K7")
+    meshes = {"one": make_mesh(),
+              "two": make_mesh(devices=[f"{DEVICE}:0"] * 2)}
+    if meshes["one"].size != 1 or meshes["two"].size != 2:
+        raise AssertionError(f"(i) meshes of {meshes['one'].size} and "
+                             f"{meshes['two'].size} devices")
+    out = {"launches": {}, "auto": {}}
+    os.environ.pop("CLAXON_TPU_SEGMENTATION", None)
+
+    def unsharded(datas, segmentation):
+        return [r.pcm for r in ct.decode_streams_device(
+            datas, segmentation=segmentation, device=DEVICE).to_host()]
+
+    def held(label, datas, res, want):
+        check_decoded(f"(i) {label}", datas, res)
+        if any(not np.array_equal(r.pcm, w) for r, w in zip(res, want)):
+            raise AssertionError(f"(i) {label}: PCM != the unsharded "
+                                 "decode's")
+
+    want4 = unsharded(datas4, "host")
+    for name, mesh in meshes.items():
+        n = mesh.size
+        for path, ref, kernels in (
+                ("host", host_launches, ("K1+K3", "K2", "K4", "K3b_pack")),
+                ("device", seg_launches,
+                 ("K1+K3", "K4", "K5", "K6", "K7", "K8", "K3b_pack"))):
+            res, counts = drive(kernels, lambda: decode_streams_sharded(
+                datas4, mesh, segmentation=path))
+            held(f"headline x{HEADLINE_REPLICAS}, {path}, {name} shard(s)",
+                 datas4, res, want4)
+            want = {k: ref[k] * (n if k in per_lane else 1)
+                    for k in per_lane + group}
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError(f"(i) {path}, {n} shard(s): launches "
+                                     f"{counts}, expected {want}")
+            out["launches"][f"{path}_{name}"] = counts
+            log(f"(i) headline x{HEADLINE_REPLICAS}, {path}, {n} shard(s) "
+                f"({mesh.devices}): bit-exact; launches {counts}")
+        for label, datas in (("mixed", mixed), ("generated", generated)):
+            for segmentation in ("host", "device", None):
+                if segmentation is None:
+                    tp._SEG_AUTO.clear()
+                want = unsharded(datas, segmentation or "host")
+                res = decode_streams_sharded(datas, mesh,
+                                             segmentation=segmentation)
+                tag = segmentation or "auto (chose " + str(
+                    tp._seg_auto(mesh.devices[0])["choice"]) + ")"
+                held(f"{label}, {tag}, {name} shard(s)", datas, res, want)
+                if segmentation is None:
+                    out["auto"][f"{label}_{name}"] = tp._seg_auto(
+                        mesh.devices[0])["choice"]
+        res = decode_streams_sharded(mixed, mesh, use_native=False)
+        held(f"mixed, use_native=False, {name} shard(s)", mixed, res,
+             unsharded(mixed, "host"))
+
+    # The other entropy routes over two shards: each per-lane kernel
+    # (K9, K10, K2 among them) once a shard where (c)'s unsharded decode
+    # of the route launched it once, the group kernels once a group.
+    two = meshes["two"]
+    for var, value, path, kernels in ENTROPY_ROUTES:
+        route = f"{var}={value}"
+        ref = routes[route]["launches"]
+        os.environ[var] = value
+        try:
+            res, counts = drive(kernels, lambda: decode_streams_sharded(
+                datas4, two, segmentation=path))
+            held(f"headline x{HEADLINE_REPLICAS}, {route}, two shard(s)",
+                 datas4, res, want4)
+            held(f"mixed, {route}, two shard(s)", mixed,
+                 decode_streams_sharded(mixed, two, segmentation=path),
+                 unsharded(mixed, path))
+        finally:
+            del os.environ[var]
+        want = {k: ref[k] * (two.size if k in per_lane else 1)
+                for k in per_lane + group + ("K7_with_deltas",)}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"(i) {route}, two shards: launches "
+                                 f"{counts}, expected {want}")
+        out["launches"][f"{route}_two"] = counts
+        log(f"(i) headline x{HEADLINE_REPLICAS}, {route}, two shards: "
+            f"bit-exact; launches {counts}")
+
+    # K2 and K1 + K3 on each shard of the headline bucket, against their
+    # plain forms and timed; their sums beside the whole bucket's.
+    bp = plan_raw_bits(tp.extract_streams_bits(datas4, native),
+                       lane_quantum(two), "stream", two.size)
+    (b,) = bp.bits
+    stream, _mb, _se = inputs_from_numpy(bp.stream, None, None, DEVICE)
+    shard_rows = []
+    for lo, hi in ((0, len(b.mb)), (0, len(b.mb) // 2),
+                   (len(b.mb) // 2, len(b.mb))):
+        mb = inputs_from_numpy(b.mb[lo:hi], device=DEVICE)[0]
+        u = unpack_mb(mb, b.n_parts_max, b.nc)
+        k2_args = (stream, u["bases"], u["ks"], u["ps"], u["orders"],
+                   u["pbits"], u["flags"], u["warm"], u["lengths"])
+        kw = dict(n_parts_max=b.n_parts_max, sa=b.sa)
+        tag = f"lanes {lo}-{hi}"
+        r2 = compare(f"(i) K2 {tag}", lambda: entropy.
+                     decode_residual_bits_stream(*k2_args, **kw),
+                     lambda: entropy.decode_residual_bits_stream_plain(
+                         *k2_args, **kw))
+        x = entropy.decode_residual_bits_stream(*k2_args, **kw)
+        k13_args = (x, u["coefs"], u["shifts"], u["orders"], u["lengths"],
+                    u["wasted"], u["pair_modes"])
+        r13 = compare(f"(i) K1+K3 {tag}",
+                      lambda: predict.synthesize_epilogue(*k13_args),
+                      lambda: predict.synthesize_epilogue_plain(*k13_args))
+        shard_rows.append({"lanes": [lo, hi], "K2_ms": r2[1],
+                           "K2_plain_ms": r2[2], "K1+K3_ms": r13[1],
+                           "K1+K3_plain_ms": r13[2]})
+        log(f"(i) {tag} of the headline bucket (T {b.nc * 32}): K2 == plain "
+            f"{r2[1]:.4f} ms (plain {r2[2]:.1f}), K1+K3 == plain "
+            f"{r13[1]:.4f} ms (plain {r13[2]:.1f})")
+    # K4 on each shard's half of the batch's CRC ranges.
+    F = bp.se.shape[1]
+    for row, (lo, hi) in zip(shard_rows, ((0, F), (0, F // 2),
+                                          (F // 2, F))):
+        se = inputs_from_numpy(bp.se[:, lo:hi], device=DEVICE)[0]
+        starts, ends = se[0].contiguous(), se[1].contiguous()
+        r4 = compare(f"(i) K4 ranges {lo}-{hi}",
+                     lambda: crc.crc16_ranges(stream, starts, ends),
+                     lambda: crc.crc16_ranges_plain(stream, starts, ends))
+        row.update(K4_ranges=[lo, hi], K4_ms=r4[1], K4_plain_ms=r4[2])
+        log(f"(i) K4 on ranges {lo}-{hi} of {F}: == plain {r4[1]:.4f} ms "
+            f"(plain {r4[2]:.1f})")
+    out["shard_kernels"] = shard_rows
+    for k in ("K2_ms", "K1+K3_ms", "K4_ms"):
+        total = sum(r[k] for r in shard_rows[1:])
+        log(f"(i) {k[:-3]}: the two shards {total:.4f} ms against the "
+            f"whole bucket's {shard_rows[0][k]:.4f} ms")
+
+    # The overflow stream behind a headline stream: 222 lanes, one bucket
+    # of 256 split at lane 128, the damaged frame in the second shard.
+    loud = overflow_stream()
+    pair = [base[0], loud]
+    for path in ("host", "device"):
+        if path == "host":
+            dd = tp._decode_host_walk(pair, lane_quantum(two), two.devices[0],
+                                      mesh=two)
+        else:
+            dd = ps.decode_streams_segmented(pair, mesh=two)
+        res = dd.to_host()
+        check_decoded(f"(i) overflow stream's neighbour, {path}", pair[:1],
+                      res[:1])
+        if not np.array_equal(res[1].pcm, native.decode_stream_scalar(
+                loud)[1]):
+            raise AssertionError(f"(i) overflow stream, {path}: PCM != "
+                                 "scalar decoder")
+        leaves = [(int(s.flag.sum()), s.host is not None)
+                  for d in dd.dispatches for s in d.shards]
+        if [refetched for _f, refetched in leaves] != \
+                [flagged > 0 for flagged, _r in leaves] or \
+                sum(refetched for _f, refetched in leaves) != 1:
+            raise AssertionError(f"(i) overflow stream, {path}: shard flags "
+                                 f"and refetches {leaves}")
+        out[f"overflow_{path}"] = leaves
+        log(f"(i) overflow stream through two shards, {path}: per shard "
+            f"(lanes flagged, refetched as int32) {leaves}; PCM == scalar "
+            "decoder")
+
+    # Device-resident headline x4 on both meshes, in turns.
+    runs = {}
+    for path in ("host", "device"):
+        def decode(mesh):
+            if path == "host":
+                return tp._decode_host_walk(datas4, lane_quantum(mesh),
+                                            mesh.devices[0], mesh=mesh)
+            return ps.decode_streams_segmented(datas4, mesh=mesh)
+
+        for name in ("one", "two", "two", "one") * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(meshes[name]).sync()
+            runs.setdefault(f"{path}_{name}", []).append(
+                (time.perf_counter() - t0) * 1e3)
+    out["device_resident_ms"] = {}
+    for key, ts in runs.items():
+        ts = ts[1:]  # the first run of each is a warm-up
+        med = statistics.median(ts)
+        out["device_resident_ms"][key] = {"median": med, "min": min(ts),
+                                          "max": max(ts), "runs": ts}
+        log(f"(i) headline x{HEADLINE_REPLICAS} device-resident, {key}: "
+            f"{med:.1f} ms (median of {len(ts)}, {min(ts):.1f}-"
+            f"{max(ts):.1f})")
+    return out["launches"]["host_two"], out["launches"]["device_two"], out
+
+
 def main():
     import torch
 
@@ -2520,6 +2772,7 @@ def main():
         ("K1+K3", "K2", "K4", "K3b_pack", "K3b_unpack"),
         lambda: fetched(ct.decode_streams_device(datas4, segmentation="host",
                                                  device=DEVICE)))
+    host_launches = dict(launches)
     res = dd.results
     log(f"(c) host-walk path, launches in the headline decode to host: "
         f"{launches}")
@@ -2622,14 +2875,8 @@ def main():
         headline x4 (launches counted), mixed and generated to host, held
         to the scalar decoder and the MD5, and is timed device-resident
         (median of 3 after a warm-up run)."""
-        specs = (("CLAXON_TPU_ENTROPY", "delta", "host",
-                  ("K9", "K1+K3", "K3b_pack")),
-                 ("CLAXON_TPU_SEG_ENTROPY", "delta", "device",
-                  ("K5", "K6", "K7", "K10", "K1+K3", "K4", "K3b_pack")),
-                 ("CLAXON_TPU_SEG_ENTROPY", "scan", "device",
-                  ("K5", "K6", "K7", "K2", "K1+K3", "K4", "K3b_pack")))
         out = {}
-        for var, value, seg, path in specs:
+        for var, value, seg, path in ENTROPY_ROUTES:
             route = f"{var}={value}"
 
             def decode(datas):
@@ -2853,6 +3100,10 @@ def main():
     h_row, h_bound, h_launches, framedesc = phase_h(drive, datas4, mixed,
                                                     generated)
     log(f"(h) the FrameDesc route took {time.perf_counter() - t_h:.1f} s")
+    t_i = time.perf_counter()
+    i_host, i_seg, sharded = phase_i(drive, datas4, mixed, generated, base,
+                                     host_launches, seg_launches, routes)
+    log(f"(i) the sharded route took {time.perf_counter() - t_i:.1f} s")
 
     sources = {"K1+K3": ("claxon_tpu_torch/csrc/synth.cu",
                          "claxon_tpu/ops/pallas_synth.py:127"),
@@ -2905,6 +3156,15 @@ def main():
         k["launches_ogg"] = g_launches.get(k["name"], 0)
         # The FrameDesc route's headline x4 batch (h2).
         k["launches_framedesc"] = h_launches.get(k["name"], 0)
+        # Headline x4 over two shards on the card (i): host walk and
+        # segmented.
+        k["launches_sharded"] = i_host.get(k["name"], 0)
+        k["launches_sharded_segmented"] = i_seg.get(k["name"], 0)
+        # ... and on the other entropy routes.
+        k["launches_sharded_routes"] = {
+            var + "=" + value: sharded["launches"][
+                f"{var}={value}_two"].get(k["name"], 0)
+            for var, value, _seg, _path in ENTROPY_ROUTES}
         if k["name"] == "K1+K3":
             k["also_replaces"] = "claxon_tpu/ops/epilogue.py:39"
             k["k1_alone_ms"] = rows["K1"][1]
@@ -3006,6 +3266,7 @@ def main():
                       "pipelined": {"launches": pipe_launches,
                                     "depth_ms": depth_ms},
                       "framedesc": framedesc,
+                      "sharded": sharded,
                       "device_idle": {p: (None if v is None else
                                           {"busy_ms": v[0], "wall_ms": v[1]})
                                       for p, v in idle.items()}}))

@@ -23,11 +23,15 @@ PyTorch form.
 * ``seg_gather`` -- K8 values gather (CUDA, ``csrc/seg_gather.cu``).
 
 A wrapper takes its plain form only for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises. As in the JAX package, the
-package exports ``crc16_device`` and ``rice_decode``.
+tensors it launches its kernel or raises. The package exports the JAX
+package's names but ``i64``, its 32-bit limb arithmetic, which CUDA's
+int64 makes unneeded.
 """
 
 from .crc import crc16_device
+from .epilogue import apply_epilogue
+from .predict import synthesize, synthesize_best, synthesize_reference
 from .rice import rice_decode
 
-__all__ = ["crc16_device", "rice_decode"]
+__all__ = ["synthesize", "synthesize_best", "synthesize_reference",
+           "apply_epilogue", "crc16_device", "rice_decode"]

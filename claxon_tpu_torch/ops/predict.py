@@ -26,7 +26,8 @@ from . import _build
 from ._checks import on_cpu, require_cuda_int32
 from .epilogue import apply_epilogue
 
-__all__ = ["synthesize", "synthesize_plain", "synthesize_epilogue",
+__all__ = ["synthesize", "synthesize_plain", "synthesize_best",
+           "synthesize_reference", "synthesize_epilogue",
            "synthesize_epilogue_plain", "pack_coefficients", "ORDER_MAX"]
 
 ORDER_MAX = 32
@@ -98,6 +99,24 @@ def synthesize(x, coefs, shifts, orders, lengths=None):
         _build.stream_handle(dev)), "cxk_synthesize")
     synthesize.launches += 1
     return out
+
+
+def synthesize_best(x, coefs, shifts, orders, lengths=None):
+    """The JAX package's pick of the fastest synthesis for the target: here
+    the tensors' device picks, as in :func:`synthesize` (the kernel for
+    CUDA tensors, the plain form for CPU ones)."""
+    return synthesize(x, coefs, shifts, orders, lengths)
+
+
+def synthesize_reference(x, coefs, shifts, orders):
+    """The plain form with the signature of ``claxon_tpu.ops.predict.
+    synthesize_reference``: array-likes in (x (L, T), coefs (L, 32),
+    shifts and orders (L,)), every lane's full length, an (L, T) int32
+    numpy array out."""
+    x, coefs, shifts, orders = (torch.as_tensor(np.asarray(a, np.int32))
+                                for a in (x, coefs, shifts, orders))
+    lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32)
+    return synthesize_plain(x, coefs, shifts, orders, lengths).numpy()
 
 
 def synthesize_epilogue_plain(x, coefs, shifts, orders, lengths, wasted,

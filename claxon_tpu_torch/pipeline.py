@@ -83,9 +83,11 @@ class DecodedStream:
 
 @dataclass
 class _BucketDispatch:
-    """One bucket's decoded PCM on the device (and its host copies)."""
+    """One bucket's decoded PCM on the device (and its host copies), or,
+    split over a mesh, its shards (``parallel``)."""
     n_ch: int
-    out_full: torch.Tensor      # (L, T) int32 on the device
+    out_full: torch.Tensor      # (L, T) int32 on the device; None when
+    #                             the bucket is split into shards
     #: the bucket is fetched as int16 pairs (16-bit audio; the JAX
     #: package's rule, set by the planners).
     packed: bool = False
@@ -96,6 +98,27 @@ class _BucketDispatch:
     #: the FrameDesc route: indices into ``DeviceDecoded.frames`` of the
     #: bucket's frames, in lane order (empty on the bits paths).
     frame_idx: list = field(default_factory=list)
+    #: a bucket split over a mesh: one dispatch per contiguous lane range,
+    #: in lane order, each holding its own (L / n, T) ``out_full`` on its
+    #: device and its host copies; a packed shard's flag is per lane. None
+    #: for a bucket of one tensor.
+    shards: list = None
+
+    def leaves(self):
+        """The dispatches that hold tensors: the shards, or this one."""
+        return self.shards or [self]
+
+
+def _shard_dispatch(n_ch, outs, packed, sharded, frame_idx=None):
+    """A bucket's dispatch from its outputs in lane order: one tensor, or
+    with ``sharded`` (a mesh, even of one device) one shard a tensor."""
+    frame_idx = [] if frame_idx is None else frame_idx
+    if not sharded:
+        (out,) = outs
+        return _BucketDispatch(n_ch, out, packed, frame_idx=frame_idx)
+    return _BucketDispatch(n_ch, None, packed, frame_idx=frame_idx,
+                           shards=[_BucketDispatch(n_ch, o, packed)
+                                   for o in outs])
 
 
 class DeviceDecoded:
@@ -140,13 +163,15 @@ class DeviceDecoded:
         #: order (``device_buckets()``' frame indices point here).
         self.frames = []
         self._crc_host = None
-        self._fetched = None   # CUDA event after the host copies, or True
+        #: after start_fetch(), a CUDA event after the host copies per
+        #: CUDA device the copies came from.
+        self._fetched = None
 
     def block_until_ready(self):
         """Wait for every bucket's kernels; unlike ``sync()``, give no CRC
         verdict."""
-        for dev in {d.out_full.device for d in self.dispatches
-                    if d.out_full.is_cuda}:
+        for dev in {leaf.out_full.device for d in self.dispatches
+                    for leaf in d.leaves() if leaf.out_full.is_cuda}:
             torch.cuda.synchronize(dev)
         return self
 
@@ -180,49 +205,63 @@ class DeviceDecoded:
         """Start the device-to-host copies of every bucket (into pinned
         memory, without waiting), so they overlap host work done before
         ``to_host()``: a packed bucket's int16 pairs and overflow flag (K3b
-        pack runs here, on the current stream), another bucket's int32
-        samples. Idempotent."""
+        pack runs here, on the current stream of the bucket's device;
+        per lane for a shard, as the JAX package packs under a mesh),
+        another bucket's int32 samples. Idempotent."""
         from .ops.epilogue import pack_int16_pairs
+        from .parallel.mesh import device_guard
 
         if self._fetched is not None:
             return self
-        cuda = None
+        cuda = set()
 
         def fetch(t):
-            nonlocal cuda
             if not t.is_cuda:
                 return t
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t, non_blocking=True)
-            cuda = t.device
+            cuda.add(t.device)
             return host
 
         for d in self.dispatches:
-            if d.packed:
-                words, flag = pack_int16_pairs(d.out_full)
-                d.words, d.flag = fetch(words), fetch(flag)
-            else:
-                d.host = fetch(d.out_full)
+            for leaf in d.leaves():
+                if not leaf.packed:
+                    leaf.host = fetch(leaf.out_full)
+                    continue
+                with device_guard(leaf.out_full.device):
+                    words, flag = pack_int16_pairs(
+                        leaf.out_full, per_lane=d.shards is not None)
+                leaf.words, leaf.flag = fetch(words), fetch(flag)
         if isinstance(self.crc_check, list):
             self._crc_host = [fetch(vals) for vals, _n in self.crc_check]
-        if cuda is None:
-            self._fetched = True
-        else:
-            self._fetched = torch.cuda.Event()
-            self._fetched.record(torch.cuda.current_stream(cuda))
+        self._fetched = []
+        for dev in cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            self._fetched.append(event)
         return self
 
     def _wait_fetched(self):
         """Block until the copies start_fetch() queued have landed."""
-        if self._fetched is not True:
-            self._fetched.synchronize()
+        for event in self._fetched:
+            event.synchronize()
 
     def device_buckets(self):
-        """[(frame_idx, n_ch, (L, T) int32 device tensor), ...]; the lane
-        layout of each bucket is in ``lane_plans()``. ``frame_idx`` indexes
-        ``self.frames`` on the FrameDesc route and is [] on the bits
-        paths, which carry no FrameDesc objects."""
-        return [(list(d.frame_idx), d.n_ch, d.out_full)
+        """[(frame_idx, n_ch, bucket), ...]; the lane layout of each bucket
+        is in ``lane_plans()``. ``bucket`` is the (L, T) int32 device
+        tensor when the bucket has one shard (no mesh, or a mesh of one
+        device), and for a bucket split over a mesh of n > 1 devices
+        (``parallel``) the tuple of its (L / n, T) shards in lane order,
+        each on its own device (nothing gathers them). ``frame_idx``
+        indexes ``self.frames`` on the FrameDesc route and is [] on the
+        bits paths, which carry no FrameDesc objects."""
+        def bucket(d):
+            leaves = d.leaves()
+            if len(leaves) == 1:
+                return leaves[0].out_full
+            return tuple(s.out_full for s in leaves)
+
+        return [(list(d.frame_idx), d.n_ch, bucket(d))
                 for d in self.dispatches]
 
     def lane_plans(self):
@@ -236,13 +275,18 @@ class DeviceDecoded:
         """Per-stream DecodedStreams with their PCM filled in."""
         self.start_fetch()._wait_fetched()
         for d, plan in zip(self.dispatches, self._plans):
-            if d.packed and not bool(d.flag):
-                # (L, T // 2) int32 -> (L, T) int16, a little-endian view.
-                out = d.words.numpy().view(np.int16)
-            else:
-                if d.host is None:  # rare: an invalid stream's garbage
-                    d.host = d.out_full.cpu()
-                out = d.host.numpy()
+            outs = []
+            for leaf in d.leaves():
+                if leaf.packed and not bool(leaf.flag.any()):
+                    # (L, T // 2) int32 -> (L, T) int16, a little-endian
+                    # view.
+                    outs.append(leaf.words.numpy().view(np.int16))
+                    continue
+                if leaf.host is None:  # rare: an invalid stream's garbage
+                    leaf.host = leaf.out_full.cpu()
+                outs.append(leaf.host.numpy())
+            # A bucket's shards in lane order make its lanes again.
+            out = outs[0] if len(outs) == 1 else np.concatenate(outs)
             for si_idx, out0, nf, bs, n_ch, lane0 in plan:
                 pcm = self._pcms[si_idx]
                 # One strided copy per (run, channel): frames of a run are
@@ -331,21 +375,34 @@ def scatter_bucket(out, frames, frame_idx, n_ch, targets):
             lane += 1
 
 
+def _pack_input(arrays):
+    """The FrameDesc route's input rule for :func:`pack_bucket`'s seven
+    arrays: when every value of ``x`` (residuals and warm-up) fits int16
+    and T is even, ``x`` goes up as int16 pairs, half the bytes, and K3b
+    unpacks it on the card. Returns (the arrays to upload, packed)."""
+    from .pipeline_bits import _pack_input_i16
+
+    x = arrays[0]
+    if (_LITTLE_ENDIAN and x.shape[1] % 2 == 0 and
+            x.min() >= -32768 and x.max() <= 32767):
+        return (_pack_input_i16(x),) + tuple(arrays[1:]), True
+    return tuple(arrays), False
+
+
 def device_decode_bucket(x, coefs, shifts, orders, wasted, pair_modes,
                          lengths=None, device="cuda"):
     """Run K1 + K3 on one bucket of :func:`pack_bucket`'s numpy arrays,
     uploaded to ``device``; returns the (L, T) int32 PCM tensor there.
     Lanes pair-aligned; ``lengths`` defaults to T for every lane."""
-    from .ops.predict import synthesize_epilogue
-    from .pipeline_bits import _to_device
+    from .parallel.mesh import Mesh
+    from .pipeline_bits import _decode_sample_shards
 
     if lengths is None:
         lengths = np.full(x.shape[0], x.shape[1], dtype=np.int32)
-    x, coefs, shifts, orders, wasted, pair_modes, lengths = (
-        _to_device(a, device)
-        for a in (x, coefs, shifts, orders, wasted, pair_modes, lengths))
-    return synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
-                               pair_modes)
+    (out,) = _decode_sample_shards(
+        (x, coefs, shifts, orders, wasted, pair_modes, lengths), False,
+        Mesh((torch.device(device),)))
+    return out
 
 
 def decode_frames_to(frames, targets, decode_bucket=None,
@@ -353,7 +410,8 @@ def decode_frames_to(frames, targets, decode_bucket=None,
     """Decode a list of FrameDescs bucket by bucket, scattering each frame
     into its ``targets`` destination. ``decode_bucket`` receives each
     bucket's seven numpy arrays (:func:`pack_bucket`) and returns its
-    (L, T) PCM, a numpy array or a tensor; None is
+    (L, T) PCM, a numpy array or a tensor, or a tuple of such shards in
+    lane order (``parallel.make_decode_step``); None is
     :func:`device_decode_bucket` on ``device``."""
     if decode_bucket is None:
         def decode_bucket(*packed):
@@ -362,42 +420,37 @@ def decode_frames_to(frames, targets, decode_bucket=None,
             frames, lane_quantum).items():
         packed = pack_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum)
         out = decode_bucket(*packed)
-        # A tensor, on the card or the CPU, comes back through .cpu().
-        out = out.cpu().numpy() if isinstance(out, torch.Tensor) else \
-            np.asarray(out)
+        # A tensor, on the card or the CPU, comes back through .cpu(); a
+        # sharded step (``parallel.make_decode_step``) returns its shards
+        # in lane order.
+        outs = [o.cpu().numpy() if isinstance(o, torch.Tensor)
+                else np.asarray(o)
+                for o in (out if isinstance(out, tuple) else (out,))]
+        out = outs[0] if len(outs) == 1 else np.concatenate(outs)
         scatter_bucket(out, frames, frame_idx, n_ch, targets)
 
 
 def _dispatch_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum,
-                     device):
-    """Pack one bucket, upload it and queue its kernels on ``device``:
-    K3b unpack when the residuals went up as int16 pairs, then K1 + K3.
-    Returns (the bucket's dispatch, bytes uploaded). K3b pack runs later,
-    in ``DeviceDecoded.start_fetch``, when ``packed`` is set."""
-    from .ops.epilogue import unpack_int16_pairs
-    from .ops.predict import synthesize_epilogue
-    from .pipeline_bits import _pack_input_i16, _to_device
+                     device, mesh=None):
+    """Pack one bucket, upload it and queue its kernels on ``device`` (on
+    each shard's device over ``mesh``): K3b unpack when the residuals went
+    up as int16 pairs (:func:`_pack_input`), then K1 + K3. Returns (the
+    bucket's dispatch, bytes uploaded). K3b pack runs later, in
+    ``DeviceDecoded.start_fetch``, when ``packed`` is set."""
+    from .parallel.mesh import Mesh
+    from .pipeline_bits import _decode_sample_shards
 
     arrays = pack_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum)
-    x = arrays[0]
-    L, T = x.shape
-    # Input packing: when every value (residuals + warm-up) fits int16 and
-    # T is even, ship half the bytes and unpack on the card.
-    in_packed = (_LITTLE_ENDIAN and T % 2 == 0 and
-                 x.min() >= -32768 and x.max() <= 32767)
-    if in_packed:
-        arrays = (_pack_input_i16(x),) + arrays[1:]
+    T = arrays[0].shape[1]
+    arrays, in_packed = _pack_input(arrays)
     # Output packing: final PCM fits bps bits for valid streams; the
     # overflow flag guards invalid ones.
     out_packed = (_LITTLE_ENDIAN and T % 2 == 0 and
                   all(frames[fi].bps <= 16 for fi in frame_idx))
-    x, coefs, shifts, orders, wasted, pair_modes, lengths = (
-        _to_device(a, device) for a in arrays)
-    if in_packed:
-        x = unpack_int16_pairs(x)
-    out = synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
-                              pair_modes)
-    return (_BucketDispatch(n_ch, out, out_packed, frame_idx=frame_idx),
+    outs = _decode_sample_shards(
+        arrays, in_packed, mesh or Mesh((torch.device(device),)))
+    return (_shard_dispatch(n_ch, outs, out_packed, mesh is not None,
+                            frame_idx),
             sum(a.nbytes for a in arrays))
 
 
@@ -434,19 +487,22 @@ def _prepare_outputs(batches):
 
 
 def decode_batches_device(batches, lane_quantum=_L_QUANTUM,
-                          device="cuda") -> DeviceDecoded:
+                          device="cuda", mesh=None) -> DeviceDecoded:
     """Decode many StreamBatches (``extract.extract_stream`` or
     ``native.extract_stream``) into buckets on ``device``, the FrameDesc
-    route. Every bucket is queued before any result is awaited. Each
-    bucket's lane plan holds one run per frame. ``crc_check`` stays None:
-    both extractors checked every frame's CRC-16 on the host."""
+    route; with a ``mesh`` (``parallel``; ``lane_quantum`` then
+    ``parallel.lane_quantum(mesh)``) every bucket splits into its lane
+    shards, shard i on ``mesh.devices[i]``. Every bucket is queued before
+    any result is awaited. Each bucket's lane plan holds one run per
+    frame. ``crc_check`` stays None: both extractors checked every
+    frame's CRC-16 on the host."""
     frames, targets, results = _prepare_outputs(batches)
     stream_of_pcm = {id(r.pcm): i for i, r in enumerate(results)}
     dispatches, plans, upload = [], [], 0
     for (t_bucket, n_ch), frame_idx in group_frames(
             frames, lane_quantum).items():
         d, nbytes = _dispatch_bucket(frames, frame_idx, n_ch, t_bucket,
-                                     lane_quantum, device)
+                                     lane_quantum, device, mesh)
         dispatches.append(d)
         upload += nbytes
         plan, lane = [], 0
@@ -679,29 +735,32 @@ def _unit_bytes(bb):
 
 
 def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device,
-                   mode="stream"):
+                   mode="stream", mesh=None):
     """Decode walk units ``braws`` ([(streaminfo, BitsBatch), ...], unit u
     a whole stream or a chunk of stream ``owners[u]``, in stream order,
     of at most ``sizes[u]`` upload bytes) in entropy ``mode`` (the one
-    they were walked for). Chunk bases are int32 bit
+    they were walked for), with each bucket split over ``mesh`` when one
+    is given. Chunk bases are int32 bit
     positions into one plan's upload, so the units are planned as runs
     below ``MAX_BATCH_BYTES`` and the runs' results merge, a stream's
     chunks concatenating back into its one result."""
     from . import pipeline_bits
 
     parts = [([owners[u] for u in run], pipeline_bits.decode_raw_bits_device(
-        [braws[u] for u in run], lane_quantum, device=device, mode=mode))
+        [braws[u] for u in run], lane_quantum, device=device, mode=mode,
+        mesh=mesh))
         for run in _split_batch(sizes, pipeline_bits.MAX_BATCH_BYTES)]
     if len(parts) == 1 and len(braws) == n_streams:
         return parts[0][1]
     return merge_decoded(n_streams, parts)
 
 
-def _decode_host_walk(datas, lane_quantum, device):
+def _decode_host_walk(datas, lane_quantum, device, mesh=None):
     """The host-walk bits path: every stream is walked first (a stream of
     ``MAX_BATCH_BYTES`` or more in chunks of frames, :func:`_walk_chunks`),
-    then the walked units are decoded (:func:`_decode_walked`), in the
-    entropy mode and with the CRC placement the environment names
+    then the walked units are decoded (:func:`_decode_walked`; over
+    ``mesh``, each bucket split into its lane shards, when one is given),
+    in the entropy mode and with the CRC placement the environment names
     (:func:`_walk_options`). The JAX package switches a batch of
     ``MAX_BATCH_BYTES`` or more to delta mode; the port splits it and
     keeps the mode (the same PCM)."""
@@ -723,7 +782,7 @@ def _decode_host_walk(datas, lane_quantum, device):
         owners.extend([i] * len(chunks))
         sizes.extend(_unit_bytes(bb) for bb in chunks)
     return _decode_walked(braws, owners, sizes, len(datas), lane_quantum,
-                          device, mode)
+                          device, mode, mesh)
 
 
 #: per-process choices of segmentation="auto", one per device type
@@ -758,9 +817,10 @@ def _resolve_segmentation(segmentation, device):
     return segmentation
 
 
-def _calibrate_segmentation(datas, lane_quantum, device):
-    """Time synced decodes of ``datas`` through each path and cache the
-    faster one for the process and ``device``'s type; return the winner's own result, so the
+def _calibrate_segmentation(datas, lane_quantum, device, mesh=None):
+    """Time synced decodes of ``datas`` through each path (over ``mesh``
+    when one is given) and cache the faster one for the process and
+    ``device``'s type; return the winner's own result, so the
     batch is not decoded again. A batch that does not ride the device
     demux returns its result at once: "host" is cached only when the demux
     ran and every stream still fell back, not when the batch was rejected
@@ -774,7 +834,7 @@ def _calibrate_segmentation(datas, lane_quantum, device):
     def run(segmentation):
         return decode_streams_device(datas, lane_quantum=lane_quantum,
                                      segmentation=segmentation,
-                                     device=device)
+                                     device=device, mesh=mesh)
 
     d_seg = run("device")
     if not d_seg.segmented:
@@ -798,7 +858,8 @@ def _calibrate_segmentation(datas, lane_quantum, device):
 
 
 def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
-                          segmentation=None, device="cuda") -> DeviceDecoded:
+                          segmentation=None, device="cuda",
+                          mesh=None) -> DeviceDecoded:
     """Decode many FLAC streams (bytes) into PCM buckets on ``device``.
 
     The arguments keep the reference's order. ``use_native=False``
@@ -812,18 +873,23 @@ def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
     the device demux and keeps the faster one for the process and the
     device's type; None reads
     ``CLAXON_TPU_SEGMENTATION`` and defaults to ``"auto"``. Every other
-    value takes the host-walk bits path. All paths are bit-exact."""
+    value takes the host-walk bits path. All paths are bit-exact.
+
+    A ``mesh`` (``parallel``; ``device`` then ``mesh.devices[0]`` and
+    ``lane_quantum`` ``parallel.lane_quantum(mesh)``) splits every bucket
+    into its lane shards on the mesh's devices, on every route."""
     if not use_native:
         return decode_batches_device([_extract(d, False) for d in datas],
-                                     lane_quantum, device)
+                                     lane_quantum, device, mesh)
     segmentation = _resolve_segmentation(segmentation, device)
     if segmentation == "auto":
-        return _calibrate_segmentation(datas, lane_quantum, device)
+        return _calibrate_segmentation(datas, lane_quantum, device, mesh)
     if segmentation == "device":
         from .pipeline_seg import decode_streams_segmented
 
-        return decode_streams_segmented(datas, lane_quantum, device=device)
-    return _decode_host_walk(datas, lane_quantum, device)
+        return decode_streams_segmented(datas, lane_quantum, device=device,
+                                        mesh=mesh)
+    return _decode_host_walk(datas, lane_quantum, device, mesh)
 
 
 class PendingDeviceBatch:

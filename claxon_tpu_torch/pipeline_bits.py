@@ -26,7 +26,10 @@ words no chunk fills uninitialised), so the upload is deterministic.
 Each bucket also carries ``out_packed``, the JAX package's rule for
 fetching it as int16 pairs (``DeviceDecoded.start_fetch`` packs then).
 
-Not carried over: the mesh.
+With a mesh (``parallel``) every bucket's lanes split into the mesh's
+shards: the stream upload goes once to each distinct device, each shard
+uploads its own rows and runs the bucket's kernels on its device, and K4
+splits on frames.
 """
 
 from dataclasses import dataclass
@@ -212,10 +215,13 @@ def _pack_input_i16(x):
     return x16.view(np.int32).reshape(L, T // 2)
 
 
-def plan_raw_bits(braws, lane_quantum, mode="stream"):
+def plan_raw_bits(braws, lane_quantum, mode="stream", n_shards=1):
     """Plan a batch of [(streaminfo, BitsBatch), ...] in entropy ``mode``
     ("stream": extracted with ``emit_slots=False``; "delta": with
-    ``emit_slots=True`` and ``defer_crc=False``), in numpy alone. Raises
+    ``emit_slots=True`` and ``defer_crc=False``), in numpy alone, for a
+    mesh of ``n_shards`` devices (the CRC ranges' count pads to a multiple
+    of it, as in the JAX package; pass ``parallel.lane_quantum(mesh)`` as
+    ``lane_quantum`` so every bucket splits too). Raises
     the reference's ``FormatError`` for a frame whose channel count
     disagrees with STREAMINFO, after re-checking the CRCs of the frames
     before it, and RuntimeError for a deferred-CRC batch in delta mode."""
@@ -454,7 +460,8 @@ def plan_raw_bits(braws, lane_quantum, mode="stream"):
 
     bp = BitsPlan(results, pcms, stream, bits, samples)
     if crc_starts:
-        # One CRC dispatch per batch; F pads to a power of two (>= 8) with
+        # One CRC dispatch per batch (per shard under a mesh); F pads to a
+        # power of two (>= 8), then to a multiple of the mesh size, with
         # empty ranges, whose CRC is 0.
         starts = np.concatenate(crc_starts).astype(np.int32)
         ends = np.concatenate(crc_ends).astype(np.int32)
@@ -462,6 +469,7 @@ def plan_raw_bits(braws, lane_quantum, mode="stream"):
         fq = 8
         while fq < n:
             fq *= 2
+        fq = -(-fq // n_shards) * n_shards
         bp.se = np.stack([np.pad(starts, (0, fq - n)),
                           np.pad(ends, (0, fq - n))])
         bp.n_crc = n
@@ -550,48 +558,100 @@ def delta_step(slots, deltas, ks, meta, n_parts_max, sa):
                                pair_modes)
 
 
-def decode_raw_bits_device(braws, lane_quantum, device="cuda",
-                           mode="stream"):
-    """Decode [(streaminfo, BitsBatch), ...] in entropy ``mode`` into a
-    DeviceDecoded whose buckets live on ``device``."""
-    from .pipeline import DeviceDecoded, _BucketDispatch
+def _decode_sample_shards(arrays, in_packed, mesh):
+    """K1 + K3 on one sample bucket, ``pipeline.pack_bucket``'s seven numpy
+    arrays (``x`` as int16 pairs when ``in_packed``, unpacked by K3b),
+    split over ``mesh`` (``parallel.mesh``): each shard uploads its lane
+    rows to its device and decodes there. Returns the (L / n, T) int32
+    shards in lane order."""
+    from .parallel.mesh import device_guard, shard_ranges
 
-    bp = plan_raw_bits(braws, lane_quantum, mode)
+    outs = []
+    for dev, a, z in shard_ranges(mesh, len(arrays[0])):
+        rows = [v[a:z] for v in arrays]
+        rows[5] = arrays[5][a // 2:z // 2]  # pair_modes: a row a pair
+        with device_guard(dev):
+            x, coefs, shifts, orders, wasted, pair_modes, lengths = (
+                _to_device(v, dev) for v in rows)
+            if in_packed:
+                x = unpack_int16_pairs(x)
+            outs.append(synthesize_epilogue(x, coefs, shifts, orders,
+                                            lengths, wasted, pair_modes))
+    return outs
+
+
+def _crc_shards(streams, se, n, mesh):
+    """K4 on the (2, F) CRC ranges ``se``, ``n`` of them real and the rest
+    empty padding (CRC 0), split on frames over ``mesh``, each shard on
+    its device's copy of the stream (``streams``, by device). Returns
+    ``DeviceDecoded.crc_check``: [(CRCs, valid count), ...] in frame
+    order."""
+    from .parallel.mesh import device_guard, shard_ranges
+
+    pairs = []
+    for dev, a, z in shard_ranges(mesh, se.shape[1]):
+        with device_guard(dev):
+            se_t = _to_device(se[:, a:z], dev)
+            pairs.append((crc16_ranges(streams[dev], se_t[0], se_t[1]),
+                          min(max(n - a, 0), z - a)))
+    return pairs
+
+
+def decode_raw_bits_device(braws, lane_quantum, device="cuda",
+                           mode="stream", mesh=None):
+    """Decode [(streaminfo, BitsBatch), ...] in entropy ``mode`` into a
+    DeviceDecoded whose buckets live on ``device``, or, with a ``mesh``
+    (``parallel``; ``lane_quantum`` then ``parallel.lane_quantum(mesh)``),
+    split into lane shards, shard i on ``mesh.devices[i]``: the stream
+    upload goes once to each distinct device, each shard's rows only to
+    its own, and K4's frames split the same way (``crc_check`` holds a
+    pair per shard)."""
+    from .parallel.mesh import Mesh, device_guard, replicate, shard_ranges
+    from .pipeline import DeviceDecoded, _shard_dispatch
+
+    sharded = mesh is not None
+    if not sharded:
+        mesh = Mesh((torch.device(device),))
+    bp = plan_raw_bits(braws, lane_quantum, mode, mesh.size)
     upload = 0
     if bp.stream is not None:
-        stream_t, _, se_t = inputs_from_numpy(bp.stream, None, bp.se, device)
-        upload = bp.stream.nbytes
+        streams = replicate(torch.from_numpy(bp.stream), mesh)
+        upload = bp.stream.nbytes * len(streams)
     dispatches, plans = [], []
     for b in bp.bits:
+        outs = []
+        for dev, a, z in shard_ranges(mesh, len(b.meta if mode == "delta"
+                                                else b.mb)):
+            with device_guard(dev):
+                if mode == "delta":
+                    outs.append(delta_step(
+                        _to_device(b.slots[a:z], dev),
+                        torch.from_numpy(b.deltas[a:z]).to(dev),
+                        _to_device(b.ks[a:z], dev),
+                        _to_device(b.meta[a:z], dev), b.n_parts_max, b.sa))
+                else:
+                    outs.append(stream_step(
+                        streams[dev], _to_device(b.mb[a:z], dev),
+                        b.n_parts_max, b.sa, b.nc))
         if mode == "delta":
-            out = delta_step(_to_device(b.slots, device),
-                             torch.from_numpy(b.deltas).to(device),
-                             _to_device(b.ks, device),
-                             _to_device(b.meta, device), b.n_parts_max, b.sa)
             upload += b.slots.nbytes + b.deltas.nbytes + b.ks.nbytes \
                 + b.meta.nbytes
         else:
-            out = stream_step(stream_t, _to_device(b.mb, device),
-                              b.n_parts_max, b.sa, b.nc)
             upload += b.mb.nbytes
-        dispatches.append(_BucketDispatch(b.n_ch, out, b.out_packed))
+        dispatches.append(_shard_dispatch(b.n_ch, outs, b.out_packed,
+                                          sharded))
         plans.append(b.plan)
     for s in bp.samples:
         arrays = (s.x, s.coefs, s.shifts, s.orders, s.wasted, s.pair_modes,
                   s.lengths)
-        x, coefs, shifts, orders, wasted, pair_modes, lengths = (
-            _to_device(a, device) for a in arrays)
+        outs = _decode_sample_shards(arrays, s.in_packed, mesh)
         upload += sum(a.nbytes for a in arrays)
-        if s.in_packed:
-            x = unpack_int16_pairs(x)
-        out = synthesize_epilogue(x, coefs, shifts, orders, lengths, wasted,
-                                  pair_modes)
-        dispatches.append(_BucketDispatch(s.n_ch, out, s.out_packed))
+        dispatches.append(_shard_dispatch(s.n_ch, outs, s.out_packed,
+                                          sharded))
         plans.append(s.plan)
     dd = DeviceDecoded(bp.results, dispatches, plans, bp.pcms)
     if bp.se is not None:
-        dd.crc_check = [(crc16_ranges(stream_t, se_t[0].contiguous(),
-                                      se_t[1].contiguous()), bp.n_crc)]
+        dd.crc_check = _crc_shards(streams, bp.se, bp.n_crc, mesh)
         upload += bp.se.nbytes
     dd.upload_bytes = upload
     return dd

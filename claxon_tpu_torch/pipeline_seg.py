@@ -35,18 +35,103 @@ result merges into the batch; a group with more sync candidates than the
 caps allow falls back as a group, and a batch of ``MAX_BATCH_BYTES`` or
 more goes to the host walk whole. Every route is bit-exact.
 
-Not carried over from the JAX package: the mesh, and the
-``CLAXON_TPU_SEG_DEBUG`` prints (the host stage times are kept in
-``DeviceDecoded.stage_seconds``).
+With a mesh (``parallel``) each group's upload and fused demux run once,
+on ``mesh.devices[0]``; the stream and walk outputs are copied once to
+each other distinct device of the mesh, and every decode dispatch and
+each group's K4 split into the mesh's shards, each on its device.
+
+The host seconds of each stage are kept in ``DeviceDecoded.
+stage_seconds``; with ``CLAXON_TPU_SEG_DEBUG`` set, ``finish_segmented``
+also prints each stage's host-CPU milliseconds, as the JAX package does.
 """
 
+import math
+import os
 import time
 
 import numpy as np
 import torch
 
 __all__ = ["decode_streams_segmented", "begin_segmented",
-           "finish_segmented"]
+           "finish_segmented", "host_header_fields"]
+
+#: sample-rate extra bytes by code (codes 12, 13, 14 read 1/2/2 bytes).
+_SR_EXTRA = np.array([0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2, 2, 0],
+                     np.int64)
+_BPS_TABLE = np.array([0, 8, 12, -1, 16, 20, 24, -1], np.int64)
+
+
+def host_header_fields(buf, positions):
+    """Decode frame-header fields at ``positions`` of byte buffer ``buf``
+    (a copy of ``claxon_tpu.pipeline_seg.host_header_fields``, numpy
+    alone): the host twin of the device field parse in
+    ``ops.seg_parse``, for tests and diagnostics. Vectorized over
+    candidates; reads at most 16 bytes per position, clamped to the
+    buffer's last byte. The grammar follows ``frame.
+    read_frame_header_or_eof``; a malformed candidate gets ok=False
+    rather than an error.
+
+    Returns a dict of int64 arrays: ok, block_size, nch, mode, bps_code
+    (0 = streaminfo), hlen (header bytes including the CRC-8 byte),
+    time_raw (UTF-8-coded frame/sample number), variable (blocking flag).
+    """
+    buf = np.asarray(buf, dtype=np.uint8)
+    pos = np.asarray(positions, dtype=np.int64)
+    n = len(pos)
+    if n == 0:
+        z = np.zeros(0, np.int64)
+        return {k: z for k in ("ok", "block_size", "nch", "mode",
+                               "bps_code", "hlen", "time_raw", "variable")}
+    win = buf[np.minimum(pos[:, None] + np.arange(16), len(buf) - 1)]
+    win = win.astype(np.int64)
+
+    ok = (win[:, 0] == 0xFF) & ((win[:, 1] & 0xFC) == 0xF8)
+    variable = win[:, 1] & 1
+    bs_code = win[:, 2] >> 4
+    sr_code = win[:, 2] & 15
+    ok &= (bs_code != 0) & (sr_code != 15)
+    ca = win[:, 3] >> 4
+    bps_code = (win[:, 3] >> 1) & 7
+    ok &= (ca <= 10) & (_BPS_TABLE[np.minimum(bps_code, 7)] >= 0) \
+        & ((win[:, 3] & 1) == 0)
+    nch = np.where(ca < 8, ca + 1, 2)
+    mode = np.where(ca < 8, 0, ca - 7)  # 1 LS, 2 RS, 3 MS (epilogue codes)
+
+    # UTF-8 frame/sample number (1..7 bytes).
+    first = win[:, 4]
+    lead = np.zeros(n, np.int64)
+    probe = 0x80
+    live = np.ones(n, bool)
+    for _ in range(8):
+        hit = live & ((first & probe) != 0)
+        lead += hit
+        live &= hit
+        probe >>= 1
+    ok &= (lead != 1) & (lead != 8)
+    ulen = np.maximum(lead, 1)
+    mask0 = np.array([0x7F, 0, 0x1F, 0x0F, 0x07, 0x03, 0x01, 0], np.int64)
+    val = first & mask0[np.minimum(lead, 7)]
+    for j in range(1, 7):
+        cont = win[:, 4 + j]
+        use = j < ulen
+        ok &= ~use | ((cont & 0xC0) == 0x80)
+        val = np.where(use, (val << 6) | (cont & 0x3F), val)
+
+    bs_extra = np.where(bs_code == 6, 1, 0) + np.where(bs_code == 7, 2, 0)
+    sr_extra = _SR_EXTRA[sr_code]
+    o = 4 + ulen
+    b8 = win[np.arange(n), np.minimum(o, 15)]
+    b16 = (b8 << 8) | win[np.arange(n), np.minimum(o + 1, 15)]
+    block_size = np.select(
+        [bs_code == 1, bs_code <= 5, bs_code == 6, bs_code == 7],
+        [192, 576 << np.maximum(bs_code - 2, 0), b8 + 1, b16 + 1],
+        256 << np.maximum(bs_code - 8, 0))
+    ok &= ~((bs_code == 7) & (b16 == 0xFFFF))
+    hlen = o + bs_extra + sr_extra + 1  # + the CRC-8 byte
+
+    return {"ok": ok, "block_size": np.where(ok, block_size, 0),
+            "nch": nch, "mode": mode, "bps_code": bps_code, "hlen": hlen,
+            "time_raw": val, "variable": variable}
 
 #: STREAMINFO identities of streams that left the device demux for a
 #: per-stream reason (a walk-rejected frame or a chain break) once in this
@@ -98,26 +183,43 @@ def _si_key(si, n_bytes):
 
 
 class _Stages:
-    """Host seconds per stage of one segmented batch (perf_counter)."""
+    """Host seconds per stage of one segmented batch (perf_counter), and
+    with ``CLAXON_TPU_SEG_DEBUG`` set, ``marks``: [(label, host-CPU
+    seconds at its end), ...] from the start (process_time; None when the
+    variable is unset)."""
 
     def __init__(self):
         self.seconds = {}
+        self.marks = None
+        if os.environ.get("CLAXON_TPU_SEG_DEBUG"):
+            self.marks = [("start", time.process_time())]
         self._t = time.perf_counter()
 
     def mark(self, label):
         now = time.perf_counter()
         self.seconds[label] = self.seconds.get(label, 0.0) + now - self._t
         self._t = now
+        if self.marks is not None:
+            self.marks.append((label, time.process_time()))
+
+    def report(self):
+        """With ``CLAXON_TPU_SEG_DEBUG`` set, print each stage's host-CPU
+        milliseconds."""
+        if self.marks is not None:
+            print("seg stage CPU ms:",
+                  [(b, round((t1 - t0) * 1e3, 3)) for (b, t1), (_, t0)
+                   in zip(self.marks[1:], self.marks)])
 
 
 class _SegPending:
     """An in-flight segmented batch: every group's upload and fused demux
     is queued and its summary copy started."""
 
-    def __init__(self, datas, lane_quantum, device):
+    def __init__(self, datas, lane_quantum, device, mesh=None):
         self.datas = datas
         self.lane_quantum = lane_quantum
         self.device = device
+        self.mesh = mesh
         #: the batch's entropy mode (``_seg_mode``), read once.
         self.mode = _seg_mode()
         self.sis = []
@@ -127,12 +229,21 @@ class _SegPending:
         self.stages = _Stages()
 
 
-def _host_fallback(datas, lane_quantum, device, per_stream=False):
+def _host_fallback(datas, lane_quantum, device, per_stream=False,
+                   mesh=None):
     """The host-walk path for ``datas``. A per-stream fallback batch holds
     a few odd streams, so it pads lanes to 8 rather than the caller's
-    quantum."""
-    from .pipeline import _L_QUANTUM, decode_streams_device
+    quantum; over a ``mesh`` every bucket splits into its shards at the
+    mesh's quantum instead, as in the JAX package."""
+    from .pipeline import _L_QUANTUM, _decode_host_walk, decode_streams_device
 
+    if mesh is not None:
+        from .parallel.mesh import lane_quantum as mesh_quantum
+
+        if lane_quantum is None:
+            lane_quantum = mesh_quantum(mesh)
+        return _decode_host_walk(datas, lane_quantum, mesh.devices[0],
+                                 mesh=mesh)
     if lane_quantum is None:
         lane_quantum = _L_QUANTUM
     if per_stream:
@@ -141,24 +252,33 @@ def _host_fallback(datas, lane_quantum, device, per_stream=False):
                                  segmentation="host", device=device)
 
 
-def begin_segmented(datas, lane_quantum=None, device="cuda"):
+def begin_segmented(datas, lane_quantum=None, device="cuda", mesh=None):
     """Stage 1: metadata parse, stream grouping and, per group, one upload
     and one queued fused demux with its summary copy started. Returns the
     pending batch for :func:`finish_segmented`, or None when the batch
     cannot ride the device demux at all (the caller takes the host walk).
+    With a ``mesh`` the groups run on ``mesh.devices[0]`` and
+    ``lane_quantum`` defaults to ``parallel.lane_quantum(mesh)``.
     """
     from . import native, pipeline_bits
     from .native.binding import _read_metadata
     from .ops.seg_parse import fused_demux_async
+    from .parallel.mesh import device_guard
     from .pipeline import _L_QUANTUM, _T_BUCKETS
 
+    if mesh is not None:
+        from .parallel.mesh import lane_quantum as mesh_quantum
+
+        device = mesh.devices[0]
+        if lane_quantum is None:
+            lane_quantum = mesh_quantum(mesh)
     if lane_quantum is None:
         lane_quantum = _L_QUANTUM
     if not native.available():
         return None
     if sum(len(d) for d in datas) >= pipeline_bits.MAX_BATCH_BYTES:
         return None  # int32 bit positions: the host walk splits the batch
-    pending = _SegPending(datas, lane_quantum, device)
+    pending = _SegPending(datas, lane_quantum, device, mesh)
     stages = pending.stages
 
     # ---- metadata only; no payload byte is touched.
@@ -227,10 +347,11 @@ def begin_segmented(datas, lane_quantum=None, device="cuda"):
         words_le = torch.from_numpy(buf.view(np.int32)).to(device)
         pending.upload_bytes += total_q * 4
         stages.mark("upload")
-        pend = fused_demux_async(
-            words_le, total_q * 4, T, nch, ends_abs,
-            [sis[i].bits_per_sample for i in g_streams], frames_est,
-            deltas=pending.mode == "delta")
+        with device_guard(device):
+            pend = fused_demux_async(
+                words_le, total_q * 4, T, nch, ends_abs,
+                [sis[i].bits_per_sample for i in g_streams], frames_est,
+                deltas=pending.mode == "delta")
         pending.groups.append((T, nch, g_streams, byte_off, ends_abs, sizes,
                                pend))
         stages.mark("demux_queue")
@@ -304,18 +425,21 @@ def _dispatch(mode, stream, walk, rows, lengths, modes, tb32, P, SA, device):
 
 def finish_segmented(pending):
     """Stage 2: resolve each group's summary, chain the candidates, plan and
-    dispatch the decode and the CRC check, then host-walk the streams that
-    left the device path and merge them in. Returns a DeviceDecoded."""
-    from .ops.crc import crc16_ranges
+    dispatch the decode and the CRC check (per shard under a mesh), then
+    host-walk the streams that left the device path and merge them in.
+    Returns a DeviceDecoded."""
     from .ops.seg_parse import SUMMARY_COLS, DemuxOverflow
-    from .pipeline_bits import _P_CLASSES
-    from .pipeline import (DecodedStream, DeviceDecoded, _BucketDispatch,
-                           _LITTLE_ENDIAN, _T_BUCKETS, bucket_shape,
+    from .parallel.mesh import Mesh, device_guard, replicate, shard_ranges
+    from .pipeline_bits import _P_CLASSES, _crc_shards
+    from .pipeline import (DecodedStream, DeviceDecoded, _LITTLE_ENDIAN,
+                           _T_BUCKETS, _shard_dispatch, bucket_shape,
                            merge_decoded)
 
     datas = pending.datas
     lane_quantum = pending.lane_quantum
     device = pending.device
+    sharded = pending.mesh is not None
+    mesh = pending.mesh if sharded else Mesh((torch.device(device),))
     mode = pending.mode
     sis = pending.sis
     stages = pending.stages
@@ -332,12 +456,17 @@ def finish_segmented(pending):
     for (T, nch, g_streams, byte_off, ends_abs, sizes, pend) \
             in pending.groups:
         try:
-            summary, count = pend.resolve()
+            with device_guard(device):
+                summary, count = pend.resolve()
         except DemuxOverflow:
             # A sync-saturated payload: the whole group host-walks.
             fb_streams.extend(g_streams)
             stages.mark("summary")
             continue
+        # The group's stream and walk outputs on each device of the mesh.
+        streams = replicate(pend.stream, mesh)
+        walks = {dev: {k: v if v.device == dev else v.to(dev)
+                       for k, v in pend.walk.items()} for dev in streams}
         stages.mark("summary")
         cols = {name: summary[:, k] for k, name in enumerate(SUMMARY_COLS)}
         cpos = cols["pos"]
@@ -438,28 +567,34 @@ def finish_segmented(pending):
                         for st, en in zip(starts_r, ends_r)]
                 SA = 0 if mode == "values" else \
                     _sa_class(int(cols["sa"][sub].max()))
-                out, nbytes = _dispatch(
-                    mode, pend.stream, pend.walk, rows, lengths, modes,
-                    (Tb + 31) // 32 * 32, P, SA, device)
-                upload_bytes += nbytes
+                outs = []
+                for dev, a, z in shard_ranges(mesh, L):
+                    with device_guard(dev):
+                        out, nbytes = _dispatch(
+                            mode, streams[dev], walks[dev], rows[a:z],
+                            lengths[a:z], modes[a:z], (Tb + 31) // 32 * 32,
+                            P, SA, dev)
+                    outs.append(out)
+                    upload_bytes += nbytes
                 # 16-bit audio fetches as int16 pairs (start_fetch packs).
                 out_packed = (_LITTLE_ENDIAN and Tb % 2 == 0
                               and int(cols["bps"][sub].max()) <= 16)
-                dispatches.append(_BucketDispatch(nch, out, out_packed))
+                dispatches.append(_shard_dispatch(nch, outs, out_packed,
+                                                  sharded))
                 plans.append(plan)
 
         if crc_starts:
             starts = np.concatenate(crc_starts).astype(np.int32)
             ends_a = np.concatenate(crc_ends).astype(np.int32)
             n = len(starts)
-            fq = 8
+            # The frame axis splits over the mesh: start from a multiple
+            # of its size (the JAX package's lcm, so doubling keeps it).
+            fq = math.lcm(8, mesh.size)
             while fq < n:
                 fq *= 2
             se = np.stack([np.pad(starts, (0, fq - n)),
                            np.pad(ends_a, (0, fq - n))])
-            se_t = torch.from_numpy(se).to(device)
-            crc_pairs.append((crc16_ranges(pend.stream, se_t[0], se_t[1]),
-                              n))
+            crc_pairs.extend(_crc_shards(streams, se, n, mesh))
             upload_bytes += se.nbytes
         stages.mark("plan_dispatch")
 
@@ -476,7 +611,7 @@ def finish_segmented(pending):
     if fb_streams:
         fb_streams = sorted(set(fb_streams))
         fb_dd = _host_fallback([datas[i] for i in fb_streams], lane_quantum,
-                               device, per_stream=True)
+                               device, per_stream=True, mesh=pending.mesh)
         dd = merge_decoded(len(datas), [(list(range(len(datas))), dd),
                                         (fb_streams, fb_dd)])
         stages.mark("fallback")
@@ -486,16 +621,20 @@ def finish_segmented(pending):
     dd.seg_engaged = True
     dd.fallback_streams = list(fb_streams)
     dd.stage_seconds = dict(stages.seconds)
+    stages.report()
     return dd
 
 
-def decode_streams_segmented(datas, lane_quantum=None, device="cuda"):
+def decode_streams_segmented(datas, lane_quantum=None, device="cuda",
+                             mesh=None):
     """Decode FLAC streams with the frame search and subframe walk on the
     card. Returns a DeviceDecoded, like ``decode_streams_device``; streams
     the device demux cannot take are host-walked and merged in (see the
     module docstring). Overlapping callers use :func:`begin_segmented` and
-    :func:`finish_segmented` (``decode_streams_device_async``)."""
-    pending = begin_segmented(datas, lane_quantum, device)
+    :func:`finish_segmented` (``decode_streams_device_async``). A ``mesh``
+    (``parallel``) splits every decode dispatch into its lane shards and
+    runs the demux on ``mesh.devices[0]``."""
+    pending = begin_segmented(datas, lane_quantum, device, mesh)
     if pending is None:
-        return _host_fallback(datas, lane_quantum, device)
+        return _host_fallback(datas, lane_quantum, device, mesh=mesh)
     return finish_segmented(pending)

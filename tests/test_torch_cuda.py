@@ -1482,3 +1482,53 @@ def test_framedesc_route_24bit_bucket_does_not_pack(cuda):
     _assert_scalar_and_md5(datas, dd.to_host())
     assert epilogue.pack_int16_pairs.launches == n + sum(want)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("segmentation", ["host", "device"])
+def test_two_shards_on_one_card(cuda, segmentation):
+    """A mesh of two shards on the one card (``make_mesh(devices=[cuda,
+    cuda])``) on two headline streams, one bucket: each per-lane kernel
+    launches once a shard and the group kernels once; both shards lie on
+    the card, (L / 2, T) each, and stacked equal the unsharded bucket; the
+    per-shard CRC pairs count the batch's frames; the PCM is the scalar
+    decoder's."""
+    import chip_smoke
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch import pipeline_seg as ps
+    from claxon_tpu_torch.ops import (crc, entropy, epilogue, predict,
+                                      seg_gather, seg_parse)
+    from claxon_tpu_torch.parallel import lane_quantum, make_mesh
+
+    datas = chip_smoke.headline_corpus()[:2]
+    mesh = make_mesh(devices=[cuda, cuda])
+    assert mesh.size == 2 and lane_quantum(mesh) == 128
+    per_lane = [predict.synthesize_epilogue, crc.crc16_ranges,
+                entropy.decode_residual_bits_stream if segmentation == "host"
+                else seg_gather.gather_values]
+    group = [seg_parse.demux_front] if segmentation == "device" else []
+
+    def decode(mesh=None):
+        if segmentation == "host":
+            return tp._decode_host_walk(datas, 128, cuda, mesh=mesh)
+        return ps.decode_streams_segmented(datas, device=cuda, mesh=mesh)
+
+    one = decode()
+    before = [w.launches for w in per_lane + group]
+    dd = decode(mesh)
+    torch.cuda.synchronize()
+    after = [w.launches for w in per_lane + group]
+    assert after == [b + 2 for b in before[:len(per_lane)]] + \
+        [b + 1 for b in before[len(per_lane):]]
+    assert dd.fallback_streams == one.fallback_streams == []
+    (_fi, _nch, shards), = dd.device_buckets()
+    (_fi, _nch, whole), = one.device_buckets()
+    L, T = whole.shape
+    assert [(tuple(s.shape), s.device.type) for s in shards] == \
+        [((L // 2, T), "cuda")] * 2
+    assert torch.equal(torch.cat(shards), whole)
+    assert sum(n for _v, n in dd.crc_check) == \
+        sum(n for _v, n in one.crc_check)
+    n = epilogue.pack_int16_pairs.launches
+    _assert_scalar_and_md5(datas, dd.to_host())
+    assert epilogue.pack_int16_pairs.launches == n + 2
+    torch.cuda.synchronize()

@@ -149,6 +149,87 @@ def test_pack_coefficients_matches_jax():
     assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
+def test_host_header_fields_matches_jax():
+    """``pipeline_seg.host_header_fields``, the port's numpy copy, equals
+    the JAX package's on every frame start of the generated corpus, on
+    random buffers at random positions, and at the last 20 positions of
+    a buffer, where its 16-byte window clamps to the last byte."""
+    import claxon_tpu.pipeline_seg as jseg
+
+    import claxon_tpu_torch.pipeline_seg as tseg
+
+    rng = np.random.default_rng(17)
+    cases = []
+    for name in STREAMS[:4]:
+        data = _stream(name)
+        si, bb = jnative.extract_stream_bits(data, emit_slots=False)
+        payload = np.frombuffer(data, np.uint8)[j_read_metadata(data)[1]:]
+        cases.append((payload, bb.bframes["byte0"]))
+    for n in (1, 17, 300):
+        buf = rng.integers(0, 256, n, dtype=np.uint8)
+        buf[rng.integers(0, n, max(1, n // 10))] = 0xFF  # sync-like bytes
+        cases.append((buf, rng.integers(0, n, 64)))
+        cases.append((buf, np.arange(max(0, n - 20), n)))
+    cases.append((np.zeros(8, np.uint8), np.zeros(0, np.int64)))
+    for buf, pos in cases:
+        want = jseg.host_header_fields(buf, pos)
+        got = tseg.host_header_fields(buf, pos)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype, key
+            assert np.array_equal(got[key], want[key]), key
+    assert "host_header_fields" in tseg.__all__
+
+
+def test_native_build_knobs_match_jax(monkeypatch, tmp_path):
+    """``CLAXON_TPU_NO_BUILD`` and ``CLAXON_TPU_UBSAN`` in the port's
+    ``native/build.py`` as in the JAX package's: with NO_BUILD an existing
+    library loads and a missing one gives None, never a build; UBSAN
+    selects ``libclaxon_demux_ubsan.so``, built with the same g++ flags as
+    the JAX package's sanitizer build."""
+    import subprocess
+
+    from claxon_tpu.native import build as jbuild
+
+    from claxon_tpu_torch.native import build as tbuild
+
+    assert tbuild.LIB_UBSAN.name == jbuild.LIB_UBSAN.name
+    commands = {}
+
+    def fake_run(cmd, **_kw):
+        commands.setdefault(mod, []).append(cmd)
+        pathlib.Path(cmd[-1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    for mod in (jbuild, tbuild):
+        monkeypatch.setattr(mod, "LIB", tmp_path / f"{mod.__name__}.so")
+        monkeypatch.setattr(mod, "LIB_UBSAN",
+                            tmp_path / f"{mod.__name__}_ubsan.so")
+        for ubsan in (False, True):
+            assert mod.build(verbose=False, ubsan=ubsan) == \
+                (mod.LIB_UBSAN if ubsan else mod.LIB)
+    flags = {m: [c[1:-3] for c in cmds] for m, cmds in commands.items()}
+    assert flags[tbuild] == flags[jbuild]
+    assert "-fsanitize=undefined" in flags[tbuild][-1]
+
+    monkeypatch.setenv("CLAXON_TPU_NO_BUILD", "1")
+    for ubsan in ("", "1"):
+        monkeypatch.setenv("CLAXON_TPU_UBSAN", ubsan)
+        for mod in (jbuild, tbuild):
+            lib = mod.LIB_UBSAN if ubsan else mod.LIB
+            assert mod.ensure_built() == lib
+            lib.unlink()
+            n = len(commands[mod])
+            assert mod.ensure_built() is None
+            assert len(commands[mod]) == n  # nothing was built
+    monkeypatch.delenv("CLAXON_TPU_NO_BUILD")
+    monkeypatch.setenv("CLAXON_TPU_UBSAN", "1")
+    for mod in (jbuild, tbuild):
+        assert mod.ensure_built() == mod.LIB_UBSAN
+        assert "-fsanitize=undefined" in commands[mod][-1]
+
+
 def test_crc16_bytes_matches_jax():
     rng = np.random.default_rng(12)
     for n in (0, 1, 7, 8, 9, 100, 4099):

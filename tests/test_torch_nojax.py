@@ -9,8 +9,9 @@ Ogg and MP4 containers; the reader API reads them (``FlacReader``'s
 samples on both reader routes, ``FrameReader`` blocks from a file-like
 input), and ``use_native=False`` decodes them through the Python
 extractor and the FrameDesc route, with and without a ``decode_bucket``;
-and the plain forms of rice_decode, crc16_device and crc16_frames_device
-run."""
+``claxon_tpu_torch.parallel`` splits their buckets over a mesh of two
+CPU devices; and the plain forms of rice_decode, crc16_device and
+crc16_frames_device run."""
 
 import pathlib
 import subprocess
@@ -139,6 +140,13 @@ _SCRIPT = textwrap.dedent("""
     ogg = ct.decode_ogg_stream(mux_ogg_flac(data), use_native=False,
                                device="cpu")
     assert np.array_equal(ogg.pcm, pcm)
+    import claxon_tpu_torch.parallel as par
+
+    mesh = par.make_mesh(devices=["cpu", "cpu"])
+    out = par.decode_streams_sharded([data, mono], mesh,
+                                     segmentation="host")
+    assert np.array_equal(out[0].pcm, pcm)
+    assert np.array_equal(out[1].pcm, pcm[:, :1])
     try:
         ct.decode_streams_device([data[:4] + b"!" + data[5:]], device="cpu")
     except ct.FormatError as e:

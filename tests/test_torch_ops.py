@@ -114,6 +114,29 @@ def test_synthesize_matches_jax_pallas_reference_and_golden():
         assert out == want if want is not None else out[-1] == 33931
 
 
+def test_ops_exports_match_jax():
+    """``claxon_tpu_torch.ops`` exports the JAX package's names but ``i64``
+    (its 32-bit limb arithmetic; CUDA has int64): ``synthesize_reference``
+    with JAX's signature gives JAX's oracle's output, ``synthesize_best``
+    is the device's pick (the plain form on the CPU), ``apply_epilogue``
+    is K3's plain form."""
+    import claxon_tpu.ops as jops
+
+    import claxon_tpu_torch.ops as tops
+
+    assert sorted(tops.__all__) == sorted(set(jops.__all__) - {"i64"})
+    assert all(hasattr(tops, name) for name in tops.__all__)
+    x, coefs, shifts, orders, lengths = _synth_batch()
+    want = synthesize_reference(x, coefs, shifts, orders)
+    got = tops.synthesize_reference(x, coefs, shifts, orders)
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    best = tops.synthesize_best(_t(x), _t(coefs), _t(shifts), _t(orders),
+                                _t(lengths))
+    assert torch.equal(best, tpredict.synthesize(
+        _t(x), _t(coefs), _t(shifts), _t(orders), _t(lengths)))
+    assert tops.apply_epilogue is tepilogue.apply_epilogue
+
+
 def test_synthesize_wrapper_refuses_non_cpu_tensors():
     """For a tensor that is not on the CPU the wrapper launches its kernel
     or raises; it never falls back to the plain form."""

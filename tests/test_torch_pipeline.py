@@ -54,10 +54,11 @@ def _fallback_stream():
                        partition_order=7)
 
 
-def _capture_jax_uploads(monkeypatch, datas, lane_quantum, mode="stream"):
-    """Run the JAX package's planner on ``datas`` in entropy ``mode`` and
-    capture the arrays its device programs receive, without compiling or
-    running them."""
+def _capture_jax_uploads(monkeypatch, datas, lane_quantum, mode="stream",
+                         mesh=None):
+    """Run the JAX package's planner on ``datas`` in entropy ``mode`` (over
+    a JAX ``mesh`` when one is given) and capture the arrays its device
+    programs receive, without compiling or running them."""
     monkeypatch.setenv("CLAXON_TPU_ENTROPY", mode)
     monkeypatch.delenv("CLAXON_TPU_HOST_CRC", raising=False)
     got = {"bits": [], "samples": [], "crc": []}
@@ -101,9 +102,13 @@ def _capture_jax_uploads(monkeypatch, datas, lane_quantum, mode="stream"):
     monkeypatch.setattr(jpb, "_bits_program", bits_program)
     monkeypatch.setattr(jpb, "_crc_program", crc_program)
     monkeypatch.setattr(jpipe, "_decode_program", decode_program)
+    monkeypatch.setattr(
+        jpb, "_sample_program_sharded",
+        lambda in_packed, out_packed, _mesh: decode_program(in_packed,
+                                                            out_packed))
     braws, jmode = jpipe.extract_streams_bits(datas, native)
     assert jmode == mode
-    dd = jpb.decode_raw_bits_device(braws, lane_quantum, mode)
+    dd = jpb.decode_raw_bits_device(braws, lane_quantum, mode, mesh=mesh)
     return got, dd.lane_plans()
 
 
@@ -149,11 +154,33 @@ def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum, mode):
     delta mode the (T, nch, SA) buckets' slots, deltas, ks and meta; in
     both the fallback buckets (their residuals as the same int16 pairs)
     and the int16 packing flags the JAX programs were built with."""
+    _assert_planner_matches_jax(monkeypatch, lane_quantum, mode)
+
+
+def test_planner_uploads_match_jax_on_a_mesh_of_three(monkeypatch):
+    """The same at the lane quantum of a 3-device mesh (lcm(128, 6) =
+    384, every bucket splitting into three even lane ranges), against
+    the JAX planner over a JAX mesh of 3 devices, whose CRC ranges pad to
+    a multiple of 3: the port's ``plan_raw_bits(..., n_shards=3)``."""
+    import claxon_tpu.parallel as jpar
+    from claxon_tpu_torch.parallel import lane_quantum, make_mesh
+
+    q = lane_quantum(make_mesh(devices=["cpu"] * 3))
+    assert q == jpar.lane_quantum(jpar.make_mesh(3)) == 384
+    bp = _assert_planner_matches_jax(monkeypatch, q, "stream",
+                                     jpar.make_mesh(3))
+    assert bp.se.shape[1] % 3 == 0 and bp.se.shape[1] > bp.n_crc
+    assert all(len(b.mb) % 384 == 0 for b in bp.bits)
+
+
+def _assert_planner_matches_jax(monkeypatch, lane_quantum, mode, mesh=None):
+    """The checks of the two tests above; returns the port's plan."""
     datas = _generated() + _configs() + [_fallback_stream()]
     jax_up, jax_plans = _capture_jax_uploads(monkeypatch, datas,
-                                             lane_quantum, mode)
+                                             lane_quantum, mode, mesh)
     bp = tpb.plan_raw_bits(extract_streams_bits(datas, native, mode),
-                           lane_quantum, mode)
+                           lane_quantum, mode,
+                           1 if mesh is None else mesh.devices.size)
 
     if mode == "delta":
         _assert_delta_buckets(bp, jax_up["bits"])
@@ -185,13 +212,14 @@ def test_planner_uploads_are_byte_identical(monkeypatch, lane_quantum, mode):
     # 16-bit buckets pack, the 24- and 32-bit ones do not.
     assert {b.out_packed for b in bp.bits} == {True, False}
     if mode == "delta":
-        return
+        return bp
 
     # inputs_from_numpy turns the captured arrays into the port's tensors.
     P, SA, NC, stream, mb, _packed = jax_up["bits"][0]
     s_t, mb_t, se_t = tpb.inputs_from_numpy(stream, mb, se, device="cpu")
     assert s_t.dtype == mb_t.dtype == se_t.dtype == torch.int32
     assert np.array_equal(mb_t.numpy(), mb)
+    return bp
 
 
 def _assert_oracle(datas, results):

@@ -282,6 +282,32 @@ def test_demux_overflow_falls_back_as_a_group(monkeypatch):
     _assert_like_host(stereo + [mono], dd)
 
 
+def test_seg_debug_prints_stage_cpu_ms(monkeypatch, capsys):
+    """``CLAXON_TPU_SEG_DEBUG`` set: the batch keeps (label, host-CPU
+    time) marks from its start and ``finish_segmented`` prints each
+    stage's milliseconds, as the JAX package does, over the stages that
+    ``stage_seconds`` times; unset, nothing is kept or printed."""
+    import ast
+
+    datas = [_enc(1500, 60)]
+    monkeypatch.setenv("CLAXON_TPU_SEG_DEBUG", "1")
+    pend = tseg.begin_segmented(datas, device="cpu")
+    assert pend.stages.marks[0][0] == "start"
+    dd = tseg.finish_segmented(pend)
+    line, = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("seg stage CPU ms: ")]
+    stages = ast.literal_eval(line[len("seg stage CPU ms: "):])
+    assert [b for b, _ms in stages] == [b for b, _t in
+                                         pend.stages.marks[1:]]
+    assert set(b for b, _ms in stages) == set(dd.stage_seconds)
+    assert all(ms >= 0 for _b, ms in stages)
+    monkeypatch.delenv("CLAXON_TPU_SEG_DEBUG")
+    pend = tseg.begin_segmented(datas, device="cpu")
+    assert pend.stages.marks is None
+    _assert_oracle(datas, tseg.finish_segmented(pend).to_host())
+    assert "seg stage" not in capsys.readouterr().out
+
+
 def test_group_merge_one_upload():
     # Two frames or more each: the test encoder records a one-frame
     # stream's block size in STREAMINFO as 16.

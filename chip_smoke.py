@@ -171,7 +171,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
       stream through two shards (its shard's per-lane flag fires, that
       shard alone comes back as int32); the device-resident decode of
       headline x4 on both meshes, both paths, timed in turns (median of
-      5, with the range).
+      5, with the range);
+  (j) the sample-shipping route, CLAXON_TPU_NO_BITS=1 set only around
+      it: (j1) headline x4 through decode_streams_device (the cached
+      "auto" choice ignored and left as it was) is one raw bucket (6912,
+      4096) uploaded as int16 pairs, launching K3b unpack, K1 + K3 and K3b
+      pack once each per batch to host and none of K2, K4, K5-K10; K3b
+      unpack and K1 + K3 held to their plain forms on its recorded upload
+      and timed with their bounds; the C++ raw extraction and the
+      dispatch, device-resident and to host, timed (median of 5, with the
+      range); (j2) mixed + generated through decode_streams, each
+      kernel's launches as the FrameDesc route's packing rule predicts;
+      (j3) the first headline stream from Ogg and from MP4 (the C++
+      FrameDescs, then K3b unpack, K1 + K3 and K3b pack); (j4) headline
+      x4 through decode_streams_sharded over two shards of the card (the
+      FrameDesc step: K1 + K3 and K3b unpack once a shard, no K3b pack)
+      and through the raw route over the same mesh; every PCM equal to
+      the scalar decoder's and the MD5.
 
 The last three lines are the kernels' JSON summary (time, plain time,
 bound and launches of each on each path, K9 and K10 on their routes and
@@ -181,7 +197,8 @@ launches there, "launches_framedesc", with (h)'s numbers under
 "framedesc"; the two-shard headline decodes' launches,
 "launches_sharded" and "launches_sharded_segmented", and on the other
 entropy routes "launches_sharded_routes", with (i)'s numbers under
-"sharded"; K1 alone, an entry point that no decode path
+"sharded"; (j)'s launches and numbers under "sample_shipping"; K1
+alone, an entry point that no decode path
 runs, under "off_path_kernels"; K3 and
 the mb unpack, which are torch ops, under "torch_ops", K3 with its calls
 on the card), the card's name and power limit, and the
@@ -2139,6 +2156,20 @@ def phase_g(base, wide):
     return first
 
 
+def windows(fn):
+    """Host milliseconds of ``fn()`` over ``TIMED_RUNS`` windows, each
+    begun on an idle card: (median, least, most)."""
+    import torch
+
+    ts = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), min(ts), max(ts)
+
+
 def framedesc_packing(datas):
     """(buckets, buckets whose residuals go up as int16 pairs, buckets
     fetched as int16 pairs) of the FrameDesc route on ``datas``, from the
@@ -2235,15 +2266,6 @@ def phase_h(drive, datas4, mixed, generated):
               synth_ops(orders, lengths))
     upload = dd.upload_bytes
     del dd, d, x, args
-
-    def windows(fn):
-        ts = []
-        for _ in range(TIMED_RUNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts), min(ts), max(ts)
 
     extract = windows(lambda: [native.extract_stream(d) for d in datas4])
     resident = windows(lambda: tp.decode_batches_device(
@@ -2526,6 +2548,178 @@ def phase_i(drive, datas4, mixed, generated, base, host_launches,
             f"{med:.1f} ms (median of {len(ts)}, {min(ts):.1f}-"
             f"{max(ts):.1f})")
     return out["launches"]["host_two"], out["launches"]["device_two"], out
+
+
+def phase_j(drive, datas4, mixed, generated, base):
+    """(j) The sample-shipping route, ``CLAXON_TPU_NO_BITS=1`` (set only
+    around this phase): (j1) headline x4 through decode_streams_device is
+    one raw bucket (6912, 4096) uploaded as int16 pairs, one launch each
+    of K3b unpack, K1 + K3 and K3b pack per batch to host and none of K2,
+    K4, K5-K10; K3b unpack and K1 + K3 held to their plain forms on its
+    upload and timed; the C++ raw extraction, the dispatch and the two
+    through decode_streams_device in one window timed (median of 5, with
+    the range); (j2) mixed + generated through
+    decode_streams, each kernel's launches as the FrameDesc route's
+    packing rule predicts (the same buckets); (j3) one headline stream
+    from Ogg and from MP4 (the C++ FrameDescs through K3b unpack and K1 +
+    K3); (j4) decode_streams_sharded over two shards of the card (the
+    FrameDesc step, each per-lane kernel once a shard) and the raw route
+    over the same mesh. Every PCM is held to the scalar decoder and the
+    MD5. Returns the numbers for the JSON line."""
+    import numpy as np
+    import torch
+
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import native
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch import pipeline_bits as pb
+    from claxon_tpu_torch.ops import epilogue, predict
+    from claxon_tpu_torch.parallel import (decode_streams_sharded,
+                                           lane_quantum, make_mesh)
+    from claxon_tpu_torch.testing import mux_mp4_flac, mux_ogg_flac
+
+    absent = ("K2", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
+    out = {"launches": {}}
+    uploads = []
+    shards = pb._decode_sample_shards
+
+    def recorded(arrays, in_packed, mesh):
+        uploads.append((arrays, in_packed))
+        return shards(arrays, in_packed, mesh)
+
+    def expect(label, counts, want):
+        if any(counts[k] for k in absent) or any(
+                counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"(j) {label}: launches {counts}, expected "
+                                 f"{want} and none of {absent}")
+        out["launches"][label] = counts
+        log(f"(j) {label}: launches {counts}")
+
+    def fetched(dd):
+        dd.to_host()
+        return dd
+
+    auto = dict(tp._seg_auto(DEVICE))
+    os.environ["CLAXON_TPU_NO_BITS"] = "1"
+    pb._decode_sample_shards = recorded
+    try:
+        # (j1) headline x4: one raw bucket.
+        dd, counts = drive(("K1+K3", "K3b_unpack", "K3b_pack"),
+                           lambda: fetched(ct.decode_streams_device(
+                               datas4, device=DEVICE)))
+        check_decoded(f"(j1) headline x{HEADLINE_REPLICAS}, "
+                      "CLAXON_TPU_NO_BITS", datas4, dd.results)
+        expect(f"headline x{HEADLINE_REPLICAS}", counts,
+               {"K1+K3": 1, "K3b_unpack": 1, "K3b_pack": 1})
+        (d,) = dd.dispatches
+        ((arrays, in_packed),) = uploads
+        shape = tuple(d.out_full.shape)
+        # At the full size (6912, 4096).
+        want = tp.bucket_shape(2 * sum(len(r.frame_sizes)
+                                       for r in dd.results), 4096)
+        if shape != want or not (in_packed and d.packed):
+            raise AssertionError(f"(j1) bucket {shape}, packed in/out "
+                                 f"{in_packed}/{d.packed}")
+        runs = sum(len(p) for p in dd.lane_plans())
+        x16, coefs, shifts, orders, wasted, pair_modes, lengths = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+            for a in arrays)
+        ru = compare("(j1) K3b unpack raw headline",
+                     lambda: epilogue.unpack_int16_pairs(x16),
+                     lambda: epilogue.unpack_int16_pairs_plain(x16))
+        x = epilogue.unpack_int16_pairs(x16)
+        args = (x, coefs, shifts, orders, lengths, wasted, pair_modes)
+        r13 = compare("(j1) K1+K3 raw headline",
+                      lambda: predict.synthesize_epilogue(*args),
+                      lambda: predict.synthesize_epilogue_plain(*args))
+        if not torch.equal(predict.synthesize_epilogue(*args), d.out_full):
+            raise AssertionError("(j1) K1+K3 on the recorded upload != the "
+                                 "dispatch's output")
+        bu = bound(tensor_bytes(x16, x))
+        b13 = bound(tensor_bytes(*args) + tensor_bytes(d.out_full),
+                    synth_ops(orders, lengths))
+        upload = dd.upload_bytes
+        del dd, d, x, x16, args
+
+        pb._decode_sample_shards = shards
+        raws = [native.extract_stream_raw(d) for d in datas4]
+        extract = windows(lambda: [native.extract_stream_raw(d)
+                                   for d in datas4])
+        resident = windows(lambda: tp.decode_raw_batches_device(
+            raws, device=DEVICE).sync())
+        host = windows(lambda: tp.decode_raw_batches_device(
+            raws, device=DEVICE).to_host())
+        del raws
+        # Extraction and dispatch in one window, through the entry point.
+        whole = windows(lambda: ct.decode_streams_device(
+            datas4, device=DEVICE).sync())
+        log(f"(j1) headline x{HEADLINE_REPLICAS} through the raw route (L "
+            f"{shape[0]}, T {shape[1]}, {runs} lane runs, {upload} bytes "
+            f"uploaded): K3b unpack == plain {ru[1]:.4f} ms (plain "
+            f"{ru[2]:.1f} ms), bound {bu[0]:.4f} ms ({bu[1]}); K1+K3 == "
+            f"plain {r13[1]:.4f} ms (plain {r13[2]:.1f} ms), bound "
+            f"{b13[0]:.4f} ms ({b13[1]}); host ms, median of {TIMED_RUNS} "
+            f"(min-max): C++ raw extraction {extract[0]:.1f} ({extract[1]:.1f}"
+            f"-{extract[2]:.1f}), dispatch device-resident {resident[0]:.1f} "
+            f"({resident[1]:.1f}-{resident[2]:.1f}), to host {host[0]:.1f} "
+            f"({host[1]:.1f}-{host[2]:.1f}); decode_streams_device "
+            f"device-resident, extraction included, {whole[0]:.1f} "
+            f"({whole[1]:.1f}-{whole[2]:.1f})")
+        out.update(shape=shape, lane_runs=runs, upload_bytes=upload,
+                   k3b_unpack={"ms": ru[1], "plain_ms": ru[2],
+                               "max_abs_err": ru[0], "bound_ms": bu[0]},
+                   k1_k3={"ms": r13[1], "plain_ms": r13[2],
+                          "max_abs_err": r13[0], "bound_ms": b13[0]},
+                   extract_ms=extract, device_resident_ms=resident,
+                   to_host_ms=host, end_to_end_resident_ms=whole)
+
+        # (j2) mixed + generated: the FrameDesc route's buckets and rule.
+        datas = mixed + generated
+        n, unpacks, packs = framedesc_packing(datas)
+        res, counts = drive(("K1+K3",), lambda: ct.decode_streams(
+            datas, device=DEVICE))
+        check_decoded("(j2) mixed + generated, CLAXON_TPU_NO_BITS", datas,
+                      res)
+        expect("mixed + generated", counts,
+               {"K1+K3": n, "K3b_unpack": unpacks, "K3b_pack": packs})
+
+        # (j3) the containers: the C++ FrameDescs, the FrameDesc route.
+        for fmt, fn, mux in (("ogg", ct.decode_ogg_stream, mux_ogg_flac),
+                             ("mp4", ct.decode_mp4_stream,
+                              functools.partial(mux_mp4_flac,
+                                                frames_per_chunk=3))):
+            data = mux(base[0])
+            res, counts = drive(("K1+K3", "K3b_unpack"), lambda: fn(
+                data, device=DEVICE))
+            check_decoded(f"(j3) headline[0] from {fmt}, CLAXON_TPU_NO_BITS",
+                          base[:1], [res])
+            expect(f"{fmt} headline[0]", counts,
+                   {"K1+K3": 1, "K3b_unpack": 1, "K3b_pack": 1})
+
+        # (j4) two shards of the card: the sharded call's FrameDesc step
+        # (its shards come back as int32, no K3b pack), and the raw route.
+        two = make_mesh(devices=[f"{DEVICE}:0"] * 2)
+        res, counts = drive(("K1+K3", "K3b_unpack"),
+                            lambda: decode_streams_sharded(datas4, two))
+        check_decoded(f"(j4) headline x{HEADLINE_REPLICAS}, "
+                      "decode_streams_sharded, two shards", datas4, res)
+        expect("decode_streams_sharded, two shards", counts,
+               {"K1+K3": 2, "K3b_unpack": 2, "K3b_pack": 0})
+        dd, counts = drive(("K1+K3", "K3b_unpack", "K3b_pack"),
+                           lambda: fetched(ct.decode_streams_device(
+                               datas4, lane_quantum=lane_quantum(two),
+                               device=two.devices[0], mesh=two)))
+        check_decoded(f"(j4) headline x{HEADLINE_REPLICAS}, raw route, two "
+                      "shards", datas4, dd.results)
+        expect("raw route, two shards", counts,
+               {"K1+K3": 2, "K3b_unpack": 2, "K3b_pack": 2})
+    finally:
+        pb._decode_sample_shards = shards
+        del os.environ["CLAXON_TPU_NO_BITS"]
+    if tp._seg_auto(DEVICE) != auto:
+        raise AssertionError(f"(j) the route changed the cached auto "
+                             f"choice: {auto} -> {tp._seg_auto(DEVICE)}")
+    return out
 
 
 def main():
@@ -3104,6 +3298,10 @@ def main():
     i_host, i_seg, sharded = phase_i(drive, datas4, mixed, generated, base,
                                      host_launches, seg_launches, routes)
     log(f"(i) the sharded route took {time.perf_counter() - t_i:.1f} s")
+    t_j = time.perf_counter()
+    sample_shipping = phase_j(drive, datas4, mixed, generated, base)
+    log(f"(j) the sample-shipping route took {time.perf_counter() - t_j:.1f} "
+        "s")
 
     sources = {"K1+K3": ("claxon_tpu_torch/csrc/synth.cu",
                          "claxon_tpu/ops/pallas_synth.py:127"),
@@ -3267,6 +3465,7 @@ def main():
                                     "depth_ms": depth_ms},
                       "framedesc": framedesc,
                       "sharded": sharded,
+                      "sample_shipping": sample_shipping,
                       "device_idle": {p: (None if v is None else
                                           {"busy_ms": v[0], "wall_ms": v[1]})
                                       for p, v in idle.items()}}))

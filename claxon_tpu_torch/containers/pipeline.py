@@ -22,11 +22,12 @@ PCM is the same.
 ``use_native=False`` extracts the frame section with the Python extractor
 (``extract.extract_frames``, frame CRC-16 checked on the host) and decodes
 its FrameDescs on the FrameDesc route (``pipeline.decode_batch``: K3b
-unpack, K1 + K3), as the JAX package does.
+unpack, K1 + K3), as the JAX package does. ``CLAXON_TPU_NO_BITS`` (any
+nonempty value) takes the same route from the C++ core's FrameDesc
+extraction (``native.extract_frames``), as the JAX package does.
 
-Not carried over: the environment knobs ``CLAXON_TPU_NO_BITS`` and
-``CLAXON_TPU_BITS_PAYLOAD_CAP`` select paths the port does not have and
-are not read.
+Not carried over: ``CLAXON_TPU_BITS_PAYLOAD_CAP`` selects a switch the
+port does not make and is not read.
 """
 
 import io as _io
@@ -40,12 +41,14 @@ from .ogg import read_flac_from_ogg
 __all__ = ["decode_ogg_stream", "decode_mp4_stream"]
 
 
-def _extract_section(payload, max_frames=None):
-    """FrameDescs of a frame section (bytes-like) through the Python
-    extractor; ``max_frames`` bounds the parse (an MP4 chunk declares its
-    frame count)."""
+def _extract_section(payload, native, max_frames=None):
+    """FrameDescs of a frame section (bytes-like) through the C++ core
+    ``native``, or when it is None the Python extractor; ``max_frames``
+    bounds the parse (an MP4 chunk declares its frame count)."""
     from ..extract import extract_frames
 
+    if native is not None:
+        return native.extract_frames(payload, max_frames)
     return extract_frames(MemReader(payload), max_frames=max_frames)
 
 
@@ -84,10 +87,11 @@ def decode_ogg_stream(data, use_native=True, verify_crc=True, device="cuda"):
     """Decode a whole FLAC-in-Ogg stream (bytes, or a file-like object)
     on ``device``; returns a ``DecodedStream``. ``verify_crc`` checks each
     Ogg page's CRC-32; frame CRC-16s are always verified, on the device
-    (on the host with ``CLAXON_TPU_HOST_CRC``, and by the Python extractor
-    with ``use_native=False``)."""
+    (on the host with ``CLAXON_TPU_HOST_CRC``, by the Python extractor
+    with ``use_native=False`` and by the C++ FrameDesc extraction under
+    ``CLAXON_TPU_NO_BITS``)."""
     from .. import pipeline_bits
-    from ..pipeline import _native, _walk_frames_chunked
+    from ..pipeline import _native, _no_bits, _walk_frames_chunked
 
     stream = _io.BytesIO(data) if isinstance(
         data, (bytes, bytearray, memoryview)) else data
@@ -100,9 +104,10 @@ def decode_ogg_stream(data, use_native=True, verify_crc=True, device="cuda"):
     # Every audio packet is exactly one frame, so the concatenation is a
     # plain frame section.
     payload = b"".join(p for p in audio_packets if p)
-    if not use_native:
-        return _decode_frames(streaminfo, _extract_section(payload), device)
-    native = _native()
+    native = _native() if use_native else None
+    if native is None or _no_bits():
+        return _decode_frames(streaminfo, _extract_section(payload, native),
+                              device)
     limit = pipeline_bits.MAX_BATCH_BYTES
     defer = _defer_crc()
     if len(payload) < limit:
@@ -118,11 +123,12 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
     """Decode a whole FLAC-in-MP4 file (bytes) on ``device``; returns a
     ``DecodedStream``."""
     from .. import pipeline_bits
-    from ..pipeline import (_native, _split_batch, _unit_bytes,
+    from ..pipeline import (_native, _no_bits, _split_batch, _unit_bytes,
                             _walk_frames_chunked)
     from ..pipeline_bits import _host_verify_deferred
 
     native = _native() if use_native else None
+    framedesc = native is None or _no_bits()
     data = bytes(data)
     view = memoryview(data)
     track = read_flac_from_mp4(data)
@@ -156,8 +162,8 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
         end = nxt[0] if nxt else len(data)
         # A chunk holds exactly n frames; the bounded parse stops before
         # any inter-chunk slack (`examples/decode_mp4.rs:132-167`).
-        if not use_native:
-            got = _extract_section(view[offset:end], max_frames=n)
+        if framedesc:
+            got = _extract_section(view[offset:end], native, n)
             if len(got) < n:
                 fmt_err("MP4 chunk ends before its declared frame count")
             frames.extend(got)
@@ -182,7 +188,7 @@ def decode_mp4_stream(data, use_native=True, device="cuda"):
         if sum(len(bb.bframes) for bb in got) < n:
             _crc_before_error()
             fmt_err("MP4 chunk ends before its declared frame count")
-    if not use_native:
+    if framedesc:
         return _decode_frames(track.streaminfo, frames, device)
     # Consecutive chunks merge into walk units below the byte limit: one
     # unit, as in the JAX package, unless the file is that large.

@@ -5,12 +5,15 @@ Loads ``libclaxon_demux.so`` via ctypes, building it with g++ on first use
 False when it cannot be built or loaded.
 """
 
-from .binding import (available, extract_stream, extract_stream_bits,
+from .binding import (available, extract_stream, extract_stream_raw,
+                      extract_frames_raw, extract_stream_bits,
                       extract_frames_bits, merge_bits_batches, BitsBatch,
                       crc16_bytes, extract_frames, decode_frames_limited,
-                      decode_stream_scalar)
+                      decode_stream_scalar, has_pack_helpers, rows_to_i16,
+                      minmax)
 
-__all__ = ["available", "extract_stream", "extract_stream_bits",
-           "extract_frames_bits", "merge_bits_batches", "BitsBatch",
-           "crc16_bytes", "extract_frames", "decode_frames_limited",
-           "decode_stream_scalar"]
+__all__ = ["available", "extract_stream", "extract_stream_raw",
+           "extract_frames_raw", "extract_stream_bits", "extract_frames_bits",
+           "merge_bits_batches", "BitsBatch", "crc16_bytes", "extract_frames",
+           "decode_frames_limited", "decode_stream_scalar",
+           "has_pack_helpers", "rows_to_i16", "minmax"]

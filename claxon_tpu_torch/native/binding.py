@@ -1,11 +1,12 @@
 """ctypes binding to the port's C++ host core (``src/claxon_demux.cpp``; a
-copy of ``claxon_tpu.native.binding`` without the sample-shipping helpers
-of the JAX package's legacy path).
+copy of ``claxon_tpu.native.binding``).
 
 Layering: Python parses the (cold, byte-aligned) stream header + metadata
 blocks; the C++ core does the hot bit-level work -- the boundary walk of
-the bits path, the FrameDesc extraction, the scalar and single-frame
-decodes, bulk CRC-16 -- and returns flat descriptor arrays.
+the bits path, the FrameDesc and raw extractions (the raw one feeds the
+sample-shipping route of ``CLAXON_TPU_NO_BITS``, with its int16 pack
+helpers), the scalar and single-frame decodes, bulk CRC-16 -- and returns
+flat descriptor arrays.
 """
 
 import ctypes
@@ -17,10 +18,11 @@ from ..io import MemReader
 from ..metadata import read_flac_metadata, read_stream_header
 from .build import ensure_built
 
-__all__ = ["available", "extract_stream", "extract_stream_bits",
-           "extract_frames_bits", "merge_bits_batches", "BitsBatch",
-           "crc16_bytes", "extract_frames", "decode_frames_limited",
-           "decode_stream_scalar"]
+__all__ = ["available", "extract_stream", "extract_stream_raw",
+           "extract_frames_raw", "extract_stream_bits", "extract_frames_bits",
+           "merge_bits_batches", "BitsBatch", "crc16_bytes", "extract_frames",
+           "decode_frames_limited", "decode_stream_scalar",
+           "has_pack_helpers", "rows_to_i16", "minmax"]
 
 #: Expected cxt_abi_version() of the loaded .so; must move in lockstep with
 #: any change to the C-ABI struct layouts below.
@@ -95,6 +97,14 @@ def _load():
         lib.cxt_b_fill.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 7
         lib.cxt_crc16.restype = ctypes.c_int32
         lib.cxt_crc16.argtypes = [u8p, ctypes.c_uint64]
+        lib.cxt_rows_to_i16.restype = None
+        lib.cxt_rows_to_i16.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                        ctypes.c_int64, ctypes.c_void_p,
+                                        ctypes.c_int64, ctypes.c_int64]
+        lib.cxt_minmax.restype = None
+        lib.cxt_minmax.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_int32),
+                                   ctypes.POINTER(ctypes.c_int32)]
         # A stale .so whose symbols still resolve but whose struct layouts
         # differ would corrupt memory in cxt_fill; the ABI version gate
         # turns that into available() -> False.
@@ -293,10 +303,8 @@ def crc16_bytes(data):
         buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(buf)))
 
 
-def _extract_frames_raw(payload, max_frames=None):
-    """Extract the flat descriptor arrays of a stream's frame section (the
-    JAX package's ``extract_frames_raw``, private here: the port calls it
-    only from :func:`extract_frames`):
+def extract_frames_raw(payload, max_frames=None):
+    """Extract the flat descriptor arrays of a stream's frame section:
     (frames_buf FRAME_DTYPE, subs_buf SUB_DTYPE, samples int32). The
     samples array holds each lane's block (warm-up ++ residuals)
     consecutively, frame-major, channel-minor. ``max_frames`` bounds the
@@ -327,14 +335,22 @@ def _extract_frames_raw(payload, max_frames=None):
     return frames_buf, subs_buf, samples
 
 
+def extract_stream_raw(data):
+    """(streaminfo, frames_buf, subs_buf, samples) for a whole stream: the
+    flat arrays ``pipeline.decode_raw_batches_device`` plans from, with no
+    Python object per frame."""
+    data = bytes(data)
+    streaminfo, pos = _read_metadata(data)
+    return (streaminfo,) + extract_frames_raw(memoryview(data)[pos:])
+
+
 def extract_frames(payload, max_frames=None):
     """Extract FrameDescs from the frame section of a stream (bytes
     positioned at the first frame). Native counterpart of
     ``claxon_tpu_torch.extract.extract_frames``."""
     from ..extract import FrameDesc, SubframeDesc
 
-    frames_buf, subs_buf, samples = _extract_frames_raw(payload,
-                                                        max_frames)
+    frames_buf, subs_buf, samples = extract_frames_raw(payload, max_frames)
     n_frames = len(frames_buf)
 
     frames = []
@@ -403,6 +419,46 @@ def decode_frames_limited(payload, max_frames=1):
     finally:
         lib.cxt_free(h)
     return int(consumed.value), frames_buf, pcm
+
+
+def has_pack_helpers():
+    """True when the C++ core loads: the port's core always has
+    :func:`rows_to_i16` and :func:`minmax` (the JAX package's name)."""
+    return available()
+
+
+def rows_to_i16(src, n_rows, bs, dst16, lane0):
+    """Fused copy-convert: ``n_rows`` rows of ``bs`` int32 samples from the
+    contiguous ``src`` (1-D int32) into rows [lane0, lane0+n_rows) of the
+    C-contiguous 2-D int16 array ``dst16``. Values must already fit
+    int16. Raises ValueError for arrays or bounds the copy would overrun
+    (the JAX package asserts the same conditions)."""
+    lib = _require()
+    if not (src.dtype == np.int32 and src.flags.c_contiguous
+            and dst16.dtype == np.int16 and dst16.ndim == 2
+            and dst16.flags.c_contiguous):
+        raise ValueError("rows_to_i16: src must be contiguous int32 and "
+                         "dst16 a C-contiguous 2-D int16 array")
+    if not (0 <= lane0 and 0 <= n_rows and lane0 + n_rows <= dst16.shape[0]
+            and 0 <= bs <= dst16.shape[1] and n_rows * bs <= src.size):
+        raise ValueError(f"rows_to_i16: {n_rows} rows of {bs} samples at "
+                         f"lane {lane0} overrun src ({src.size}) or dst16 "
+                         f"{dst16.shape}")
+    lib.cxt_rows_to_i16(src.ctypes.data, n_rows, bs, dst16.ctypes.data,
+                        dst16.shape[1], lane0)
+
+
+def minmax(arr):
+    """(min, max) over a contiguous int32 array, including 0 (single C
+    pass; the int16-input packing decision)."""
+    lib = _require()
+    if not (arr.dtype == np.int32 and arr.flags.c_contiguous):
+        raise ValueError("minmax: arr must be contiguous int32")
+    mn = ctypes.c_int32(0)
+    mx = ctypes.c_int32(0)
+    lib.cxt_minmax(arr.ctypes.data, arr.size, ctypes.byref(mn),
+                   ctypes.byref(mx))
+    return int(mn.value), int(mx.value)
 
 
 def decode_stream_scalar(data):

@@ -169,18 +169,19 @@ def decode_streams_sharded(datas, mesh=None, use_native=True,
     segmented path, whose upload and fused demux run once on
     ``mesh.devices[0]`` and whose decode dispatches run per shard;
     ``"auto"`` (the default) times both over the mesh once and keeps the
-    faster, as the unsharded calls do. The JAX package's
-    ``CLAXON_TPU_NO_BITS`` route is not ported, so that variable leaves
-    this call on its bits path. ``use_native=False`` takes the FrameDesc
-    route: the Python extractor, then :func:`make_decode_step` per
-    bucket."""
-    from ..pipeline import _extract, decode_batches, decode_streams_device
+    faster, as the unsharded calls do. ``use_native=False`` takes the
+    FrameDesc route: the Python extractor, then :func:`make_decode_step`
+    per bucket; under ``CLAXON_TPU_NO_BITS`` (any nonempty value) so does
+    ``use_native=True``, from the C++ core's FrameDescs, whatever
+    ``segmentation`` says, as in the JAX package."""
+    from ..pipeline import (_extract, _no_bits, decode_batches,
+                            decode_streams_device)
 
     if mesh is None:
         mesh = make_mesh()
-    if use_native:
+    if use_native and not _no_bits():
         return decode_streams_device(
             datas, True, lane_quantum(mesh), segmentation, mesh.devices[0],
             mesh=mesh).start_fetch().to_host()
-    return decode_batches([_extract(d, False) for d in datas],
+    return decode_batches([_extract(d, use_native) for d in datas],
                           make_decode_step(mesh), lane_quantum(mesh))

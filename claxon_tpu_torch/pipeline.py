@@ -26,6 +26,12 @@ into (L, T) buckets of residuals (:func:`pack_bucket`) and decoded on
 (for example ``native.extract_stream``'s), and ``decode_streams``'
 ``decode_bucket`` argument replaces its per-bucket device call.
 
+``CLAXON_TPU_NO_BITS`` (any nonempty value) takes the JAX package's
+sample-shipping route instead, whatever ``segmentation`` says: the C++
+core decodes the residuals on the host (``native.extract_stream_raw``) and
+:func:`decode_raw_batches_device` plans buckets straight from its flat
+arrays, so the card runs only K3b unpack and K1 + K3.
+
 Every call takes an explicit ``device`` (default ``"cuda"``): nothing
 probes for a GPU, and CPU tensors take the kernels' plain PyTorch forms.
 The C++ core is required unless ``use_native=False``.
@@ -44,7 +50,8 @@ __all__ = ["decode_stream", "decode_streams", "decode_batch",
            "decode_batches", "decode_batches_device", "decode_streams_device",
            "decode_streams_device_async", "decode_streams_pipelined",
            "extract_streams_bits", "merge_decoded", "DeviceDecoded",
-           "DecodedStream", "bucket_shape", "device_decode_bucket"]
+           "DecodedStream", "bucket_shape", "device_decode_bucket",
+           "decode_raw_batches_device"]
 
 # Time-axis bucket sizes: the common FLAC block sizes plus power-of-two
 # fill-ins, so a stream with one block size makes one bucket shape.
@@ -519,6 +526,141 @@ def decode_batches_device(batches, lane_quantum=_L_QUANTUM,
     return dd
 
 
+def _t_bucket_of(bs):
+    """The time bucket of block size ``bs``: the smallest of
+    ``_T_BUCKETS`` that holds it."""
+    from bisect import bisect_left
+
+    return _T_BUCKETS[bisect_left(_T_BUCKETS, bs)]
+
+
+def _fill_bucket(runs, samples_of, shape, native):
+    """The bucket's ``x`` in its upload form, from its lane ``runs`` ((si,
+    p0, nl, bs, lane0): ``nl`` rows of ``bs`` samples at ``p0`` of stream
+    ``si``'s flat ``samples_of[si]``): int16 pairs, (L, T // 2) int32 words,
+    when every sample fits int16 and T is even (one C min/max pass a run
+    decides, the C++ core's fused convert fills), else (L, T) int32.
+    Returns (x, packed)."""
+    L, T = shape
+    mn = mx = 0
+    for si, p0, nl, bs, _lane0 in runs:
+        lo, hi = native.minmax(samples_of[si][p0:p0 + nl * bs])
+        mn, mx = min(mn, lo), max(mx, hi)
+    if _LITTLE_ENDIAN and T % 2 == 0 and mn >= -32768 and mx <= 32767:
+        x16 = np.zeros((L, T), dtype=np.int16)
+        for si, p0, nl, bs, lane0 in runs:
+            native.rows_to_i16(samples_of[si][p0:p0 + nl * bs], nl, bs,
+                               x16, lane0)
+        return x16.view(np.int32), True
+    x = np.zeros((L, T), dtype=np.int32)
+    for si, p0, nl, bs, lane0 in runs:
+        x[lane0:lane0 + nl, :bs] = \
+            samples_of[si][p0:p0 + nl * bs].reshape(nl, bs)
+    return x, False
+
+
+def decode_raw_batches_device(raws, lane_quantum=_L_QUANTUM, device="cuda",
+                              mesh=None) -> DeviceDecoded:
+    """Decode [(streaminfo, frames_buf, subs_buf, samples), ...]
+    (``native.extract_stream_raw``: the residuals already decoded on the
+    host, frame CRC-16 checked there) into buckets on ``device``, the
+    sample-shipping route of ``CLAXON_TPU_NO_BITS``. The same PCM as the
+    FrameDesc route on the same streams, planned from the flat arrays with
+    no Python object per frame: frames group by (time bucket, channels) in
+    first-seen order, and consecutive frames of one stream with one block
+    size make one lane run, copied in bulk. Per bucket the samples go up
+    as int16 pairs when they fit (K3b unpack on the card), then K1 + K3;
+    a bucket of frames of 16 bits or fewer is fetched as int16 pairs (K3b
+    pack in ``start_fetch()``). With a ``mesh`` (``lane_quantum`` then
+    ``parallel.lane_quantum(mesh)``) every bucket splits into its lane
+    shards. Every bucket is queued before any result is awaited."""
+    from .ops.predict import ORDER_MAX
+    from .parallel.mesh import Mesh
+    from .pipeline_bits import _decode_sample_shards
+
+    native = _native()
+    results, pcms, groups = [], [], {}
+    for si_idx, (si, frames_buf, _subs, _samples) in enumerate(raws):
+        if np.any(frames_buf["channels"] != si.channels):
+            fmt_err("frame channel count does not match streaminfo")
+        bs_v = frames_buf["block_size"].astype(np.int64)
+        nch_v = frames_buf["channels"].astype(np.int64)
+        sub0_v = np.concatenate([[0], np.cumsum(nch_v)[:-1]])
+        samp0_v = np.concatenate([[0], np.cumsum(bs_v * nch_v)[:-1]])
+        out0_v = np.concatenate([[0], np.cumsum(bs_v)[:-1]])
+        pcm = np.zeros((int(bs_v.sum()), si.channels), dtype=np.int32)
+        results.append(DecodedStream(
+            streaminfo=si, pcm=pcm,
+            frame_times=frames_buf["time"].tolist(),
+            frame_sizes=frames_buf["block_size"].tolist()))
+        pcms.append(pcm)
+        # Per frame: (stream, bs, nch, mode, sub0, samp0, out0, bps).
+        for i in range(len(frames_buf)):
+            rec = (si_idx, int(bs_v[i]), int(nch_v[i]),
+                   int(frames_buf["mode"][i]), int(sub0_v[i]),
+                   int(samp0_v[i]), int(out0_v[i]),
+                   int(frames_buf["bps"][i]))
+            groups.setdefault((_t_bucket_of(bs_v[i]), rec[2]),
+                              []).append(rec)
+
+    samples_of = [r[3] for r in raws]
+    dispatches, plans, upload = [], [], 0
+    for (t_bucket, n_ch), rlist in groups.items():
+        L, T = bucket_shape(len(rlist) * n_ch, t_bucket, lane_quantum)
+        coefs = np.zeros((L, ORDER_MAX), dtype=np.int32)
+        shifts, orders, wasted, lengths = (np.zeros(L, dtype=np.int32)
+                                           for _ in range(4))
+        pair_modes = np.zeros(L // 2, dtype=np.int32)
+        # Runs: consecutive frames of one stream with one block size whose
+        # subframes are consecutive hold contiguous spans of the flat
+        # arrays.
+        plan, runs, lane, i = [], [], 0, 0
+        while i < len(rlist):
+            si_idx, bs = rlist[i][0], rlist[i][1]
+            j = i
+            while (j + 1 < len(rlist) and rlist[j + 1][0] == si_idx
+                   and rlist[j + 1][1] == bs
+                   and rlist[j + 1][4] == rlist[j][4] + n_ch):
+                j += 1
+            run = rlist[i:j + 1]
+            nl = len(run) * n_ch
+            subs = raws[si_idx][2]
+            s0 = run[0][4]
+            runs.append((si_idx, run[0][5], nl, bs, lane))
+            plan.append((si_idx, run[0][6], len(run), bs, n_ch, lane))
+            coefs[lane:lane + nl] = subs["coefs"][s0:s0 + nl]
+            shifts[lane:lane + nl] = subs["shift"][s0:s0 + nl]
+            orders[lane:lane + nl] = subs["order"][s0:s0 + nl]
+            wasted[lane:lane + nl] = subs["wasted"][s0:s0 + nl]
+            lengths[lane:lane + nl] = bs
+            if n_ch == 2:
+                pair_modes[lane // 2:lane // 2 + len(run)] = \
+                    [r[3] for r in run]
+            lane += nl
+            i = j + 1
+        x, in_packed = _fill_bucket(runs, samples_of, (L, T), native)
+        out_packed = (_LITTLE_ENDIAN and T % 2 == 0 and
+                      all(r[7] <= 16 for r in rlist))
+        arrays = (x, coefs, shifts, orders, wasted, pair_modes, lengths)
+        outs = _decode_sample_shards(arrays, in_packed,
+                                     mesh or Mesh((torch.device(device),)))
+        dispatches.append(_shard_dispatch(n_ch, outs, out_packed,
+                                          mesh is not None))
+        upload += sum(a.nbytes for a in arrays)
+        plans.append(plan)
+    dd = DeviceDecoded(results, dispatches, plans, pcms)
+    dd.upload_bytes = upload
+    return dd
+
+
+def _no_bits():
+    """The JAX package's ``CLAXON_TPU_NO_BITS`` (any nonempty value), read
+    on each call: the sample-shipping route."""
+    import os
+
+    return bool(os.environ.get("CLAXON_TPU_NO_BITS"))
+
+
 def decode_batches(batches, decode_bucket=None, lane_quantum=_L_QUANTUM,
                    device="cuda") -> List[DecodedStream]:
     """Decode many StreamBatches at once; frames from *all* streams share
@@ -805,9 +947,9 @@ def _resolve_segmentation(segmentation, device):
     (default ``"auto"``) and ``"auto"`` replaced by the choice cached for
     ``device``'s type; ``"auto"`` stays only while nothing is cached. The
     JAX package also falls back to ``"host"`` here when its C++ core is
-    missing or ``CLAXON_TPU_NO_BITS`` is set; the port's core builds at
-    first use and it has no other route, so neither condition has a
-    counterpart."""
+    missing; the port's core builds at first use, and a call that needs it
+    raises without it. Under ``CLAXON_TPU_NO_BITS`` the callers take the
+    sample-shipping route before they read the result."""
     import os
 
     if segmentation is None:
@@ -865,7 +1007,11 @@ def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
     The arguments keep the reference's order. ``use_native=False``
     extracts every stream with the Python extractor and takes the
     FrameDesc route (:func:`decode_batches_device`) whatever
-    ``segmentation`` says; ``"auto"`` calibrates nothing then.
+    ``segmentation`` says; ``"auto"`` calibrates nothing then. Otherwise
+    ``CLAXON_TPU_NO_BITS`` (any nonempty value) extracts every stream with
+    ``native.extract_stream_raw`` first, in input order, and takes the
+    sample-shipping route (:func:`decode_raw_batches_device`), whatever
+    ``segmentation`` says; ``"auto"`` calibrates and caches nothing then.
 
     ``segmentation="device"`` takes the segmented path (``pipeline_seg``:
     frame search and subframe walk on the card, odd streams on the host
@@ -881,6 +1027,11 @@ def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
     if not use_native:
         return decode_batches_device([_extract(d, False) for d in datas],
                                      lane_quantum, device, mesh)
+    if _no_bits():
+        native = _native()
+        return decode_raw_batches_device(
+            [native.extract_stream_raw(d) for d in datas], lane_quantum,
+            device, mesh)
     segmentation = _resolve_segmentation(segmentation, device)
     if segmentation == "auto":
         return _calibrate_segmentation(datas, lane_quantum, device, mesh)
@@ -916,11 +1067,12 @@ def decode_streams_device_async(datas, use_native=True,
     Only the segmented path has a first stage (uploads, frame search and
     subframe walk, the summary copy started), so a caller that begins
     batch n+1 before finishing batch n hides the summary wait behind the
-    next batch's host work. The host-walk path and the FrameDesc route
-    (``use_native=False``) decode eagerly, and so does the first
+    next batch's host work. The host-walk path, the FrameDesc route
+    (``use_native=False``) and the sample-shipping route
+    (``CLAXON_TPU_NO_BITS``) decode eagerly, and so does the first
     ``"auto"`` batch, which calibrates."""
     segmentation = _resolve_segmentation(segmentation, device)
-    if use_native and segmentation == "device":
+    if use_native and segmentation == "device" and not _no_bits():
         from .pipeline_seg import (_host_fallback, begin_segmented,
                                    finish_segmented)
 

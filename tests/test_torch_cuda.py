@@ -1532,3 +1532,65 @@ def test_two_shards_on_one_card(cuda, segmentation):
     _assert_scalar_and_md5(datas, dd.to_host())
     assert epilogue.pack_int16_pairs.launches == n + 2
     torch.cuda.synchronize()
+
+
+def test_sample_shipping_route_on_the_card(cuda, monkeypatch):
+    """CLAXON_TPU_NO_BITS on the card: headline x4 is one raw bucket (L
+    6912, T 4096) uploaded as int16 pairs; K3b unpack and K1 + K3 launch
+    once each, equal to their plain forms on the same upload, and no
+    entropy, CRC or segmented kernel runs; the int16 fetch (one K3b pack)
+    gives the scalar decoder's PCM. The generated corpus, two headline
+    streams over two shards of the card, and the Ogg and MP4 calls decode
+    bit-exactly too."""
+    import claxon_tpu_torch as ct
+    import claxon_tpu_torch.pipeline_bits as tbits
+    from claxon_tpu_torch.ops import (crc, demux, entropy, epilogue,
+                                      predict, seg_gather, seg_parse)
+    from claxon_tpu_torch.parallel import lane_quantum, make_mesh
+    from claxon_tpu_torch.testing import mux_mp4_flac, mux_ogg_flac
+
+    monkeypatch.setenv("CLAXON_TPU_NO_BITS", "1")
+    datas = _headline_x4()
+    uploads = []
+    shards = tbits._decode_sample_shards
+    monkeypatch.setattr(tbits, "_decode_sample_shards",
+                        lambda *a: uploads.append(a) or shards(*a))
+    path = (predict.synthesize_epilogue, epilogue.unpack_int16_pairs)
+    absent = (epilogue.pack_int16_pairs, predict.synthesize,
+              entropy.decode_residual_bits_stream,
+              entropy.decode_residual_bits,
+              entropy.decode_residual_bits_stream_delta, crc.crc16_ranges,
+              seg_parse.demux_front, demux.walk_frames,
+              seg_gather.gather_values)
+    before = [w.launches for w in path + absent]
+    dd = ct.decode_streams_device(datas, segmentation="device", device=cuda)
+    torch.cuda.synchronize()
+    assert [w.launches for w in path + absent] == \
+        [b + 1 for b in before[:2]] + before[2:]
+    (d,) = dd.dispatches
+    assert tuple(d.out_full.shape) == (6912, 4096) and d.packed
+    ((arrays, in_packed, _mesh),) = uploads
+    assert in_packed and dd.upload_bytes == sum(a.nbytes for a in arrays)
+    x16 = _c(arrays[0], cuda)
+    unpacked = epilogue.unpack_int16_pairs(x16)
+    assert torch.equal(unpacked, epilogue.unpack_int16_pairs_plain(x16))
+    coefs, shifts, orders, wasted, pair_modes, lengths = (
+        _c(a, cuda) for a in arrays[1:])
+    assert torch.equal(d.out_full, predict.synthesize_epilogue_plain(
+        unpacked, coefs, shifts, orders, lengths, wasted, pair_modes))
+    n = epilogue.pack_int16_pairs.launches
+    _assert_scalar_and_md5(datas, dd.to_host())
+    assert epilogue.pack_int16_pairs.launches == n + 1 and int(d.flag) == 0
+    generated = [p.read_bytes() for p in sorted(GENERATED.glob("*.flac"))]
+    _assert_scalar_and_md5(generated, ct.decode_streams(generated,
+                                                        device=cuda))
+    mesh = make_mesh(devices=[cuda, cuda])
+    two = ct.decode_streams_device(datas[:2], lane_quantum=lane_quantum(mesh),
+                                   device=cuda, mesh=mesh)
+    (_fi, _nch, halves), = two.device_buckets()
+    assert [s.device.type for s in halves] == ["cuda"] * 2
+    _assert_scalar_and_md5(datas[:2], two.to_host())
+    _assert_scalar_and_md5(datas[:1] * 2, [
+        ct.decode_ogg_stream(mux_ogg_flac(datas[0]), device=cuda),
+        ct.decode_mp4_stream(mux_mp4_flac(datas[0], 3), device=cuda)])
+    torch.cuda.synchronize()

@@ -130,6 +130,59 @@ def test_decode_streams_python_extractor_matches_jax():
         assert np.array_equal(g.pcm, w.pcm)
 
 
+def test_raw_batches_match_jax(monkeypatch):
+    """decode_raw_batches_device (the CLAXON_TPU_NO_BITS route) through
+    both packages on the C++ core's raw arrays (one bucket, L 128, T
+    1152, the program the test above compiles): equal PCM, frame times
+    and sizes, lane plans (runs of several frames), bucket shapes and
+    packed flags, and the seven uploaded arrays byte for byte."""
+    import claxon_tpu_torch.pipeline_bits as tbits
+
+    datas = _pair()
+    uploads = {"jax": [], "torch": []}
+    prog = jpipeline._decode_program
+
+    def jax_program(*flags, **kw):
+        run = prog(*flags, **kw)
+
+        def spy(*args):
+            uploads["jax"].append((flags, [np.asarray(a) for a in args]))
+            return run(*args)
+        return spy
+
+    shards = tbits._decode_sample_shards
+
+    def torch_shards(arrays, in_packed, mesh):
+        uploads["torch"].append(((in_packed,), list(arrays)))
+        return shards(arrays, in_packed, mesh)
+
+    monkeypatch.setattr(jpipeline, "_decode_program", jax_program)
+    monkeypatch.setattr(tbits, "_decode_sample_shards", torch_shards)
+    jdd = jpipeline.decode_raw_batches_device(
+        [jnative.extract_stream_raw(d) for d in datas])
+    tdd = tpipeline.decode_raw_batches_device(
+        [tnative.extract_stream_raw(d) for d in datas], device="cpu")
+    assert tdd.lane_plans() == jdd.lane_plans()
+    assert any(run[2] > 1 for plan in tdd.lane_plans() for run in plan)
+    assert [(b[0], b[1], tuple(b[2].shape)) for b in tdd.device_buckets()] \
+        == [(b[0], b[1], tuple(b[2].shape)) for b in jdd.device_buckets()]
+    assert [d.packed for d in tdd.dispatches] == \
+        [d.packed for d in jdd.dispatches] == [True]
+    ((jflags, jargs),), ((tflags, targs),) = uploads["jax"], uploads["torch"]
+    assert jflags[0] == tflags[0] is True  # the residuals as int16 pairs
+    for a, b in zip(targs, jargs, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    assert tdd.upload_bytes == sum(a.nbytes for a in jargs)
+    assert tdd.crc_check is None and tdd.frames == []
+    want, got = jdd.to_host(), tdd.to_host()
+    for g, w in zip(got, want, strict=True):
+        assert np.array_equal(g.pcm, w.pcm)
+        assert (g.frame_times, g.frame_sizes) == (w.frame_times,
+                                                  w.frame_sizes)
+    _assert_scalar(datas, got)
+
+
 def _calls(datas):
     """The five stream calls with use_native=False, PCM on the host."""
     return {

@@ -10,8 +10,11 @@ samples on both reader routes, ``FrameReader`` blocks from a file-like
 input), and ``use_native=False`` decodes them through the Python
 extractor and the FrameDesc route, with and without a ``decode_bucket``;
 ``claxon_tpu_torch.parallel`` splits their buckets over a mesh of two
-CPU devices; and the plain forms of rice_decode, crc16_device and
-crc16_frames_device run."""
+CPU devices; ``CLAXON_TPU_NO_BITS`` sends the stream calls down the
+sample-shipping route (``decode_raw_batches_device``, also over that
+mesh) and the container and sharded calls down the FrameDesc route from
+the C++ core's FrameDescs; and the plain forms of rice_decode,
+crc16_device and crc16_frames_device run."""
 
 import pathlib
 import subprocess
@@ -145,6 +148,25 @@ _SCRIPT = textwrap.dedent("""
     mesh = par.make_mesh(devices=["cpu", "cpu"])
     out = par.decode_streams_sharded([data, mono], mesh,
                                      segmentation="host")
+    assert np.array_equal(out[0].pcm, pcm)
+    assert np.array_equal(out[1].pcm, pcm[:, :1])
+    from claxon_tpu_torch.parallel import lane_quantum
+
+    os.environ["CLAXON_TPU_NO_BITS"] = "1"
+    for kw in ({}, {"lane_quantum": lane_quantum(mesh), "mesh": mesh}):
+        dd = ct.decode_streams_device([data, mono], segmentation="device",
+                                      device="cpu", **kw)
+        assert dd.frames == [] and dd.crc_check is None, kw
+        assert any(run[2] > 1 for plan in dd.lane_plans() for run in plan)
+        out = dd.to_host()
+        assert np.array_equal(out[0].pcm, pcm), kw
+        assert np.array_equal(out[1].pcm, pcm[:, :1]), kw
+    assert ct.pipeline._seg_auto("cpu")["choice"] is None
+    ogg = ct.decode_ogg_stream(mux_ogg_flac(data), device="cpu")
+    mp4 = ct.decode_mp4_stream(mux_mp4_flac(data, 2), device="cpu")
+    out = par.decode_streams_sharded([data, mono], mesh)
+    del os.environ["CLAXON_TPU_NO_BITS"]
+    assert np.array_equal(ogg.pcm, pcm) and np.array_equal(mp4.pcm, pcm)
     assert np.array_equal(out[0].pcm, pcm)
     assert np.array_equal(out[1].pcm, pcm[:, :1])
     try:

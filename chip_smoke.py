@@ -117,10 +117,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
       running;
   (e) time the device-resident and to-host decode of the headline batch
       on both paths, with the segmented path's host stages; split the
-      to-host tail into the pack-and-copy wait and the host scatter, with
-      the int16 transfer and with it switched off; and take the card's
-      idle share of one device-resident decode per path from
-      torch.profiler;
+      to-host tail into the pack-and-copy wait and the host scatter (the
+      program's claxon.fetch.* spans), with the int16 transfer and with
+      it switched off;
   (f) decode one stream of at least 2^27 bytes (8 channels of 24-bit
       audio, FIXED subframes) on both paths: it walks in chunks of frames
       below the int32 limit, bit-exact against the scalar decoder and the
@@ -1792,36 +1791,6 @@ def k7_report(tag, stream, walk_in, T, nch, r7, parent, clock):
     return rep
 
 
-def device_idle_share(fn):
-    """(device busy ms, wall ms) of one ``fn()`` under torch.profiler
-    (kernels and copies, summed by their own device time), or None when the
-    profiler reports no device time. The profiler slows the host, so the
-    wall time is longer than an unprofiled run's."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # The averages hold a row for each kernel or copy (device type CUDA)
-    # and a row for each host operator, which carries the device time of
-    # what it launched: the same time twice. Count the device rows.
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        busy_us += t
-    return (busy_us / 1e3, wall_ms) if busy_us > 0 else None
-
-
 def overflow_stream():
     """A 16-bit stream (3 frames of 4096) with one damaged byte in frame
     1's first subframe and that frame's CRC-16 repaired, so it parses and
@@ -2733,7 +2702,7 @@ def main():
     import numpy as np
 
     import claxon_tpu_torch as ct
-    from claxon_tpu_torch import native
+    from claxon_tpu_torch import native, trace
     from claxon_tpu_torch.ops import (_build, crc, demux, entropy, epilogue,
                                       predict, rice, seg_gather, seg_parse,
                                       segment)
@@ -2748,7 +2717,8 @@ def main():
     log(f"(a) card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     _build.load()
-    log(f"(a) kernels built and loaded in {_build.build_seconds:.1f} s")
+    log(f"(a) kernels built and loaded in "
+        f"{trace.process.seconds('claxon.build'):.1f} s")
     if not native.available():
         raise AssertionError("the C++ host core did not build")
 
@@ -3218,11 +3188,12 @@ def main():
             f"({res_s * 1e3:.1f} ms; best {ms / res_min:.2f} Ms/s); "
             f"to-host {ms / host_s:.2f} Ms/s ({host_s * 1e3:.1f} ms; best "
             f"{ms / host_min:.2f} Ms/s)")
-    # The to-host tail, split: after sync() (the buckets are on the card),
-    # the host clock around start_fetch()._wait_fetched() (K3b pack, the
-    # copy into pinned memory, its event) and around the rest of to_host()
-    # (the strided scatter into per-stream PCM); then the same with the
-    # int16 transfer switched off on the dispatches.
+    # The to-host tail, split by the program's spans: after sync() (the
+    # buckets are on the card), claxon.fetch.start (K3b pack, the copies
+    # into pinned memory queued) and claxon.fetch.wait (the wait for
+    # them), then claxon.fetch.scatter (the strided scatter into
+    # per-stream PCM); then the same with the int16 transfer switched off
+    # on the dispatches. The bytes are the program's fetch_bytes.
     split = {}
     for path in ("host", "device"):
         for mode in ("int16", "int32"):
@@ -3233,37 +3204,21 @@ def main():
                 if mode == "int32":
                     for d in dd.dispatches:
                         d.packed = False
-                t0 = time.perf_counter()
-                dd.start_fetch()._wait_fetched()
-                t1 = time.perf_counter()
                 dd.to_host()
-                t2 = time.perf_counter()
-                waits.append(t1 - t0)
-                scatters.append(t2 - t1)
+                rec = dd.trace
+                waits.append(rec.seconds("claxon.fetch.start")
+                             + rec.seconds("claxon.fetch.wait"))
+                scatters.append(rec.seconds("claxon.fetch.scatter"))
             split[path, mode] = (statistics.median(waits) * 1e3,
                                  statistics.median(scatters) * 1e3,
-                                 fetch_stats(dd)[3])
+                                 rec.counters["fetch_bytes"])
             w, sc, nb = split[path, mode]
             log(f"(e)   {path:6s} to-host tail, {mode} transfer ({nb} "
                 f"bytes): pack + copy wait {w:.1f} ms (min "
                 f"{min(waits) * 1e3:.1f}, max {max(waits) * 1e3:.1f}), "
                 f"scatter {sc:.1f} ms (min {min(scatters) * 1e3:.1f}, max "
                 f"{max(scatters) * 1e3:.1f}), median of {TIMED_RUNS}")
-    del dd
-
-    # The card's idle share of one device-resident decode per path.
-    idle = {}
-    for path in ("host", "device"):
-        idle[path] = device_idle_share(lambda: ct.decode_streams_device(
-            datas4, segmentation=path, device=DEVICE).sync())
-        if idle[path] is None:
-            log(f"(e)   {path:6s} device idle share: not measured (the "
-                "profiler reported no device time)")
-        else:
-            busy_ms, wall_ms = idle[path]
-            log(f"(e)   {path:6s} device idle share under torch.profiler: "
-                f"{100 * (1 - busy_ms / wall_ms):.1f}% ({busy_ms:.2f} ms "
-                f"busy of {wall_ms:.1f} ms)")
+    del dd, rec
     walk_s, _ = timed(lambda: extract_streams_bits(datas4, native))
     braws = extract_streams_bits(datas4, native)
     plan_s, _ = timed(lambda: plan_raw_bits(braws, 128))
@@ -3465,10 +3420,7 @@ def main():
                                     "depth_ms": depth_ms},
                       "framedesc": framedesc,
                       "sharded": sharded,
-                      "sample_shipping": sample_shipping,
-                      "device_idle": {p: (None if v is None else
-                                          {"busy_ms": v[0], "wall_ms": v[1]})
-                                      for p, v in idle.items()}}))
+                      "sample_shipping": sample_shipping}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

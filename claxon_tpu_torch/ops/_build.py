@@ -20,9 +20,8 @@ import hashlib
 import os
 import pathlib
 import subprocess
-import time
 
-__all__ = ["load", "check", "stream_handle", "build_seconds"]
+__all__ = ["load", "check", "stream_handle"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -117,8 +116,6 @@ _VALUED = {"cxk_sync_blocks": ctypes.c_int64,
            "cxk_front_scratch": ctypes.c_int64}
 
 _lib = None
-#: wall-clock seconds the last build (or cache hit) of this process took.
-build_seconds = None
 
 
 def _nvcc():
@@ -182,20 +179,22 @@ def _build(out):
 
 
 def load():
-    """The loaded kernel library, building it first if needed."""
-    global _lib, build_seconds
+    """The loaded kernel library, building it first if needed; the span
+    ``claxon.build`` of the process's record (``trace.process``)."""
+    global _lib
     if _lib is not None:
         return _lib
-    t0 = time.perf_counter()
-    path = _library_path()
-    if not path.exists():
-        _build(path)
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _VALUED.get(name, ctypes.c_int)
-    build_seconds = time.perf_counter() - t0
+    from .. import trace
+
+    with trace.process.span("claxon.build"):
+        path = _library_path()
+        if not path.exists():
+            _build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _VALUED.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

@@ -15,7 +15,8 @@ engages the device demux times both paths and the faster one is kept for
 the process. The result, :class:`DeviceDecoded`, keeps the decoded
 PCM on the device bucket by bucket; ``to_host()`` fetches it (16-bit
 buckets as int16 pairs, K3b) and scatters it into per-stream interleaved
-PCM.
+PCM. Each batch's host stages are spans of its record, ``dd.trace``
+(``trace``).
 
 ``use_native=False`` takes the JAX package's FrameDesc route instead: the
 Python extractor (``extract``, the reference-fidelity parse, frame CRC-16
@@ -44,6 +45,7 @@ from typing import List
 import numpy as np
 import torch
 
+from . import trace
 from .error import fmt_err
 
 __all__ = ["decode_stream", "decode_streams", "decode_batch",
@@ -164,8 +166,11 @@ class DeviceDecoded:
         self.segmented = False
         self.seg_engaged = False
         self.fallback_streams = []
-        #: segmented path: host seconds per stage of the batch.
+        #: segmented path: host seconds per stage of the batch (the
+        #: ``claxon.seg.*`` spans summed by stage); {} on every other route.
         self.stage_seconds = {}
+        #: the batch's record of spans and counters (``trace.Trace``).
+        self.trace = trace.Trace()
         #: the FrameDesc route: every FrameDesc of the batch, in stream
         #: order (``device_buckets()``' frame indices point here).
         self.frames = []
@@ -185,8 +190,10 @@ class DeviceDecoded:
     def sync(self):
         """Wait for every bucket's kernels, then surface a frame CRC
         mismatch (see verify_crc)."""
-        self.block_until_ready()
-        self.verify_crc()
+        with self.trace.span("claxon.sync.wait"):
+            self.block_until_ready()
+        with self.trace.span("claxon.sync.crc"):
+            self.verify_crc()
         return self
 
     def verify_crc(self):
@@ -221,6 +228,7 @@ class DeviceDecoded:
         if self._fetched is not None:
             return self
         cuda = set()
+        rec = self.trace
 
         def fetch(t):
             if not t.is_cuda:
@@ -228,24 +236,26 @@ class DeviceDecoded:
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t, non_blocking=True)
             cuda.add(t.device)
+            rec.count("fetch_bytes", host.numel() * host.element_size())
             return host
 
-        for d in self.dispatches:
-            for leaf in d.leaves():
-                if not leaf.packed:
-                    leaf.host = fetch(leaf.out_full)
-                    continue
-                with device_guard(leaf.out_full.device):
-                    words, flag = pack_int16_pairs(
-                        leaf.out_full, per_lane=d.shards is not None)
-                leaf.words, leaf.flag = fetch(words), fetch(flag)
-        if isinstance(self.crc_check, list):
-            self._crc_host = [fetch(vals) for vals, _n in self.crc_check]
-        self._fetched = []
-        for dev in cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            self._fetched.append(event)
+        with rec.span("claxon.fetch.start"):
+            for d in self.dispatches:
+                for leaf in d.leaves():
+                    if not leaf.packed:
+                        leaf.host = fetch(leaf.out_full)
+                        continue
+                    with device_guard(leaf.out_full.device):
+                        words, flag = pack_int16_pairs(
+                            leaf.out_full, per_lane=d.shards is not None)
+                    leaf.words, leaf.flag = fetch(words), fetch(flag)
+            if isinstance(self.crc_check, list):
+                self._crc_host = [fetch(vals) for vals, _n in self.crc_check]
+            self._fetched = []
+            for dev in cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                self._fetched.append(event)
         return self
 
     def _wait_fetched(self):
@@ -280,29 +290,36 @@ class DeviceDecoded:
 
     def to_host(self):
         """Per-stream DecodedStreams with their PCM filled in."""
-        self.start_fetch()._wait_fetched()
-        for d, plan in zip(self.dispatches, self._plans):
-            outs = []
-            for leaf in d.leaves():
-                if leaf.packed and not bool(leaf.flag.any()):
-                    # (L, T // 2) int32 -> (L, T) int16, a little-endian
-                    # view.
-                    outs.append(leaf.words.numpy().view(np.int16))
-                    continue
-                if leaf.host is None:  # rare: an invalid stream's garbage
-                    leaf.host = leaf.out_full.cpu()
-                outs.append(leaf.host.numpy())
-            # A bucket's shards in lane order make its lanes again.
-            out = outs[0] if len(outs) == 1 else np.concatenate(outs)
-            for si_idx, out0, nf, bs, n_ch, lane0 in plan:
-                pcm = self._pcms[si_idx]
-                # One strided copy per (run, channel): frames of a run are
-                # stream-consecutive, so their output rows are too.
-                for ci in range(n_ch):
-                    pcm[out0:out0 + nf * bs, ci] = \
-                        out[lane0 + ci:lane0 + nf * n_ch:n_ch,
-                            :bs].reshape(-1)
-        self.verify_crc()
+        rec = self.trace
+        self.start_fetch()
+        with rec.span("claxon.fetch.wait"):
+            self._wait_fetched()
+        with rec.span("claxon.fetch.scatter"):
+            for d, plan in zip(self.dispatches, self._plans):
+                outs = []
+                for leaf in d.leaves():
+                    if leaf.packed and not bool(leaf.flag.any()):
+                        # (L, T // 2) int32 -> (L, T) int16, a
+                        # little-endian view.
+                        outs.append(leaf.words.numpy().view(np.int16))
+                        continue
+                    if leaf.host is None:
+                        # Rare: an invalid stream's garbage.
+                        leaf.host = leaf.out_full.cpu()
+                    outs.append(leaf.host.numpy())
+                # A bucket's shards in lane order make its lanes again.
+                out = outs[0] if len(outs) == 1 else np.concatenate(outs)
+                for si_idx, out0, nf, bs, n_ch, lane0 in plan:
+                    pcm = self._pcms[si_idx]
+                    # One strided copy per (run, channel): frames of a run
+                    # are stream-consecutive, so their output rows are
+                    # too.
+                    for ci in range(n_ch):
+                        pcm[out0:out0 + nf * bs, ci] = \
+                            out[lane0 + ci:lane0 + nf * n_ch:n_ch,
+                                :bs].reshape(-1)
+        with rec.span("claxon.fetch.crc"):
+            self.verify_crc()
         return self.results
 
 
@@ -698,7 +715,8 @@ def merge_decoded(n_streams, parts):
     kept. Part streams without a result (None) are skipped; several that
     land on one batch stream (the chunks of a large stream, in stream
     order) concatenate into one result, their lane plans shifted by the
-    samples before them."""
+    samples before them. The parts' records merge
+    (:func:`trace.merged`)."""
     pieces = [[] for _ in range(n_streams)]
     for p, (idx, dd) in enumerate(parts):
         for j, i in enumerate(idx):
@@ -734,6 +752,7 @@ def merge_decoded(n_streams, parts):
     out = DeviceDecoded(results, dispatches, plans, pcms)
     out.crc_check = crc or None
     out.upload_bytes = upload
+    out.trace = trace.merged([dd.trace for _idx, dd in parts])
     return out
 
 
@@ -877,7 +896,7 @@ def _unit_bytes(bb):
 
 
 def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device,
-                   mode="stream", mesh=None):
+                   mode="stream", mesh=None, rec=None):
     """Decode walk units ``braws`` ([(streaminfo, BitsBatch), ...], unit u
     a whole stream or a chunk of stream ``owners[u]``, in stream order,
     of at most ``sizes[u]`` upload bytes) in entropy ``mode`` (the one
@@ -885,19 +904,20 @@ def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device,
     is given. Chunk bases are int32 bit
     positions into one plan's upload, so the units are planned as runs
     below ``MAX_BATCH_BYTES`` and the runs' results merge, a stream's
-    chunks concatenating back into its one result."""
+    chunks concatenating back into its one result. The planning and
+    dispatch spans go to ``rec`` (None: a new record for each run)."""
     from . import pipeline_bits
 
     parts = [([owners[u] for u in run], pipeline_bits.decode_raw_bits_device(
         [braws[u] for u in run], lane_quantum, device=device, mode=mode,
-        mesh=mesh))
+        mesh=mesh, rec=rec))
         for run in _split_batch(sizes, pipeline_bits.MAX_BATCH_BYTES)]
     if len(parts) == 1 and len(braws) == n_streams:
         return parts[0][1]
     return merge_decoded(n_streams, parts)
 
 
-def _decode_host_walk(datas, lane_quantum, device, mesh=None):
+def _decode_host_walk(datas, lane_quantum, device, mesh=None, rec=None):
     """The host-walk bits path: every stream is walked first (a stream of
     ``MAX_BATCH_BYTES`` or more in chunks of frames, :func:`_walk_chunks`),
     then the walked units are decoded (:func:`_decode_walked`; over
@@ -905,26 +925,31 @@ def _decode_host_walk(datas, lane_quantum, device, mesh=None):
     in the entropy mode and with the CRC placement the environment names
     (:func:`_walk_options`). The JAX package switches a batch of
     ``MAX_BATCH_BYTES`` or more to delta mode; the port splits it and
-    keeps the mode (the same PCM)."""
+    keeps the mode (the same PCM). The walk's spans
+    (``claxon.walk.*``) go to ``rec``, the batch's record (None: a new
+    one)."""
     from . import pipeline_bits
 
+    if rec is None:
+        rec = trace.batch()
     limit = pipeline_bits.MAX_BATCH_BYTES
     native = _native()
     mode, emit, defer = _walk_options()
     braws, owners, sizes = [], [], []
-    for i, d in enumerate(datas):
-        if len(d) < limit:
-            braws.append(native.extract_stream_bits(d, emit_slots=emit,
-                                                    defer_crc=defer))
-            owners.append(i)
-            sizes.append(len(d))
-            continue
-        si, chunks = _walk_chunks(d, native, limit, emit, defer)
-        braws.extend((si, bb) for bb in chunks)
-        owners.extend([i] * len(chunks))
-        sizes.extend(_unit_bytes(bb) for bb in chunks)
+    with rec.span("claxon.walk.extract"):
+        for i, d in enumerate(datas):
+            if len(d) < limit:
+                braws.append(native.extract_stream_bits(d, emit_slots=emit,
+                                                        defer_crc=defer))
+                owners.append(i)
+                sizes.append(len(d))
+                continue
+            si, chunks = _walk_chunks(d, native, limit, emit, defer)
+            braws.extend((si, bb) for bb in chunks)
+            owners.extend([i] * len(chunks))
+            sizes.extend(_unit_bytes(bb) for bb in chunks)
     return _decode_walked(braws, owners, sizes, len(datas), lane_quantum,
-                          device, mode, mesh)
+                          device, mode, mesh, rec)
 
 
 #: per-process choices of segmentation="auto", one per device type
@@ -959,7 +984,8 @@ def _resolve_segmentation(segmentation, device):
     return segmentation
 
 
-def _calibrate_segmentation(datas, lane_quantum, device, mesh=None):
+def _calibrate_segmentation(datas, lane_quantum, device, mesh=None,
+                            rec=None):
     """Time synced decodes of ``datas`` through each path (over ``mesh``
     when one is given) and cache the faster one for the process and
     ``device``'s type; return the winner's own result, so the
@@ -970,13 +996,16 @@ def _calibrate_segmentation(datas, lane_quantum, device, mesh=None):
     first (on the card this absorbs the first kernel build), then timed
     device, host, device, host with the host clock around ``sync()``,
     min of 2 per path. Both paths raise the same errors, so a bad batch
-    raises here as it would at its first sync."""
+    raises here as it would at its first sync. Every decode's spans go
+    to ``rec``, the batch's record (None: a new one)."""
     import time
 
+    if rec is None:
+        rec = trace.batch()
+
     def run(segmentation):
-        return decode_streams_device(datas, lane_quantum=lane_quantum,
-                                     segmentation=segmentation,
-                                     device=device, mesh=mesh)
+        return _decode_streams_device(datas, True, lane_quantum,
+                                      segmentation, device, mesh, rec)
 
     d_seg = run("device")
     if not d_seg.segmented:
@@ -1023,24 +1052,43 @@ def decode_streams_device(datas, use_native=True, lane_quantum=_L_QUANTUM,
 
     A ``mesh`` (``parallel``; ``device`` then ``mesh.devices[0]`` and
     ``lane_quantum`` ``parallel.lane_quantum(mesh)``) splits every bucket
-    into its lane shards on the mesh's devices, on every route."""
-    if not use_native:
-        return decode_batches_device([_extract(d, False) for d in datas],
-                                     lane_quantum, device, mesh)
-    if _no_bits():
-        native = _native()
-        return decode_raw_batches_device(
-            [native.extract_stream_raw(d) for d in datas], lane_quantum,
-            device, mesh)
-    segmentation = _resolve_segmentation(segmentation, device)
-    if segmentation == "auto":
-        return _calibrate_segmentation(datas, lane_quantum, device, mesh)
-    if segmentation == "device":
-        from .pipeline_seg import decode_streams_segmented
+    into its lane shards on the mesh's devices, on every route.
 
-        return decode_streams_segmented(datas, lane_quantum, device=device,
-                                        mesh=mesh)
-    return _decode_host_walk(datas, lane_quantum, device, mesh)
+    The batch's record (``dd.trace``, :func:`trace.batch`) holds the root
+    span ``claxon.decode`` and the spans of its route's stages."""
+    return _decode_streams_device(datas, use_native, lane_quantum,
+                                  segmentation, device, mesh, trace.batch())
+
+
+def _decode_streams_device(datas, use_native, lane_quantum, segmentation,
+                           device, mesh, rec):
+    """:func:`decode_streams_device` with its spans in ``rec``."""
+    with rec.span("claxon.decode"):
+        if not use_native:
+            dd = decode_batches_device([_extract(d, False) for d in datas],
+                                       lane_quantum, device, mesh)
+        elif _no_bits():
+            native = _native()
+            dd = decode_raw_batches_device(
+                [native.extract_stream_raw(d) for d in datas], lane_quantum,
+                device, mesh)
+        else:
+            segmentation = _resolve_segmentation(segmentation, device)
+            if segmentation == "auto":
+                with rec.span("claxon.calibrate"):
+                    dd = _calibrate_segmentation(datas, lane_quantum, device,
+                                                 mesh, rec)
+            elif segmentation == "device":
+                from .pipeline_seg import decode_streams_segmented
+
+                dd = decode_streams_segmented(datas, lane_quantum,
+                                              device=device, mesh=mesh,
+                                              rec=rec)
+            else:
+                dd = _decode_host_walk(datas, lane_quantum, device, mesh,
+                                       rec=rec)
+    dd.trace = rec
+    return dd
 
 
 class PendingDeviceBatch:

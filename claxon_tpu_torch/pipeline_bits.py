@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import trace
 from .error import fmt_err
 from .ops.crc import crc16_ranges
 from .ops.entropy import decode_residual_bits, decode_residual_bits_stream
@@ -598,60 +599,68 @@ def _crc_shards(streams, se, n, mesh):
 
 
 def decode_raw_bits_device(braws, lane_quantum, device="cuda",
-                           mode="stream", mesh=None):
+                           mode="stream", mesh=None, rec=None):
     """Decode [(streaminfo, BitsBatch), ...] in entropy ``mode`` into a
     DeviceDecoded whose buckets live on ``device``, or, with a ``mesh``
     (``parallel``; ``lane_quantum`` then ``parallel.lane_quantum(mesh)``),
     split into lane shards, shard i on ``mesh.devices[i]``: the stream
     upload goes once to each distinct device, each shard's rows only to
     its own, and K4's frames split the same way (``crc_check`` holds a
-    pair per shard)."""
+    pair per shard). Planning and dispatch are the spans
+    ``claxon.walk.plan`` and ``claxon.walk.dispatch`` of ``rec``, the
+    batch's record (None: a new one), which the result keeps."""
     from .parallel.mesh import Mesh, device_guard, replicate, shard_ranges
     from .pipeline import DeviceDecoded, _shard_dispatch
 
+    if rec is None:
+        rec = trace.Trace()
     sharded = mesh is not None
     if not sharded:
         mesh = Mesh((torch.device(device),))
-    bp = plan_raw_bits(braws, lane_quantum, mode, mesh.size)
-    upload = 0
-    if bp.stream is not None:
-        streams = replicate(torch.from_numpy(bp.stream), mesh)
-        upload = bp.stream.nbytes * len(streams)
-    dispatches, plans = [], []
-    for b in bp.bits:
-        outs = []
-        for dev, a, z in shard_ranges(mesh, len(b.meta if mode == "delta"
-                                                else b.mb)):
-            with device_guard(dev):
-                if mode == "delta":
-                    outs.append(delta_step(
-                        _to_device(b.slots[a:z], dev),
-                        torch.from_numpy(b.deltas[a:z]).to(dev),
-                        _to_device(b.ks[a:z], dev),
-                        _to_device(b.meta[a:z], dev), b.n_parts_max, b.sa))
-                else:
-                    outs.append(stream_step(
-                        streams[dev], _to_device(b.mb[a:z], dev),
-                        b.n_parts_max, b.sa, b.nc))
-        if mode == "delta":
-            upload += b.slots.nbytes + b.deltas.nbytes + b.ks.nbytes \
-                + b.meta.nbytes
-        else:
-            upload += b.mb.nbytes
-        dispatches.append(_shard_dispatch(b.n_ch, outs, b.out_packed,
-                                          sharded))
-        plans.append(b.plan)
-    for s in bp.samples:
-        arrays = (s.x, s.coefs, s.shifts, s.orders, s.wasted, s.pair_modes,
-                  s.lengths)
-        outs = _decode_sample_shards(arrays, s.in_packed, mesh)
-        upload += sum(a.nbytes for a in arrays)
-        dispatches.append(_shard_dispatch(s.n_ch, outs, s.out_packed,
-                                          sharded))
-        plans.append(s.plan)
-    dd = DeviceDecoded(bp.results, dispatches, plans, bp.pcms)
-    if bp.se is not None:
-        dd.crc_check = _crc_shards(streams, bp.se, bp.n_crc, mesh)
-        upload += bp.se.nbytes
+    with rec.span("claxon.walk.plan"):
+        bp = plan_raw_bits(braws, lane_quantum, mode, mesh.size)
+    with rec.span("claxon.walk.dispatch"):
+        upload = 0
+        if bp.stream is not None:
+            streams = replicate(torch.from_numpy(bp.stream), mesh)
+            upload = bp.stream.nbytes * len(streams)
+        dispatches, plans = [], []
+        for b in bp.bits:
+            outs = []
+            for dev, a, z in shard_ranges(mesh, len(b.meta if mode == "delta"
+                                                    else b.mb)):
+                with device_guard(dev):
+                    if mode == "delta":
+                        outs.append(delta_step(
+                            _to_device(b.slots[a:z], dev),
+                            torch.from_numpy(b.deltas[a:z]).to(dev),
+                            _to_device(b.ks[a:z], dev),
+                            _to_device(b.meta[a:z], dev), b.n_parts_max,
+                            b.sa))
+                    else:
+                        outs.append(stream_step(
+                            streams[dev], _to_device(b.mb[a:z], dev),
+                            b.n_parts_max, b.sa, b.nc))
+            if mode == "delta":
+                upload += b.slots.nbytes + b.deltas.nbytes + b.ks.nbytes \
+                    + b.meta.nbytes
+            else:
+                upload += b.mb.nbytes
+            dispatches.append(_shard_dispatch(b.n_ch, outs, b.out_packed,
+                                              sharded))
+            plans.append(b.plan)
+        for s in bp.samples:
+            arrays = (s.x, s.coefs, s.shifts, s.orders, s.wasted,
+                      s.pair_modes, s.lengths)
+            outs = _decode_sample_shards(arrays, s.in_packed, mesh)
+            upload += sum(a.nbytes for a in arrays)
+            dispatches.append(_shard_dispatch(s.n_ch, outs, s.out_packed,
+                                              sharded))
+            plans.append(s.plan)
+        dd = DeviceDecoded(bp.results, dispatches, plans, bp.pcms)
+        if bp.se is not None:
+            dd.crc_check = _crc_shards(streams, bp.se, bp.n_crc, mesh)
+            upload += bp.se.nbytes
     dd.upload_bytes = upload
+    dd.trace = rec
     return dd

@@ -40,9 +40,15 @@ on ``mesh.devices[0]``; the stream and walk outputs are copied once to
 each other distinct device of the mesh, and every decode dispatch and
 each group's K4 split into the mesh's shards, each on its device.
 
-The host seconds of each stage are kept in ``DeviceDecoded.
-stage_seconds``; with ``CLAXON_TPU_SEG_DEBUG`` set, ``finish_segmented``
-also prints each stage's host-CPU milliseconds, as the JAX package does.
+Each host stage is a span ``claxon.seg.<stage>`` of the batch's record
+(``trace``): ``metadata``, then per group ``buffer``, ``upload`` and
+``demux_queue``; ``between`` (the caller's time up to
+``finish_segmented``); per group ``summary``, ``chain`` and
+``plan_dispatch``; then ``fallback``. Their host seconds, summed by
+stage, are ``DeviceDecoded.stage_seconds``. With ``CLAXON_TPU_SEG_DEBUG``
+set (any nonempty value), ``finish_segmented`` also prints each stage's
+host-CPU milliseconds, as the JAX package does: one line
+``seg stage CPU ms: [(stage, ms), ...]``.
 """
 
 import math
@@ -51,6 +57,8 @@ import time
 
 import numpy as np
 import torch
+
+from . import trace
 
 __all__ = ["decode_streams_segmented", "begin_segmented",
            "finish_segmented", "host_header_fields"]
@@ -182,40 +190,11 @@ def _si_key(si, n_bytes):
     return (md5, si.min_block_size, si.max_block_size, n_bytes)
 
 
-class _Stages:
-    """Host seconds per stage of one segmented batch (perf_counter), and
-    with ``CLAXON_TPU_SEG_DEBUG`` set, ``marks``: [(label, host-CPU
-    seconds at its end), ...] from the start (process_time; None when the
-    variable is unset)."""
-
-    def __init__(self):
-        self.seconds = {}
-        self.marks = None
-        if os.environ.get("CLAXON_TPU_SEG_DEBUG"):
-            self.marks = [("start", time.process_time())]
-        self._t = time.perf_counter()
-
-    def mark(self, label):
-        now = time.perf_counter()
-        self.seconds[label] = self.seconds.get(label, 0.0) + now - self._t
-        self._t = now
-        if self.marks is not None:
-            self.marks.append((label, time.process_time()))
-
-    def report(self):
-        """With ``CLAXON_TPU_SEG_DEBUG`` set, print each stage's host-CPU
-        milliseconds."""
-        if self.marks is not None:
-            print("seg stage CPU ms:",
-                  [(b, round((t1 - t0) * 1e3, 3)) for (b, t1), (_, t0)
-                   in zip(self.marks[1:], self.marks)])
-
-
 class _SegPending:
     """An in-flight segmented batch: every group's upload and fused demux
     is queued and its summary copy started."""
 
-    def __init__(self, datas, lane_quantum, device, mesh=None):
+    def __init__(self, datas, lane_quantum, device, mesh, rec):
         self.datas = datas
         self.lane_quantum = lane_quantum
         self.device = device
@@ -226,39 +205,51 @@ class _SegPending:
         self.groups = []
         self.upload_bytes = 0
         self.pre_fallback = []
-        self.stages = _Stages()
+        #: the batch's record and its ``claxon.seg.*`` stages.
+        self.trace = rec
+        self.stages = trace.Stages(
+            rec, "claxon.seg.",
+            cpu_marks=bool(os.environ.get("CLAXON_TPU_SEG_DEBUG")))
+        #: perf_counter_ns when ``begin_segmented`` returned.
+        self.begun_ns = None
 
 
 def _host_fallback(datas, lane_quantum, device, per_stream=False,
-                   mesh=None):
-    """The host-walk path for ``datas``. A per-stream fallback batch holds
-    a few odd streams, so it pads lanes to 8 rather than the caller's
-    quantum; over a ``mesh`` every bucket splits into its shards at the
-    mesh's quantum instead, as in the JAX package."""
-    from .pipeline import _L_QUANTUM, _decode_host_walk, decode_streams_device
+                   mesh=None, rec=None):
+    """The host-walk path for ``datas``, its spans in ``rec`` (the batch's
+    record; None: a new one). A per-stream fallback batch holds a few odd
+    streams, so it pads lanes to 8 rather than the caller's quantum; over
+    a ``mesh`` every bucket splits into its shards at the mesh's quantum
+    instead, as in the JAX package."""
+    from .pipeline import _L_QUANTUM, _decode_host_walk, _decode_streams_device
 
+    if rec is None:
+        rec = trace.batch()
     if mesh is not None:
         from .parallel.mesh import lane_quantum as mesh_quantum
 
         if lane_quantum is None:
             lane_quantum = mesh_quantum(mesh)
         return _decode_host_walk(datas, lane_quantum, mesh.devices[0],
-                                 mesh=mesh)
+                                 mesh=mesh, rec=rec)
     if lane_quantum is None:
         lane_quantum = _L_QUANTUM
     if per_stream:
         lane_quantum = min(lane_quantum, 8)
-    return decode_streams_device(datas, lane_quantum=lane_quantum,
-                                 segmentation="host", device=device)
+    return _decode_streams_device(datas, True, lane_quantum, "host", device,
+                                  None, rec)
 
 
-def begin_segmented(datas, lane_quantum=None, device="cuda", mesh=None):
+def begin_segmented(datas, lane_quantum=None, device="cuda", mesh=None,
+                    rec=None):
     """Stage 1: metadata parse, stream grouping and, per group, one upload
     and one queued fused demux with its summary copy started. Returns the
     pending batch for :func:`finish_segmented`, or None when the batch
     cannot ride the device demux at all (the caller takes the host walk).
     With a ``mesh`` the groups run on ``mesh.devices[0]`` and
-    ``lane_quantum`` defaults to ``parallel.lane_quantum(mesh)``.
+    ``lane_quantum`` defaults to ``parallel.lane_quantum(mesh)``. The
+    stages' spans go to ``rec``, the batch's record (None: a new one,
+    :func:`trace.batch`).
     """
     from . import native, pipeline_bits
     from .native.binding import _read_metadata
@@ -278,83 +269,88 @@ def begin_segmented(datas, lane_quantum=None, device="cuda", mesh=None):
         return None
     if sum(len(d) for d in datas) >= pipeline_bits.MAX_BATCH_BYTES:
         return None  # int32 bit positions: the host walk splits the batch
-    pending = _SegPending(datas, lane_quantum, device, mesh)
+    if rec is None:
+        rec = trace.batch()
+    pending = _SegPending(datas, lane_quantum, device, mesh, rec)
     stages = pending.stages
 
     # ---- metadata only; no payload byte is touched.
-    sis, payloads = [], []
-    for d in datas:
-        si, pos = _read_metadata(d)
-        sis.append(si)
-        payloads.append(np.frombuffer(d, np.uint8)[pos:])
-    tbv = np.asarray(_T_BUCKETS, np.int64)
-    # Streams the device demux cannot represent at all (> 2 channels; a
-    # block size above the bucket ladder) and remembered rejects take the
-    # per-stream host walk; the rest of the batch stays on the card.
-    pre_fb = [i for i, si in enumerate(sis)
-              if si.channels > 2 or si.max_block_size > int(tbv[-1])
-              or _si_key(si, len(datas[i])) in _REJECT_CACHE]
-    if len(pre_fb) == len(datas):
-        return None
-    pending.pre_fallback = pre_fb
-    pre_fb = set(pre_fb)
-    pending.sis = sis
+    with stages("metadata"):
+        sis, payloads = [], []
+        for d in datas:
+            si, pos = _read_metadata(d)
+            sis.append(si)
+            payloads.append(np.frombuffer(d, np.uint8)[pos:])
+        tbv = np.asarray(_T_BUCKETS, np.int64)
+        # Streams the device demux cannot represent at all (> 2 channels;
+        # a block size above the bucket ladder) and remembered rejects take
+        # the per-stream host walk; the rest of the batch stays on the
+        # card.
+        pre_fb = [i for i, si in enumerate(sis)
+                  if si.channels > 2 or si.max_block_size > int(tbv[-1])
+                  or _si_key(si, len(datas[i])) in _REJECT_CACHE]
+        if len(pre_fb) == len(datas):
+            return None
+        pending.pre_fallback = pre_fb
+        pre_fb = set(pre_fb)
+        pending.sis = sis
 
-    # ---- groups: (T bucket of the STREAMINFO max block size, channels).
-    si_groups = {}
-    for gi, si in enumerate(sis):
-        if gi in pre_fb:
-            continue
-        T = int(tbv[np.searchsorted(tbv, max(si.max_block_size, 1))])
-        si_groups.setdefault((T, si.channels), []).append(gi)
-    # Same-channel groups whose buckets lie within 4x of the largest merge:
-    # each group costs an upload, a demux and a summary round trip, while
-    # walking a small-block stream at a larger T only costs device work
-    # (the decode dispatches re-bucket per frame).
-    merged = {}
-    for (T, nch), g in sorted(si_groups.items(), reverse=True):
-        for (Tm, nchm) in merged:
-            if nchm == nch and Tm <= 4 * T:
-                merged[(Tm, nchm)].extend(g)
-                break
-        else:
-            merged[(T, nch)] = list(g)
-    stages.mark("metadata")
+        # ---- groups: (T bucket of the STREAMINFO max block size,
+        # channels).
+        si_groups = {}
+        for gi, si in enumerate(sis):
+            if gi in pre_fb:
+                continue
+            T = int(tbv[np.searchsorted(tbv, max(si.max_block_size, 1))])
+            si_groups.setdefault((T, si.channels), []).append(gi)
+        # Same-channel groups whose buckets lie within 4x of the largest
+        # merge: each group costs an upload, a demux and a summary round
+        # trip, while walking a small-block stream at a larger T only
+        # costs device work (the decode dispatches re-bucket per frame).
+        merged = {}
+        for (T, nch), g in sorted(si_groups.items(), reverse=True):
+            for (Tm, nchm) in merged:
+                if nchm == nch and Tm <= 4 * T:
+                    merged[(Tm, nchm)].extend(g)
+                    break
+            else:
+                merged[(T, nch)] = list(g)
 
     for (T, nch), g_streams in merged.items():
-        g_streams = sorted(g_streams)
-        sizes = [payloads[i].nbytes for i in g_streams]
-        wcs = [(s + 3) // 4 for s in sizes]
-        total_q = pipeline_bits._pad_stream_words(sum(wcs))
-        buf = np.zeros(total_q * 4, dtype=np.uint8)
-        byte_off = np.zeros(len(g_streams), np.int64)
-        off = 0
-        for k, (i, s, wc) in enumerate(zip(g_streams, sizes, wcs)):
-            buf[off:off + s] = payloads[i]
-            byte_off[k] = off
-            off += wc * 4
-        ends_abs = byte_off + np.asarray(sizes, np.int64)
-        # Frame-count bound from STREAMINFO for the capacity classes.
-        frames_est = 0
-        for i in g_streams:
-            si = sis[i]
-            if not si.samples or not si.min_block_size:
-                frames_est = None
-                break
-            frames_est += -(-si.samples // si.min_block_size) + 2
-        stages.mark("buffer")
+        with stages("buffer"):
+            g_streams = sorted(g_streams)
+            sizes = [payloads[i].nbytes for i in g_streams]
+            wcs = [(s + 3) // 4 for s in sizes]
+            total_q = pipeline_bits._pad_stream_words(sum(wcs))
+            buf = np.zeros(total_q * 4, dtype=np.uint8)
+            byte_off = np.zeros(len(g_streams), np.int64)
+            off = 0
+            for k, (i, s, wc) in enumerate(zip(g_streams, sizes, wcs)):
+                buf[off:off + s] = payloads[i]
+                byte_off[k] = off
+                off += wc * 4
+            ends_abs = byte_off + np.asarray(sizes, np.int64)
+            # Frame-count bound from STREAMINFO for the capacity classes.
+            frames_est = 0
+            for i in g_streams:
+                si = sis[i]
+                if not si.samples or not si.min_block_size:
+                    frames_est = None
+                    break
+                frames_est += -(-si.samples // si.min_block_size) + 2
 
-        words_le = torch.from_numpy(buf.view(np.int32)).to(device)
+        with stages("upload"):
+            words_le = torch.from_numpy(buf.view(np.int32)).to(device)
         pending.upload_bytes += total_q * 4
-        stages.mark("upload")
-        with device_guard(device):
+        rec.count("upload_group_bytes", total_q * 4)
+        with stages("demux_queue"), device_guard(device):
             pend = fused_demux_async(
                 words_le, total_q * 4, T, nch, ends_abs,
                 [sis[i].bits_per_sample for i in g_streams], frames_est,
                 deltas=pending.mode == "delta")
         pending.groups.append((T, nch, g_streams, byte_off, ends_abs, sizes,
                                pend))
-        stages.mark("demux_queue")
+    pending.begun_ns = time.perf_counter_ns()
     return pending
 
 
@@ -443,7 +439,7 @@ def finish_segmented(pending):
     mode = pending.mode
     sis = pending.sis
     stages = pending.stages
-    stages.mark("between")
+    stages.add("between", pending.begun_ns)
 
     results = [None] * len(datas)
     pcms = [None] * len(datas)
@@ -455,148 +451,149 @@ def finish_segmented(pending):
 
     for (T, nch, g_streams, byte_off, ends_abs, sizes, pend) \
             in pending.groups:
-        try:
-            with device_guard(device):
-                summary, count = pend.resolve()
-        except DemuxOverflow:
-            # A sync-saturated payload: the whole group host-walks.
-            fb_streams.extend(g_streams)
-            stages.mark("summary")
-            continue
-        # The group's stream and walk outputs on each device of the mesh.
-        streams = replicate(pend.stream, mesh)
-        walks = {dev: {k: v if v.device == dev else v.to(dev)
-                       for k, v in pend.walk.items()} for dev in streams}
-        stages.mark("summary")
-        cols = {name: summary[:, k] for k, name in enumerate(SUMMARY_COLS)}
-        cpos = cols["pos"]
-        ok_c = (cols["valid"] != 0) & (cols["walk_ok"] != 0)
-        # The device compacts walkable candidates in candidate order; this
-        # is its lane map (walk row = walk_rank * nch + channel).
-        walk_rank = np.cumsum(cols["valid"] != 0) - 1
-        end_byte = cols["end_byte"]
-        bs_c = cols["block_size"]
-        time_raw = (cols["time_hi"] << 32) | (cols["time_lo"] & 0xFFFFFFFF)
-        c_si = np.searchsorted(ends_abs, cpos, side="right")
-        if len(g_streams):
-            c_si = np.minimum(c_si, len(g_streams) - 1)
+        with stages("summary"):
+            try:
+                with device_guard(device):
+                    summary, count = pend.resolve()
+            except DemuxOverflow:
+                # A sync-saturated payload: the whole group host-walks.
+                fb_streams.extend(g_streams)
+                continue
+            # The group's stream and walk outputs on each device of the
+            # mesh.
+            streams = replicate(pend.stream, mesh)
+            walks = {dev: {k: v if v.device == dev else v.to(dev)
+                           for k, v in pend.walk.items()}
+                     for dev in streams}
+        with stages("chain"):
+            cols = {name: summary[:, k] for k, name in enumerate(SUMMARY_COLS)}
+            cpos = cols["pos"]
+            ok_c = (cols["valid"] != 0) & (cols["walk_ok"] != 0)
+            # The device compacts walkable candidates in candidate order; this
+            # is its lane map (walk row = walk_rank * nch + channel).
+            walk_rank = np.cumsum(cols["valid"] != 0) - 1
+            end_byte = cols["end_byte"]
+            bs_c = cols["block_size"]
+            time_raw = (cols["time_hi"] << 32) | (cols["time_lo"] & 0xFFFFFFFF)
+            c_si = np.searchsorted(ends_abs, cpos, side="right")
+            if len(g_streams):
+                c_si = np.minimum(c_si, len(g_streams) - 1)
 
-        chains = {}
-        for k, size in enumerate(sizes):
-            chain = _chain(k, size, np.flatnonzero(c_si == k), cpos,
-                           end_byte, ok_c, byte_off)
-            if chain is None:
-                fb_streams.append(g_streams[k])
-                fb_learn.append(g_streams[k])
-            else:
-                chains[k] = chain
-        stages.mark("chain")
+            chains = {}
+            for k, size in enumerate(sizes):
+                chain = _chain(k, size, np.flatnonzero(c_si == k), cpos,
+                               end_byte, ok_c, byte_off)
+                if chain is None:
+                    fb_streams.append(g_streams[k])
+                    fb_learn.append(g_streams[k])
+                else:
+                    chains[k] = chain
 
-        # ---- results and output offsets (chain order is stream order).
-        out0_c = np.zeros(count, np.int64)
-        chained = np.zeros(count, bool)
-        crc_starts, crc_ends = [], []
-        for k, chain in chains.items():
-            si = sis[g_streams[k]]
-            bs_v = bs_c[chain]
-            pcm = np.zeros((int(bs_v.sum()), si.channels), dtype=np.int32)
-            pcms[g_streams[k]] = pcm
-            t_raw = time_raw[chain]
-            times = np.where(cols["variable"][chain] != 0, t_raw,
-                             t_raw * bs_v)
-            results[g_streams[k]] = DecodedStream(
-                streaminfo=si, pcm=pcm, frame_times=times.tolist(),
-                frame_sizes=bs_v.tolist())
-            if chain.size:
-                out0_c[chain] = np.cumsum(bs_v) - bs_v
-                chained[chain] = True
-                crc_starts.append(cpos[chain])
-                crc_ends.append(end_byte[chain] + 2)
+        with stages("plan_dispatch"):
+            # ---- results and output offsets (chain order is stream order).
+            out0_c = np.zeros(count, np.int64)
+            chained = np.zeros(count, bool)
+            crc_starts, crc_ends = [], []
+            for k, chain in chains.items():
+                si = sis[g_streams[k]]
+                bs_v = bs_c[chain]
+                pcm = np.zeros((int(bs_v.sum()), si.channels), dtype=np.int32)
+                pcms[g_streams[k]] = pcm
+                t_raw = time_raw[chain]
+                times = np.where(cols["variable"][chain] != 0, t_raw,
+                                 t_raw * bs_v)
+                results[g_streams[k]] = DecodedStream(
+                    streaminfo=si, pcm=pcm, frame_times=times.tolist(),
+                    frame_sizes=bs_v.tolist())
+                if chain.size:
+                    out0_c[chain] = np.cumsum(bs_v) - bs_v
+                    chained[chain] = True
+                    crc_starts.append(cpos[chain])
+                    crc_ends.append(end_byte[chain] + 2)
 
-        # ---- decode dispatches, one per (P class, frame T bucket); values
-        # mode never reads the partitions, so it has one P class. Sparse
-        # classes merge upward, T first, as in the JAX package.
-        g_idx = np.flatnonzero(chained)
-        if g_idx.size:
-            if mode == "values":
-                pcls = np.ones(g_idx.size, np.int64)
-            else:
-                p_classes = np.asarray(_P_CLASSES, np.int64)
-                pcls = p_classes[np.minimum(
-                    np.searchsorted(p_classes,
-                                    np.maximum(cols["n_parts"][g_idx], 1)),
-                    len(p_classes) - 1)]
-            tcls = t_buckets[np.searchsorted(t_buckets,
-                                             np.maximum(bs_c[g_idx], 1))]
-            uniqt = list(np.unique(tcls))
-            for ci, Tc in enumerate(uniqt[:-1]):
-                m = tcls == Tc
-                if m.sum() * Tc < 32 * uniqt[ci + 1]:
-                    tcls[m] = uniqt[ci + 1]
-            uniq = list(np.unique(pcls))
-            for ci, P in enumerate(uniq[:-1]):
-                if (pcls == P).sum() < 32:
-                    pcls[pcls == P] = uniq[ci + 1]
-            keys = pcls << 32 | tcls
-            for key in np.unique(keys):
-                P, Tb = int(key >> 32), int(key & 0xFFFFFFFF)
-                sub = g_idx[keys == key]
-                sub = sub[np.lexsort((out0_c[sub], c_si[sub]))]
-                n_frames = sub.size
-                n_lanes = n_frames * nch
-                L, Tb = bucket_shape(n_lanes, Tb, lane_quantum)
-                bs_v = bs_c[sub]
-                # Padding lanes read walk row 0 with length 0: K1 writes
-                # zeros there and to_host never reads them.
-                rows = np.zeros(L, np.int32)
-                lengths = np.zeros(L, np.int32)
-                modes = np.zeros(L, np.int32)
-                rows[:n_lanes] = (walk_rank[sub][:, None] * nch
-                                  + np.arange(nch)[None, :]).reshape(-1)
-                lengths[:n_lanes] = np.repeat(bs_v, nch)
-                modes[:n_lanes] = np.repeat(cols["mode"][sub], nch)
-                si_v = c_si[sub]
-                out0_v = out0_c[sub]
-                brk = np.flatnonzero(
-                    (si_v[1:] != si_v[:-1]) | (bs_v[1:] != bs_v[:-1])
-                    | (out0_v[1:] != out0_v[:-1] + bs_v[:-1])) + 1
-                starts_r = np.concatenate([[0], brk])
-                ends_r = np.concatenate([brk, [n_frames]])
-                plan = [(g_streams[int(si_v[st])], int(out0_v[st]),
-                         int(en - st), int(bs_v[st]), nch, int(st * nch))
-                        for st, en in zip(starts_r, ends_r)]
-                SA = 0 if mode == "values" else \
-                    _sa_class(int(cols["sa"][sub].max()))
-                outs = []
-                for dev, a, z in shard_ranges(mesh, L):
-                    with device_guard(dev):
-                        out, nbytes = _dispatch(
-                            mode, streams[dev], walks[dev], rows[a:z],
-                            lengths[a:z], modes[a:z], (Tb + 31) // 32 * 32,
-                            P, SA, dev)
-                    outs.append(out)
-                    upload_bytes += nbytes
-                # 16-bit audio fetches as int16 pairs (start_fetch packs).
-                out_packed = (_LITTLE_ENDIAN and Tb % 2 == 0
-                              and int(cols["bps"][sub].max()) <= 16)
-                dispatches.append(_shard_dispatch(nch, outs, out_packed,
-                                                  sharded))
-                plans.append(plan)
+            # ---- decode dispatches, one per (P class, frame T bucket); values
+            # mode never reads the partitions, so it has one P class. Sparse
+            # classes merge upward, T first, as in the JAX package.
+            g_idx = np.flatnonzero(chained)
+            if g_idx.size:
+                if mode == "values":
+                    pcls = np.ones(g_idx.size, np.int64)
+                else:
+                    p_classes = np.asarray(_P_CLASSES, np.int64)
+                    pcls = p_classes[np.minimum(
+                        np.searchsorted(p_classes,
+                                        np.maximum(cols["n_parts"][g_idx], 1)),
+                        len(p_classes) - 1)]
+                tcls = t_buckets[np.searchsorted(t_buckets,
+                                                 np.maximum(bs_c[g_idx], 1))]
+                uniqt = list(np.unique(tcls))
+                for ci, Tc in enumerate(uniqt[:-1]):
+                    m = tcls == Tc
+                    if m.sum() * Tc < 32 * uniqt[ci + 1]:
+                        tcls[m] = uniqt[ci + 1]
+                uniq = list(np.unique(pcls))
+                for ci, P in enumerate(uniq[:-1]):
+                    if (pcls == P).sum() < 32:
+                        pcls[pcls == P] = uniq[ci + 1]
+                keys = pcls << 32 | tcls
+                for key in np.unique(keys):
+                    P, Tb = int(key >> 32), int(key & 0xFFFFFFFF)
+                    sub = g_idx[keys == key]
+                    sub = sub[np.lexsort((out0_c[sub], c_si[sub]))]
+                    n_frames = sub.size
+                    n_lanes = n_frames * nch
+                    L, Tb = bucket_shape(n_lanes, Tb, lane_quantum)
+                    bs_v = bs_c[sub]
+                    # Padding lanes read walk row 0 with length 0: K1 writes
+                    # zeros there and to_host never reads them.
+                    rows = np.zeros(L, np.int32)
+                    lengths = np.zeros(L, np.int32)
+                    modes = np.zeros(L, np.int32)
+                    rows[:n_lanes] = (walk_rank[sub][:, None] * nch
+                                      + np.arange(nch)[None, :]).reshape(-1)
+                    lengths[:n_lanes] = np.repeat(bs_v, nch)
+                    modes[:n_lanes] = np.repeat(cols["mode"][sub], nch)
+                    si_v = c_si[sub]
+                    out0_v = out0_c[sub]
+                    brk = np.flatnonzero(
+                        (si_v[1:] != si_v[:-1]) | (bs_v[1:] != bs_v[:-1])
+                        | (out0_v[1:] != out0_v[:-1] + bs_v[:-1])) + 1
+                    starts_r = np.concatenate([[0], brk])
+                    ends_r = np.concatenate([brk, [n_frames]])
+                    plan = [(g_streams[int(si_v[st])], int(out0_v[st]),
+                             int(en - st), int(bs_v[st]), nch, int(st * nch))
+                            for st, en in zip(starts_r, ends_r)]
+                    SA = 0 if mode == "values" else \
+                        _sa_class(int(cols["sa"][sub].max()))
+                    outs = []
+                    for dev, a, z in shard_ranges(mesh, L):
+                        with device_guard(dev):
+                            out, nbytes = _dispatch(
+                                mode, streams[dev], walks[dev], rows[a:z],
+                                lengths[a:z], modes[a:z], (Tb + 31) // 32 * 32,
+                                P, SA, dev)
+                        outs.append(out)
+                        upload_bytes += nbytes
+                    # 16-bit audio fetches as int16 pairs (start_fetch packs).
+                    out_packed = (_LITTLE_ENDIAN and Tb % 2 == 0
+                                  and int(cols["bps"][sub].max()) <= 16)
+                    dispatches.append(_shard_dispatch(nch, outs, out_packed,
+                                                      sharded))
+                    plans.append(plan)
 
-        if crc_starts:
-            starts = np.concatenate(crc_starts).astype(np.int32)
-            ends_a = np.concatenate(crc_ends).astype(np.int32)
-            n = len(starts)
-            # The frame axis splits over the mesh: start from a multiple
-            # of its size (the JAX package's lcm, so doubling keeps it).
-            fq = math.lcm(8, mesh.size)
-            while fq < n:
-                fq *= 2
-            se = np.stack([np.pad(starts, (0, fq - n)),
-                           np.pad(ends_a, (0, fq - n))])
-            crc_pairs.extend(_crc_shards(streams, se, n, mesh))
-            upload_bytes += se.nbytes
-        stages.mark("plan_dispatch")
+            if crc_starts:
+                starts = np.concatenate(crc_starts).astype(np.int32)
+                ends_a = np.concatenate(crc_ends).astype(np.int32)
+                n = len(starts)
+                # The frame axis splits over the mesh: start from a multiple
+                # of its size (the JAX package's lcm, so doubling keeps it).
+                fq = math.lcm(8, mesh.size)
+                while fq < n:
+                    fq *= 2
+                se = np.stack([np.pad(starts, (0, fq - n)),
+                               np.pad(ends_a, (0, fq - n))])
+                crc_pairs.extend(_crc_shards(streams, se, n, mesh))
+                upload_bytes += se.nbytes
 
     for i in fb_learn:
         if len(_REJECT_CACHE) >= _REJECT_CACHE_CAP:
@@ -608,13 +605,15 @@ def finish_segmented(pending):
     dd = DeviceDecoded(results, dispatches, plans, pcms)
     dd.crc_check = crc_pairs or None
     dd.upload_bytes = upload_bytes
+    dd.trace = pending.trace
     if fb_streams:
         fb_streams = sorted(set(fb_streams))
-        fb_dd = _host_fallback([datas[i] for i in fb_streams], lane_quantum,
-                               device, per_stream=True, mesh=pending.mesh)
-        dd = merge_decoded(len(datas), [(list(range(len(datas))), dd),
-                                        (fb_streams, fb_dd)])
-        stages.mark("fallback")
+        with stages("fallback"):
+            fb_dd = _host_fallback([datas[i] for i in fb_streams],
+                                   lane_quantum, device, per_stream=True,
+                                   mesh=pending.mesh, rec=pending.trace)
+            dd = merge_decoded(len(datas), [(list(range(len(datas))), dd),
+                                            (fb_streams, fb_dd)])
     # Markers: some stream rode the device demux; the demux ran at all;
     # the streams that took the host walk.
     dd.segmented = len(fb_streams) < len(datas)
@@ -626,15 +625,17 @@ def finish_segmented(pending):
 
 
 def decode_streams_segmented(datas, lane_quantum=None, device="cuda",
-                             mesh=None):
+                             mesh=None, rec=None):
     """Decode FLAC streams with the frame search and subframe walk on the
     card. Returns a DeviceDecoded, like ``decode_streams_device``; streams
     the device demux cannot take are host-walked and merged in (see the
     module docstring). Overlapping callers use :func:`begin_segmented` and
     :func:`finish_segmented` (``decode_streams_device_async``). A ``mesh``
     (``parallel``) splits every decode dispatch into its lane shards and
-    runs the demux on ``mesh.devices[0]``."""
-    pending = begin_segmented(datas, lane_quantum, device, mesh)
+    runs the demux on ``mesh.devices[0]``. The batch's spans go to
+    ``rec``, its record (None: a new one)."""
+    pending = begin_segmented(datas, lane_quantum, device, mesh, rec)
     if pending is None:
-        return _host_fallback(datas, lane_quantum, device, mesh=mesh)
+        return _host_fallback(datas, lane_quantum, device, mesh=mesh,
+                              rec=rec)
     return finish_segmented(pending)

@@ -3,10 +3,12 @@ on the card (counterpart of ``claxon_tpu.pipeline_seg``).
 
 The host never walks payload bytes. It parses each stream's metadata,
 groups streams by (STREAMINFO block-size bucket, channel count), and per
-group uploads the raw little-endian payload words once and queues the
-fused demux (``ops.seg_parse``: K6 bswap, K5 sync scan, K6 header parse and
-compaction, K7 subframe walk, K6 summary). The summary copy is started at
-once, so ``begin_segmented`` returns with the group's work in flight.
+group uploads the raw little-endian payload words once (on a CUDA device
+staged in a pinned host buffer that is kept from call to call) and
+queues the fused demux (``ops.seg_parse``: K6 bswap, K5 sync scan, K6
+header parse and compaction, K7 subframe walk, K6 summary). The summary
+copy is started at once, so ``begin_segmented`` returns with the group's
+work in flight.
 ``finish_segmented`` waits for each summary, chains the candidates of each
 stream (a real frame starts where the previous one's CRC-16 ends), and per
 decode dispatch runs the entropy mode ``CLAXON_TPU_SEG_ENTROPY`` names
@@ -51,8 +53,10 @@ host-CPU milliseconds, as the JAX package does: one line
 ``seg stage CPU ms: [(stage, ms), ...]``.
 """
 
+import contextlib
 import math
 import os
+import threading
 import time
 
 import numpy as np
@@ -214,6 +218,61 @@ class _SegPending:
         self.begun_ns = None
 
 
+def _fill_group_words(dst, payloads, sizes, wcs, total_q):
+    """Lay a group's stream payloads into ``dst`` (uint8 numpy, at least
+    ``total_q * 4`` bytes, holding anything) at word-aligned offsets, and
+    write zeros over every other byte up to ``total_q * 4``: each
+    stream's 0-3 alignment bytes and the pad, on which K7's zero-fill at
+    a stream's end and the fused front rely. Returns the streams' byte
+    offsets (int64)."""
+    byte_off = np.zeros(len(payloads), np.int64)
+    off = 0
+    for k, (p, s, wc) in enumerate(zip(payloads, sizes, wcs)):
+        dst[off:off + s] = p
+        dst[off + s:off + wc * 4] = 0
+        byte_off[k] = off
+        off += wc * 4
+    dst[off:total_q * 4] = 0
+    return byte_off
+
+
+class _Staging:
+    """A CUDA device's pinned host buffer, which each group's words are
+    filled into and uploaded from; it is kept for the process and only
+    grows. ``lock`` is held from a fill until its upload has returned."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.host = None
+
+    def reserve(self, n, rec):
+        """The buffer's first ``n`` bytes, as a uint8 tensor; a shorter
+        buffer is first replaced by one of the next power-of-two size.
+        Counts ``upload_staged`` and, on a replacement,
+        ``upload_stage_grow`` in ``rec``."""
+        rec.count("upload_staged", 1)
+        if self.host is None or self.host.numel() < n:
+            self.host = torch.empty(1 << (n - 1).bit_length(),
+                                    dtype=torch.uint8, pin_memory=True)
+            rec.count("upload_stage_grow", 1)
+        return self.host[:n]
+
+
+#: the staging buffer of each CUDA device (``_staging``).
+_STAGING = {}
+
+
+def _staging(device):
+    """The staging buffer of CUDA ``device`` (no index: the current
+    device)."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    staging = _STAGING.get(device)
+    if staging is None:
+        staging = _STAGING.setdefault(device, _Staging())
+    return staging
+
+
 def _host_fallback(datas, lane_quantum, device, per_stream=False,
                    mesh=None, rec=None):
     """The host-walk path for ``datas``, its spans in ``rec`` (the batch's
@@ -316,31 +375,42 @@ def begin_segmented(datas, lane_quantum=None, device="cuda", mesh=None,
             else:
                 merged[(T, nch)] = list(g)
 
+    dev = torch.device(device)
+    pinned = _staging(dev) if dev.type == "cuda" else None
     for (T, nch), g_streams in merged.items():
-        with stages("buffer"):
-            g_streams = sorted(g_streams)
-            sizes = [payloads[i].nbytes for i in g_streams]
-            wcs = [(s + 3) // 4 for s in sizes]
-            total_q = pipeline_bits._pad_stream_words(sum(wcs))
-            buf = np.zeros(total_q * 4, dtype=np.uint8)
-            byte_off = np.zeros(len(g_streams), np.int64)
-            off = 0
-            for k, (i, s, wc) in enumerate(zip(g_streams, sizes, wcs)):
-                buf[off:off + s] = payloads[i]
-                byte_off[k] = off
-                off += wc * 4
-            ends_abs = byte_off + np.asarray(sizes, np.int64)
-            # Frame-count bound from STREAMINFO for the capacity classes.
-            frames_est = 0
-            for i in g_streams:
-                si = sis[i]
-                if not si.samples or not si.min_block_size:
-                    frames_est = None
-                    break
-                frames_est += -(-si.samples // si.min_block_size) + 2
+        # The pinned buffer is held from the fill until its upload has
+        # returned.
+        with contextlib.ExitStack() as held:
+            with stages("buffer"):
+                g_streams = sorted(g_streams)
+                sizes = [payloads[i].nbytes for i in g_streams]
+                wcs = [(s + 3) // 4 for s in sizes]
+                total_q = pipeline_bits._pad_stream_words(sum(wcs))
+                if pinned is None:
+                    # A fresh buffer: on the CPU the upload is the buffer
+                    # itself, which a pending batch's words still use.
+                    host = torch.empty(total_q * 4, dtype=torch.uint8)
+                else:
+                    held.enter_context(pinned.lock)
+                    host = pinned.reserve(total_q * 4, rec)
+                byte_off = _fill_group_words(
+                    host.numpy(), [payloads[i] for i in g_streams], sizes,
+                    wcs, total_q)
+                ends_abs = byte_off + np.asarray(sizes, np.int64)
+                # Frame-count bound from STREAMINFO for the capacity
+                # classes.
+                frames_est = 0
+                for i in g_streams:
+                    si = sis[i]
+                    if not si.samples or not si.min_block_size:
+                        frames_est = None
+                        break
+                    frames_est += -(-si.samples // si.min_block_size) + 2
 
-        with stages("upload"):
-            words_le = torch.from_numpy(buf.view(np.int32)).to(device)
+            with stages("upload"):
+                # Blocking: from pinned memory a direct copy, done when
+                # it returns, so the buffer is free for the next group.
+                words_le = host.view(torch.int32).to(dev)
         pending.upload_bytes += total_q * 4
         rec.count("upload_group_bytes", total_q * 4)
         with stages("demux_queue"), device_guard(device):

@@ -58,9 +58,12 @@ start of ``finish_segmented`` (the caller's time); it is timed but opens
 no profiler range, since it starts and ends in different calls.
 
 Counters: ``upload_group_bytes``, the segmented path's group words
-uploaded in ``claxon.seg.upload``; ``fetch_bytes``, the device-to-host
-bytes ``start_fetch()`` queued. (``DeviceDecoded.upload_bytes`` stays the
-batch's whole host-to-device count.)
+uploaded in ``claxon.seg.upload``; ``upload_staged``, the groups staged
+in a CUDA device's pinned buffer, and ``upload_stage_grow``, those of
+them that first grew it (none on the CPU); ``fetch_bytes``, the
+device-to-host bytes ``start_fetch()`` queued.
+(``DeviceDecoded.upload_bytes`` stays the batch's whole host-to-device
+count.)
 
 :func:`recent` gives the records of the last :data:`RECENT` batches
 begun in this process, for a caller that keeps no ``DeviceDecoded``: a

@@ -996,6 +996,76 @@ def _assert_scalar_and_md5(datas, results):
     assert md5s >= 1
 
 
+def _staging_streams(lengths, seed):
+    """Stereo 16-bit streams at block size 4096 (one segmented group),
+    their payloads of assorted lengths mod 4."""
+    from claxon_tpu_torch.testing import encode_flac, synth_music
+
+    return [encode_flac(synth_music(n, channels=2, bps=16, seed=seed + k),
+                        44100, 16, block_size=4096)
+            for k, n in enumerate(lengths)]
+
+
+def test_segmented_staging_buffer_is_reused(cuda, monkeypatch):
+    """The segmented path stages each group's words in the card's pinned
+    buffer: a large batch, a smaller one (the buffer holds the large
+    one's bytes past its words), the large one again and a damaged copy
+    of the small one decode as the scalar decoder does, with its CRC
+    verdicts; the buffer grows once and is reused by every later group."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu.error import Error as RefError
+    from claxon_tpu_torch import pipeline_seg as ps
+    from claxon_tpu_torch.error import FormatError
+
+    monkeypatch.setattr(ps, "_STAGING", {})
+    big = _staging_streams([90001, 70002, 80003, 60004], 31)
+    small = _staging_streams([20001, 30003], 41)
+    assert {len(d) % 4 for d in big + small} != {len(big[0]) % 4}
+    bad = bytearray(small[0])
+    bad[-1] ^= 0xFF  # a CRC-16 byte of the last frame
+    bad = [bytes(bad)] + small[1:]
+    with pytest.raises(RefError):
+        native.decode_stream_scalar(bad[0])
+    counts = []
+    for datas in (big, small, big, bad):
+        dd = ct.decode_streams_device(datas, segmentation="device",
+                                      device=cuda)
+        assert dd.segmented and dd.fallback_streams == []
+        counts.append((dd.trace.counters["upload_staged"],
+                       dd.trace.counters.get("upload_stage_grow", 0)))
+        if datas is bad:
+            with pytest.raises(FormatError, match="frame CRC mismatch"):
+                dd.sync()
+        else:
+            dd.sync()
+            _assert_scalar_and_md5(datas, dd.to_host())
+    assert counts == [(1, 1), (1, 0), (1, 0), (1, 0)]
+    assert list(ps._STAGING) == [torch.device("cuda",
+                                              torch.cuda.current_device())]
+    host = ps._STAGING[list(ps._STAGING)[0]].host
+    assert host.is_pinned() and host.numel() >= sum(map(len, big))
+    torch.cuda.synchronize()
+
+
+def test_two_async_batches_in_flight(cuda):
+    """Two ``decode_streams_device_async`` batches begun before either
+    finishes (both groups staged in the one pinned buffer) decode as the
+    scalar decoder does."""
+    import claxon_tpu_torch as ct
+
+    batches = [_staging_streams([50001, 40002], 51),
+               _staging_streams([30003, 45004, 20005], 61)]
+    handles = [ct.decode_streams_device_async(b, segmentation="device",
+                                              device=cuda)
+               for b in batches]
+    for datas, h in zip(batches, handles):
+        dd = h.finish()
+        assert dd.segmented and dd.fallback_streams == []
+        assert dd.trace.counters["upload_staged"] == 1
+        _assert_scalar_and_md5(datas, dd.sync().to_host())
+    torch.cuda.synchronize()
+
+
 def test_front_regrows_on_the_card(cuda, monkeypatch):
     """test_torch_seg_pipeline.py::test_capacity_overflow_regrows on the
     card: capacities of 8 re-dispatch the fused demux with larger classes,

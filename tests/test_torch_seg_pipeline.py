@@ -173,6 +173,80 @@ def test_async_overlapped_batches_keep_order():
         _assert_oracle(b, h.finish().to_host())
 
 
+def _zeroed_group_words(payloads):
+    """The group buffer as a fresh ``np.zeros`` builds it: each payload
+    at its word-aligned offset, zeros everywhere else; and its offsets."""
+    from claxon_tpu_torch.pipeline_bits import _pad_stream_words
+
+    wcs = [(p.nbytes + 3) // 4 for p in payloads]
+    buf = np.zeros(_pad_stream_words(sum(wcs)) * 4, np.uint8)
+    offs, off = [], 0
+    for p, wc in zip(payloads, wcs):
+        buf[off:off + p.nbytes] = p
+        offs.append(off)
+        off += wc * 4
+    return buf, offs
+
+
+@pytest.mark.parametrize("n_streams", [1, 4])
+@pytest.mark.parametrize("rem", [0, 1, 2, 3])
+def test_fill_group_words_matches_a_zeroed_buffer(rem, n_streams):
+    """``_fill_group_words`` into a buffer that holds other bytes (0xFF,
+    then a longer group's) gives the fresh ``np.zeros`` build byte for
+    byte, alignment bytes and pad included, and writes nothing past the
+    group's words. Payload lengths are ``rem`` mod 4."""
+    rng = np.random.default_rng(10 * rem + n_streams)
+    dst = np.full(1 << 18, 0xFF, np.uint8)
+    for n in (5000, 700):  # a long group, then a shorter one
+        payloads = [rng.integers(0, 256, 4 * (n + 37 * k) + rem, np.uint8)
+                    for k in range(n_streams)]
+        want, offs = _zeroed_group_words(payloads)
+        before = dst.copy()
+        sizes = [p.nbytes for p in payloads]
+        byte_off = tseg._fill_group_words(
+            dst, payloads, sizes, [(s + 3) // 4 for s in sizes],
+            want.nbytes // 4)
+        assert byte_off.tolist() == offs
+        assert np.array_equal(dst[:want.nbytes], want)
+        assert np.array_equal(dst[want.nbytes:], before[want.nbytes:])
+        assert (dst[want.nbytes:] != 0).any()
+
+
+def test_two_pending_batches_match_jax(monkeypatch):
+    """Two batches begun before either finishes: the first one's uploaded
+    words are still its own (the CPU takes a fresh buffer per group, as
+    the upload there is the buffer itself), and each batch decodes as the
+    JAX package's segmented decode does. The second batch holds the
+    first's streams in another order, so its group words differ but the
+    JAX program is the one ``test_slice_matches_jax`` compiled."""
+    from claxon_tpu_torch.native.binding import _read_metadata
+
+    monkeypatch.setattr(jseg, "_REJECT_CACHE", set())
+    a = _group_batch()
+    order = [1, 0, 2]
+    b = [a[i] for i in order]
+    pa = tseg.begin_segmented(a, device="cpu")
+    pb = tseg.begin_segmented(b, device="cpu")
+    for datas, pend in ((a, pa), (b, pb)):
+        [(_T, _nch, g_streams, _off, _ends, _sizes, group)] = pend.groups
+        want, _offs = _zeroed_group_words(
+            [np.frombuffer(datas[i], np.uint8)[_read_metadata(datas[i])[1]:]
+             for i in g_streams])
+        assert np.array_equal(group._key[0].numpy().view(np.uint8), want)
+    dd_b = tseg.finish_segmented(pb)
+    dd_a = tseg.finish_segmented(pa)
+    ref = jseg.decode_streams_segmented(a).to_host()
+    for datas, dd, want in ((a, dd_a, ref),
+                            (b, dd_b, [ref[i] for i in order])):
+        got = dd.to_host()
+        assert dd.fallback_streams == [2]
+        for g, r in zip(got, want):
+            assert np.array_equal(g.pcm, r.pcm)
+            assert g.frame_times == r.frame_times
+            assert g.frame_sizes == r.frame_sizes
+        _assert_oracle(datas, got)
+
+
 def test_more_than_two_channels_fall_back_alone():
     datas = [_enc(1500, 40), _enc(1200, 44, channels=3), _enc(1500, 41)]
     dd = _seg(datas)

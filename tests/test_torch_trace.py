@@ -82,6 +82,19 @@ def test_upload_group_bytes_counts_the_group_words():
     _assert_scalar(datas, tseg.finish_segmented(pend).to_host())
 
 
+def test_cpu_groups_are_not_staged(monkeypatch):
+    """On the CPU every group takes a fresh buffer: no ``upload_staged``
+    or ``upload_stage_grow`` count, and no staging buffer is kept."""
+    monkeypatch.setattr(tseg, "_STAGING", {})
+    datas = _batch(19)
+    dd = ct.decode_streams_device(datas, segmentation="device", device="cpu")
+    assert dd.trace.counters["upload_group_bytes"] > 0
+    assert "upload_staged" not in dd.trace.counters
+    assert "upload_stage_grow" not in dd.trace.counters
+    assert tseg._STAGING == {}
+    _assert_scalar(datas, dd.to_host())
+
+
 def test_fallback_spans_land_in_the_batch():
     """A stream the demux cannot take (3 channels) host-walks inside
     ``claxon.seg.fallback``, its spans in the same record."""

@@ -47,10 +47,14 @@ Each host stage is a span ``claxon.seg.<stage>`` of the batch's record
 ``demux_queue``; ``between`` (the caller's time up to
 ``finish_segmented``); per group ``summary``, ``chain`` and
 ``plan_dispatch``; then ``fallback``. Their host seconds, summed by
-stage, are ``DeviceDecoded.stage_seconds``. With ``CLAXON_TPU_SEG_DEBUG``
-set (any nonempty value), ``finish_segmented`` also prints each stage's
-host-CPU milliseconds, as the JAX package does: one line
-``seg stage CPU ms: [(stage, ms), ...]``.
+stage, are ``DeviceDecoded.stage_seconds``. Inside ``plan_dispatch`` the
+span ``claxon.seg.results`` (no stage) times the per-stream results
+loop; the counters ``seg_streams``, ``seg_frames`` and
+``seg_fallback_streams`` count the streams queued on the device demux,
+the frames chained and the streams sent to the host walk. With
+``CLAXON_TPU_SEG_DEBUG`` set (any nonempty value), ``finish_segmented``
+also prints each stage's host-CPU milliseconds, as the JAX package does:
+one line ``seg stage CPU ms: [(stage, ms), ...]``.
 """
 
 import contextlib
@@ -413,6 +417,7 @@ def begin_segmented(datas, lane_quantum=None, device="cuda", mesh=None,
                 words_le = host.view(torch.int32).to(dev)
         pending.upload_bytes += total_q * 4
         rec.count("upload_group_bytes", total_q * 4)
+        rec.count("seg_streams", len(g_streams))
         with stages("demux_queue"), device_guard(device):
             pend = fused_demux_async(
                 words_le, total_q * 4, T, nch, ends_abs,
@@ -508,6 +513,7 @@ def finish_segmented(pending):
     mesh = pending.mesh if sharded else Mesh((torch.device(device),))
     mode = pending.mode
     sis = pending.sis
+    rec = pending.trace
     stages = pending.stages
     stages.add("between", pending.begun_ns)
 
@@ -558,28 +564,31 @@ def finish_segmented(pending):
                     fb_learn.append(g_streams[k])
                 else:
                     chains[k] = chain
+            rec.count("seg_frames", sum(c.size for c in chains.values()))
 
         with stages("plan_dispatch"):
             # ---- results and output offsets (chain order is stream order).
             out0_c = np.zeros(count, np.int64)
             chained = np.zeros(count, bool)
             crc_starts, crc_ends = [], []
-            for k, chain in chains.items():
-                si = sis[g_streams[k]]
-                bs_v = bs_c[chain]
-                pcm = np.zeros((int(bs_v.sum()), si.channels), dtype=np.int32)
-                pcms[g_streams[k]] = pcm
-                t_raw = time_raw[chain]
-                times = np.where(cols["variable"][chain] != 0, t_raw,
-                                 t_raw * bs_v)
-                results[g_streams[k]] = DecodedStream(
-                    streaminfo=si, pcm=pcm, frame_times=times.tolist(),
-                    frame_sizes=bs_v.tolist())
-                if chain.size:
-                    out0_c[chain] = np.cumsum(bs_v) - bs_v
-                    chained[chain] = True
-                    crc_starts.append(cpos[chain])
-                    crc_ends.append(end_byte[chain] + 2)
+            with rec.span("claxon.seg.results"):
+                for k, chain in chains.items():
+                    si = sis[g_streams[k]]
+                    bs_v = bs_c[chain]
+                    pcm = np.zeros((int(bs_v.sum()), si.channels),
+                                   dtype=np.int32)
+                    pcms[g_streams[k]] = pcm
+                    t_raw = time_raw[chain]
+                    times = np.where(cols["variable"][chain] != 0, t_raw,
+                                     t_raw * bs_v)
+                    results[g_streams[k]] = DecodedStream(
+                        streaminfo=si, pcm=pcm, frame_times=times.tolist(),
+                        frame_sizes=bs_v.tolist())
+                    if chain.size:
+                        out0_c[chain] = np.cumsum(bs_v) - bs_v
+                        chained[chain] = True
+                        crc_starts.append(cpos[chain])
+                        crc_ends.append(end_byte[chain] + 2)
 
             # ---- decode dispatches, one per (P class, frame T bucket); values
             # mode never reads the partitions, so it has one P class. Sparse
@@ -676,8 +685,9 @@ def finish_segmented(pending):
     dd.crc_check = crc_pairs or None
     dd.upload_bytes = upload_bytes
     dd.trace = pending.trace
+    fb_streams = sorted(set(fb_streams))
+    rec.count("seg_fallback_streams", len(fb_streams))
     if fb_streams:
-        fb_streams = sorted(set(fb_streams))
         with stages("fallback"):
             fb_dd = _host_fallback([datas[i] for i in fb_streams],
                                    lane_quantum, device, per_stream=True,

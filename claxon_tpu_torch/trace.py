@@ -38,6 +38,10 @@ Spans, all named ``claxon.*``:
                                        ``between``, ``summary``, ``chain``,
                                        ``plan_dispatch``, ``fallback``
                                        (``DeviceDecoded.stage_seconds``)
+``claxon.seg.results``                 inside ``plan_dispatch``: the
+                                       per-stream results loop (PCM
+                                       arrays, ``DecodedStream``, output
+                                       offsets); no stage of its own
 ``claxon.walk.extract``                the C++ host walk over the streams
 ``claxon.walk.plan``                   ``pipeline_bits.plan_raw_bits``
 ``claxon.walk.dispatch``               the host walk's uploads and launches
@@ -61,7 +65,12 @@ Counters: ``upload_group_bytes``, the segmented path's group words
 uploaded in ``claxon.seg.upload``; ``upload_staged``, the groups staged
 in a CUDA device's pinned buffer, and ``upload_stage_grow``, those of
 them that first grew it (none on the CPU); ``fetch_bytes``, the
-device-to-host bytes ``start_fetch()`` queued.
+device-to-host bytes ``start_fetch()`` queued; ``seg_streams``, the
+streams the segmented path queued on the device demux (after the streams
+it sent to the host walk before the demux), ``seg_frames``, the frames it
+chained, and ``seg_fallback_streams``, the streams it sent to the host
+walk, before the demux, on a chain break or with a group whose sync
+candidates overflowed (0 when none).
 (``DeviceDecoded.upload_bytes`` stays the batch's whole host-to-device
 count.)
 

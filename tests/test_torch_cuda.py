@@ -1066,6 +1066,41 @@ def test_two_async_batches_in_flight(cuda):
     torch.cuda.synchronize()
 
 
+def test_many_short_mono_streams_on_the_card(cuda, monkeypatch):
+    """256 mono 16 kHz 16-bit streams of 0.3-1.2 s (block 4096, LPC order
+    8, partition orders 0-5), each ending in a short last frame, as
+    speech corpora ship their utterances: through the default route (its
+    calibration on this batch, whichever path it keeps) and through the
+    segmented path (one mono group, no stream on the host walk), both
+    equal to the scalar decoder and the stored MD5s."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch.testing import encode_flac, synth_music
+
+    lens = [int(round(s * 16000)) for s in np.linspace(0.3, 1.2, 256)]
+    lens = [n + 1 if n % 4096 == 0 else n for n in lens]
+    datas = [encode_flac(synth_music(n, channels=1, bps=16, seed=700 + k,
+                                     sample_rate=16000),
+                         16000, 16, block_size=4096, max_lpc_order=8,
+                         partition_order=k % 6)
+             for k, n in enumerate(lens)]
+    monkeypatch.delenv("CLAXON_TPU_SEGMENTATION", raising=False)
+    monkeypatch.setattr(tp, "_SEG_AUTO", {})
+    dd = ct.decode_streams_device(datas, device=cuda)
+    assert tp._SEG_AUTO["cuda"]["choice"] in ("device", "host")
+    _assert_scalar_and_md5(datas, dd.sync().to_host())
+    dd = ct.decode_streams_device(datas, segmentation="device", device=cuda)
+    assert dd.segmented and dd.fallback_streams == []
+    counters = dd.trace.counters
+    assert counters["seg_streams"] == 256
+    assert counters["seg_frames"] == sum(-(-n // 4096) for n in lens)
+    assert counters["seg_fallback_streams"] == 0
+    got = dd.sync().to_host()
+    _assert_scalar_and_md5(datas, got)
+    assert all(g.frame_sizes[-1] == n % 4096 for g, n in zip(got, lens))
+    torch.cuda.synchronize()
+
+
 def test_front_regrows_on_the_card(cuda, monkeypatch):
     """test_torch_seg_pipeline.py::test_capacity_overflow_regrows on the
     card: capacities of 8 re-dispatch the fused demux with larger classes,

@@ -19,6 +19,10 @@ pytestmark = pytest.mark.skipif(not native.available(),
 
 SEG_BEGIN = ["metadata", "buffer", "upload", "demux_queue"]
 SEG_FINISH = ["between", "summary", "chain", "plan_dispatch"]
+#: a segmented batch's ``claxon.seg.*`` spans in the order they end: the
+#: stages, with ``results`` (no stage) inside ``plan_dispatch``.
+SEG_SPANS = ["claxon.seg." + s for s in SEG_BEGIN + SEG_FINISH[:-1]
+             + ["results", "plan_dispatch"]]
 FETCH = ["claxon.fetch.start", "claxon.fetch.wait", "claxon.fetch.scatter",
          "claxon.fetch.crc"]
 
@@ -59,11 +63,11 @@ def test_segmented_spans_replace_the_stage_marks():
     dd = ct.decode_streams_device(datas, segmentation="device", device="cpu")
     assert dd.fallback_streams == []
     rec = dd.trace
-    assert _names(rec, "claxon.seg.") == [
-        "claxon.seg." + s for s in SEG_BEGIN + SEG_FINISH]
+    assert _names(rec, "claxon.seg.") == SEG_SPANS
     root, = [s for s in rec.spans if s[3] is None]
     assert root[0] == "claxon.decode"
-    seg = [s for s in rec.spans if s[0].startswith("claxon.seg.")]
+    seg = [s for s in rec.spans if s[0].startswith("claxon.seg.")
+           and s[0] != "claxon.seg.results"]
     assert {s[3] for s in seg} == {"claxon.decode"}
     assert {s[4] for s in rec.spans} == {rec.batch}
     assert all(root[1] <= s[1] <= s[2] <= root[2] for s in seg)
@@ -77,7 +81,8 @@ def test_segmented_spans_replace_the_stage_marks():
 def test_upload_group_bytes_counts_the_group_words():
     datas = _batch(3)
     pend = tseg.begin_segmented(datas, device="cpu")
-    assert pend.trace.counters == {"upload_group_bytes": pend.upload_bytes}
+    assert pend.trace.counters == {"upload_group_bytes": pend.upload_bytes,
+                                   "seg_streams": len(datas)}
     assert pend.upload_bytes >= sum(map(len, datas)) - 2 * 8192
     _assert_scalar(datas, tseg.finish_segmented(pend).to_host())
 
@@ -180,8 +185,7 @@ def test_interleaved_batches_keep_their_own_spans(monkeypatch):
     for dd, datas in ((dd_a, a_datas), (dd_b, b_datas)):
         rec = dd.trace
         assert {s[4] for s in rec.spans} == {rec.batch}
-        assert _names(rec, "claxon.seg.") == [
-            "claxon.seg." + s for s in SEG_BEGIN + SEG_FINISH]
+        assert _names(rec, "claxon.seg.") == SEG_SPANS
         _assert_scalar(datas, dd.to_host())
     a_end = [s[2] for s in dd_a.trace.spans
              if s[0] == "claxon.seg.demux_queue"][0]

@@ -80,7 +80,12 @@ def bucket_shape(n_lanes, block_size, lane_quantum=_L_QUANTUM):
 
 @dataclass
 class DecodedStream:
-    """Decoded PCM plus stream metadata."""
+    """Decoded PCM plus stream metadata.
+
+    ``pcm`` may be a view of an allocation shared with the other streams
+    of its segmented group (:func:`zeroed_pcm`): it keeps that whole
+    allocation alive until every view of it is dropped, so a caller that
+    keeps one stream of a large batch holds its group's PCM."""
     streaminfo: object
     #: (total_samples, channels) int32, channels interleaved on axis 1.
     pcm: np.ndarray
@@ -88,6 +93,22 @@ class DecodedStream:
     frame_times: List[int]
     #: block size of each frame
     frame_sizes: List[int]
+
+
+def zeroed_pcm(shapes):
+    """One zero-filled int32 allocation for every ``(samples, channels)``
+    of ``shapes``, cut into one C-contiguous view per shape, in order.
+    Many small arrays would each come from reused heap that the allocator
+    clears; one block of their total, once past the allocator's mmap
+    threshold, is fresh zero pages that nothing touches until
+    ``to_host()`` writes them."""
+    sizes = [n * ch for n, ch in shapes]
+    arena = np.zeros(sum(sizes), dtype=np.int32)
+    views, o = [], 0
+    for (n, ch), size in zip(shapes, sizes):
+        views.append(arena[o:o + size].reshape(n, ch))
+        o += size
+    return views
 
 
 @dataclass

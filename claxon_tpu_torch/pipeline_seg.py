@@ -51,7 +51,10 @@ stage, are ``DeviceDecoded.stage_seconds``. Inside ``plan_dispatch`` the
 span ``claxon.seg.results`` (no stage) times the per-stream results
 loop; the counters ``seg_streams``, ``seg_frames`` and
 ``seg_fallback_streams`` count the streams queued on the device demux,
-the frames chained and the streams sent to the host walk. With
+the frames chained and the streams sent to the host walk, and
+``seg_pcm_allocs`` and ``seg_pcm_bytes`` the PCM allocations made for
+the chained streams (one per group that chained a stream, each cut into
+one view per stream by ``pipeline.zeroed_pcm``) and their bytes. With
 ``CLAXON_TPU_SEG_DEBUG`` set (any nonempty value), ``finish_segmented``
 also prints each stage's host-CPU milliseconds, as the JAX package does:
 one line ``seg stage CPU ms: [(stage, ms), ...]``.
@@ -504,7 +507,7 @@ def finish_segmented(pending):
     from .pipeline_bits import _P_CLASSES, _crc_shards
     from .pipeline import (DecodedStream, DeviceDecoded, _LITTLE_ENDIAN,
                            _T_BUCKETS, _shard_dispatch, bucket_shape,
-                           merge_decoded)
+                           merge_decoded, zeroed_pcm)
 
     datas = pending.datas
     lane_quantum = pending.lane_quantum
@@ -523,6 +526,7 @@ def finish_segmented(pending):
     fb_streams = list(pending.pre_fallback)
     fb_learn = []   # per-stream rejects of this batch -> _REJECT_CACHE
     upload_bytes = pending.upload_bytes
+    pcm_allocs, pcm_bytes = 0, 0
     t_buckets = np.asarray(_T_BUCKETS, np.int64)
 
     for (T, nch, g_streams, byte_off, ends_abs, sizes, pend) \
@@ -572,11 +576,15 @@ def finish_segmented(pending):
             chained = np.zeros(count, bool)
             crc_starts, crc_ends = [], []
             with rec.span("claxon.seg.results"):
-                for k, chain in chains.items():
+                # One PCM allocation for the group's chained streams.
+                runs = [(k, chain, bs_c[chain]) for k, chain in chains.items()]
+                shapes = [(int(bs_v.sum()), sis[g_streams[k]].channels)
+                          for k, _chain, bs_v in runs]
+                views = zeroed_pcm(shapes)
+                pcm_allocs += bool(views)
+                pcm_bytes += sum(v.nbytes for v in views)
+                for (k, chain, bs_v), pcm in zip(runs, views):
                     si = sis[g_streams[k]]
-                    bs_v = bs_c[chain]
-                    pcm = np.zeros((int(bs_v.sum()), si.channels),
-                                   dtype=np.int32)
                     pcms[g_streams[k]] = pcm
                     t_raw = time_raw[chain]
                     times = np.where(cols["variable"][chain] != 0, t_raw,
@@ -687,6 +695,8 @@ def finish_segmented(pending):
     dd.trace = pending.trace
     fb_streams = sorted(set(fb_streams))
     rec.count("seg_fallback_streams", len(fb_streams))
+    rec.count("seg_pcm_allocs", pcm_allocs)
+    rec.count("seg_pcm_bytes", pcm_bytes)
     if fb_streams:
         with stages("fallback"):
             fb_dd = _host_fallback([datas[i] for i in fb_streams],

@@ -39,8 +39,9 @@ Spans, all named ``claxon.*``:
                                        ``plan_dispatch``, ``fallback``
                                        (``DeviceDecoded.stage_seconds``)
 ``claxon.seg.results``                 inside ``plan_dispatch``: the
-                                       per-stream results loop (PCM
-                                       arrays, ``DecodedStream``, output
+                                       per-stream results loop (the
+                                       group's PCM allocation, cut into
+                                       views, ``DecodedStream``, output
                                        offsets); no stage of its own
 ``claxon.walk.extract``                the C++ host walk over the streams
 ``claxon.walk.plan``                   ``pipeline_bits.plan_raw_bits``
@@ -70,7 +71,10 @@ streams the segmented path queued on the device demux (after the streams
 it sent to the host walk before the demux), ``seg_frames``, the frames it
 chained, and ``seg_fallback_streams``, the streams it sent to the host
 walk, before the demux, on a chain break or with a group whose sync
-candidates overflowed (0 when none).
+candidates overflowed (0 when none); ``seg_pcm_allocs``, the PCM
+allocations it made for its chained streams (one per group that chained
+a stream: ``seg_streams / seg_pcm_allocs`` streams share each), and
+``seg_pcm_bytes``, their bytes (samples x channels x 4).
 (``DeviceDecoded.upload_bytes`` stays the batch's whole host-to-device
 count.)
 

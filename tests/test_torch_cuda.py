@@ -1066,15 +1066,11 @@ def test_two_async_batches_in_flight(cuda):
     torch.cuda.synchronize()
 
 
-def test_many_short_mono_streams_on_the_card(cuda, monkeypatch):
+@functools.lru_cache(maxsize=1)
+def _speech_streams():
     """256 mono 16 kHz 16-bit streams of 0.3-1.2 s (block 4096, LPC order
-    8, partition orders 0-5), each ending in a short last frame, as
-    speech corpora ship their utterances: through the default route (its
-    calibration on this batch, whichever path it keeps) and through the
-    segmented path (one mono group, no stream on the host walk), both
-    equal to the scalar decoder and the stored MD5s."""
-    import claxon_tpu_torch as ct
-    from claxon_tpu_torch import pipeline as tp
+    8, partition orders 0-5), each ending in a short last frame, and their
+    sample counts."""
     from claxon_tpu_torch.testing import encode_flac, synth_music
 
     lens = [int(round(s * 16000)) for s in np.linspace(0.3, 1.2, 256)]
@@ -1084,6 +1080,20 @@ def test_many_short_mono_streams_on_the_card(cuda, monkeypatch):
                          16000, 16, block_size=4096, max_lpc_order=8,
                          partition_order=k % 6)
              for k, n in enumerate(lens)]
+    return tuple(datas), tuple(lens)
+
+
+def test_many_short_mono_streams_on_the_card(cuda, monkeypatch):
+    """256 mono 16 kHz 16-bit streams of 0.3-1.2 s (block 4096, LPC order
+    8, partition orders 0-5), each ending in a short last frame, as
+    speech corpora ship their utterances: through the default route (its
+    calibration on this batch, whichever path it keeps) and through the
+    segmented path (one mono group, no stream on the host walk), both
+    equal to the scalar decoder and the stored MD5s."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import pipeline as tp
+
+    datas, lens = _speech_streams()
     monkeypatch.delenv("CLAXON_TPU_SEGMENTATION", raising=False)
     monkeypatch.setattr(tp, "_SEG_AUTO", {})
     dd = ct.decode_streams_device(datas, device=cuda)
@@ -1098,6 +1108,44 @@ def test_many_short_mono_streams_on_the_card(cuda, monkeypatch):
     got = dd.sync().to_host()
     _assert_scalar_and_md5(datas, got)
     assert all(g.frame_sizes[-1] == n % 4096 for g, n in zip(got, lens))
+    torch.cuda.synchronize()
+
+
+def test_speech_batch_shares_one_pcm_allocation_on_the_card(cuda,
+                                                           monkeypatch):
+    """The 256 short mono streams through the default route, given the
+    segmented path that its calibration keeps in the benchmark's speech
+    cell: one PCM allocation for the batch's one group, zero until
+    ``to_host()``; ``sync()`` gives the CRC verdict and ``to_host()`` is
+    bit-exact. With one stream's last CRC-16 byte damaged, ``sync()``
+    raises the frame CRC mismatch, and ``to_host()`` again after it."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch.error import FormatError
+
+    datas, lens = _speech_streams()
+    datas = list(datas)
+    monkeypatch.delenv("CLAXON_TPU_SEGMENTATION", raising=False)
+    monkeypatch.setitem(tp._SEG_AUTO, "cuda", {"choice": "device",
+                                               "seconds": None})
+    dd = ct.decode_streams_device(datas, device=cuda)
+    assert dd.segmented and dd.fallback_streams == []
+    counters = dd.trace.counters
+    assert counters["seg_streams"] == 256
+    assert counters["seg_pcm_allocs"] == 1
+    assert counters["seg_pcm_bytes"] == 4 * sum(lens)
+    assert not any(r.pcm.any() for r in dd.results)
+    _assert_scalar_and_md5(datas, dd.sync().to_host())
+    bad = bytearray(datas[100])
+    bad[-1] ^= 0xFF  # a CRC-16 byte of the last frame
+    datas[100] = bytes(bad)
+    dd = ct.decode_streams_device(datas, device=cuda)
+    assert dd.segmented and dd.fallback_streams == []
+    assert dd.trace.counters["seg_pcm_allocs"] == 1
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.sync()
+    with pytest.raises(FormatError, match="frame CRC mismatch"):
+        dd.to_host()
     torch.cuda.synchronize()
 
 

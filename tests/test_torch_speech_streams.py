@@ -6,11 +6,17 @@ to the JAX package's scalar decoder and to the benchmark's plain
 reference (``flacbench/reference/flac.py``) with tolerance 0; the batch's
 counters ``seg_streams``, ``seg_frames`` and ``seg_fallback_streams`` and
 its span ``claxon.seg.results`` are checked, and a batch of mono and
-stereo streams makes one group of each.
+stereo streams makes one group of each. Each group's chained streams
+share one zero-filled PCM allocation (``pipeline.zeroed_pcm``), one
+disjoint view a stream; the counters ``seg_pcm_allocs`` and
+``seg_pcm_bytes`` count them.
 
 The segmented path's plain forms step through every sample position of
 a 4096-sample block, so the speech batch is decoded once for the file.
 """
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -136,18 +142,45 @@ def test_results_span_lies_inside_plan_dispatch(segmented):
         (plan[2] - plan[1]) / 1e9
 
 
-def test_mono_and_stereo_make_two_groups():
+MIXED_LENS = [1500, 2600, 3100, 4500]
+
+
+def _short_stream(n, channels, seed, partition_order):
+    return encode_flac(synth_music(n, channels=channels, bps=16, seed=seed,
+                                   sample_rate=RATE),
+                       RATE, 16, block_size=1024,
+                       partition_order=partition_order)
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """Four mono and four stereo 16 kHz streams in turn (block 1024, short
+    last frames)."""
+    return [_short_stream(n, ch, 40 + i, i + 1)
+            for i, n in enumerate(MIXED_LENS) for ch in (1, 2)]
+
+
+@pytest.fixture(scope="module")
+def mixed_segmented(mixed):
+    """The mixed batch through ``segmentation="device"``, not fetched."""
+    tseg._REJECT_CACHE.clear()
+    return ct.decode_streams_device(mixed, segmentation="device",
+                                    device="cpu")
+
+
+def _assert_scalar_and_jax(datas, results):
+    for data, g in zip(datas, results):
+        assert np.array_equal(g.pcm, native.decode_stream_scalar(data)[1])
+        assert np.array_equal(g.pcm,
+                              jax_native.decode_stream_scalar(data)[1])
+
+
+def test_mono_and_stereo_make_two_groups(mixed):
     """Four mono and four stereo 16 kHz streams (block 1024, short last
     frames): one group of each channel count, and the batch's counters
     are the sums over both."""
-    lens = [1500, 2600, 3100, 4500]
-    datas = []
-    for i, n in enumerate(lens):
-        for ch in (1, 2):
-            datas.append(encode_flac(
-                synth_music(n, channels=ch, bps=16, seed=40 + i,
-                            sample_rate=RATE),
-                RATE, 16, block_size=1024, partition_order=i + 1))
+    lens = MIXED_LENS
+    datas = mixed
     pend = tseg.begin_segmented(datas, device="cpu")
     groups = {nch: list(g) for _T, nch, g, *_rest in pend.groups}
     assert sorted(groups) == [1, 2]
@@ -161,3 +194,82 @@ def test_mono_and_stereo_make_two_groups():
     assert [s[0] for s in dd.trace.spans].count("claxon.seg.results") == 2
     for data, g in zip(datas, dd.to_host()):
         assert np.array_equal(g.pcm, jax_native.decode_stream_scalar(data)[1])
+
+
+def test_chained_pcm_is_zeroed_disjoint_views_until_to_host(mixed,
+                                                             mixed_segmented):
+    """Before ``to_host()`` every chained stream's PCM is a zero int32
+    C-contiguous (samples, channels) array of the scalar decoder's shape,
+    sharing memory with no other stream's; ``to_host()`` fills those
+    arrays, bit-exact."""
+    dd = mixed_segmented
+    assert dd.fallback_streams == []
+    pcms = [r.pcm for r in dd.results]
+    for data, pcm in zip(mixed, pcms):
+        want = native.decode_stream_scalar(data)[1]
+        assert type(pcm) is np.ndarray and pcm.dtype == np.int32
+        assert pcm.flags.c_contiguous and pcm.shape == want.shape
+        assert not pcm.any()
+    for i, a in enumerate(pcms):
+        for b in pcms[i + 1:]:
+            assert not np.shares_memory(a, b)
+    got = dd.to_host()
+    assert all(g.pcm is pcm for g, pcm in zip(got, pcms))
+    _assert_scalar_and_jax(mixed, got)
+
+
+@pytest.mark.parametrize("batch", ["speech", "mixed"])
+def test_pcm_allocation_counters(batch, speech, segmented, mixed,
+                                 mixed_segmented):
+    """``seg_pcm_allocs`` is the number of groups that chained a stream
+    and ``seg_pcm_bytes`` the sum of samples x channels x 4."""
+    if batch == "speech":
+        datas, dd, groups = speech[0], segmented, 1
+    else:
+        datas, dd, groups = mixed, mixed_segmented, 2
+    shapes = [native.decode_stream_scalar(d)[1].shape for d in datas]
+    counters = dd.trace.counters
+    assert counters["seg_pcm_allocs"] == groups
+    assert counters["seg_pcm_bytes"] == sum(4 * n * ch for n, ch in shapes)
+
+
+def test_kept_stream_outlives_its_batch(mixed):
+    """A stream's PCM kept alone, its batch and the other results dropped
+    and unrelated arrays allocated and filled, still holds its samples:
+    the view keeps its group's allocation alive."""
+    dd = ct.decode_streams_device(mixed, segmentation="device", device="cpu")
+    gone = weakref.ref(dd)
+    kept = dd.to_host()[5].pcm  # the third stream of the stereo group
+    del dd
+    gc.collect()
+    assert gone() is None
+    sizes = [len(native.decode_stream_scalar(d)[1]) * 2 for d in mixed]
+    junk = [np.full(n, -0x5A5A5A5B, np.int32) for n in sizes * 4]
+    assert np.array_equal(kept, native.decode_stream_scalar(mixed[5])[1])
+    assert all((j == -0x5A5A5A5B).all() for j in junk)
+
+
+def test_host_walked_stream_keeps_its_own_pcm():
+    """A three-channel stream leaves for the host walk before the demux:
+    the batch merges as before, that stream's PCM is an array of its own,
+    the chained streams share their groups' allocations, and every stream
+    is bit-exact with the host walk's frame times and sizes."""
+    datas = [_short_stream(1500, 1, 60, 2), _short_stream(1200, 3, 61, 1),
+             _short_stream(2600, 2, 62, 3), _short_stream(3100, 1, 63, 4)]
+    dd = ct.decode_streams_device(datas, segmentation="device", device="cpu")
+    assert dd.segmented and dd.fallback_streams == [1]
+    counters = dd.trace.counters
+    assert counters["seg_pcm_allocs"] == 2
+    assert counters["seg_pcm_bytes"] == 4 * (1500 + 2600 * 2 + 3100)
+    pcms = [r.pcm for r in dd.results]
+    assert pcms[1].shape == (1200, 3) and pcms[1].flags.owndata
+    assert not any(np.shares_memory(pcms[1], p)
+                   for i, p in enumerate(pcms) if i != 1)
+    got = dd.to_host()
+    want = ct.decode_streams_device(datas, segmentation="host",
+                                    device="cpu").to_host()
+    for g, w in zip(got, want):
+        assert np.array_equal(g.pcm, w.pcm)
+        assert g.frame_times == w.frame_times
+        assert g.frame_sizes == w.frame_sizes
+    _assert_scalar_and_jax(datas, got)

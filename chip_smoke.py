@@ -27,54 +27,43 @@ Phases, each of which raises on failure (so the script exits non-zero):
       its CPU result) and the mb unpack timed alone there; K1 + K3 on the
       fallback-frame buckets of a corpus whose frames the device decoder
       cannot take (an int16 and an int32 upload); K4 against its plain
-      form, the host's crc16 and, when build/k4_parent/crc.cu holds the
-      parent's source, the parent kernel (timed parent, new, new, parent)
-      on the headline and mixed ranges and on edge inputs (one range over
-      the whole upload, 100,000 ranges of 0-3 bytes at every byte
-      offset, ranges straddling every step and item boundary, clamped
-      garbage), with the ptxas report of crc.cu and synth.cu; K2, with
+      form and the host's crc16, timed, on the headline and mixed ranges
+      and on edge inputs (one range over the whole upload, 100,000 ranges
+      of 0-3 bytes at every byte offset, ranges straddling every step and
+      item boundary, clamped garbage), with the ptxas report of crc.cu
+      and synth.cu; K2, with
       the ptxas report of entropy.cu, on every headline, mixed and
-      generated bucket and, when build/k2_parent/entropy.cu holds the
-      parent's source, beside the parent kernel (timed parent, new, new,
-      parent) at each headline and mixed bucket; then the fused front
-      (K6 bswap, K5 sync scan and header check, K6 fields and compaction
-      in two kernels and one pass over the upload, with the ptxas report
-      of seg_parse.cu), timed
-      against the parent's seven operations in the same call (parent,
-      new, new, parent), those pieces themselves (K6 bswap, K5, K6
-      fields and compaction), K6's summary, K7 subframe walk and K8
-      values gather on every group the segmented path builds for the
-      headline and mixed corpora, and on every K8 dispatch of those
-      decodes (K1 + K3 there too), and K4 on the segmented groups' ranges
-      (beside its parent); the fused front also on every group of the
-      segmented decodes of the fallback corpus, of one headline stream
+      generated bucket, timed at each headline and mixed bucket; then the
+      fused front (K6 bswap, K5 sync scan and header check, K6 fields and
+      compaction in two kernels and one pass over the upload, with the
+      ptxas report of seg_parse.cu), timed, K5's own launches
+      (segment.find_frame_headers, the JAX package's public function),
+      K6's summary, K7 subframe walk and K8 values gather on every group
+      the segmented path builds for the headline and mixed corpora, and
+      on every K8 dispatch of those decodes (K1 + K3 there too), and K4 on
+      the segmented groups' ranges; the fused front also on every group of
+      the segmented decodes of the fallback corpus, of one headline stream
       whose capacity classes are forced to 8 (the demux regrows), and of
       the generated and mixed corpora in (c);
-      at each of those groups K7's time beside its parent kernel's (when
-      build/k7_parent/demux.cu holds the parent's source), its bound and
-      cycles per step, with the ptxas report of both sources, and on the
-      mixed groups K7 writing its deltas against the plain walk (the
+      at each of those groups K7's time, its bound and cycles per step,
+      with the ptxas report of demux.cu, and on the mixed groups K7
+      writing its deltas against the plain walk (the
       values-only K7 equal to it), timed at the headline group; then the
-      entropy routes' kernels, with the ptxas report of entropy_delta.cu
-      and of its parent, entropy_delta_parent.cu: K9 on every bucket the
-      delta planner builds for the headline and mixed corpora, K10 and K2
-      on every dispatch of their segmented delta and scan decodes, each
-      timed with its byte bound, K9 and K10 also against their parent
-      kernels (equal outputs; timed parent, new, new, parent); then the three
-      device functions that no decode route calls, with the ptxas report
-      of rice.cu and crc_lanes.cu and of their parents, rice_parent.cu
-      and crc_lanes_parent.cu: rice_decode, crc16_device and
+      entropy routes' kernels, with the ptxas report of entropy_delta.cu:
+      K9 on every bucket the delta planner builds for the headline and
+      mixed corpora, K10 and K2 on every dispatch of their segmented
+      delta and scan decodes, each timed with its byte bound; then the
+      three device functions that no decode route calls, with the ptxas
+      report of rice.cu and crc_lanes.cu: rice_decode, crc16_device and
       crc16_frames_device against their plain forms on the CPU tests'
-      garbage and edge cases (rice_decode and crc16_frames_device also
-      against their parent kernels) and at the headline x4 shapes
-      (rice_decode over the main bucket's L x P partitions of T / P codes,
+      garbage and edge cases and at the headline x4 shapes (rice_decode
+      over the main bucket's L x P partitions of T / P codes,
       held to the values that made its buffer too; crc16_device on the
       (F, B) byte matrix of the headline frames and crc16_frames_device on
       the headline upload with the host walk's ranges, every frame 0 and
-      equal to K4), each timed with its byte bound, rice_decode and
-      crc16_frames_device beside their parents (equal outputs; timed
-      parent, new, new, parent; rice_decode's first 32 lanes alone too);
-      every decode run below must launch them 0 times;
+      equal to K4), each timed with its byte bound (rice_decode's first
+      32 lanes alone too); every decode run below must launch them 0
+      times;
   (c) the default route: with CLAXON_TPU_SEGMENTATION unset and the
       cached choice reset, decode_streams_device(datas) calibrates
       ("auto") on the mixed corpus, then on headline x4, printing the
@@ -102,8 +91,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
       lane_plans() must launch no K3b kernel; the segmented headline
       decode must not fall back, and the mixed 24-bit and generated
       6-channel streams must; on every default-route run K9 and K10
-      launch 0 times and K7 writes no deltas, and on every run the
-      parent front's wrappers (K6 bswap, K5, K6 fields) launch 0 times. Then the JAX package's
+      launch 0 times and K7 writes no deltas, and on every run K5's own
+      launches (segment.find_frame_headers) count 0. Then the JAX package's
       other entropy routes, each variable set only around its calls:
       CLAXON_TPU_ENTROPY=delta (K9, no K2 or K4), CLAXON_TPU_SEG_ENTROPY=
       delta (K7 with deltas, K10, no K8) and =scan (K2 on the walk's
@@ -123,9 +112,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
   (f) decode one stream of at least 2^27 bytes (8 channels of 24-bit
       audio, FIXED subframes) on both paths: it walks in chunks of frames
       below the int32 limit, bit-exact against the scalar decoder and the
-      STREAMINFO MD5; K4 against its plain form (and parent) on the
-      frame ranges of each run, K2 on each bucket of each run (and its
-      parent); the fused front against its plain form on the stream's
+      STREAMINFO MD5; K4 against its plain form on the frame ranges of
+      each run, K2 on each bucket of each run; the fused front against
+      its plain form on the stream's
       whole upload, and K7 on its distinct frames, each as one 8-channel
       group;
   (g) mux each of the 8 headline streams, and the mixed 24-bit stream
@@ -189,8 +178,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
       the scalar decoder's and the MD5.
 
 The last three lines are the kernels' JSON summary (time, plain time,
-bound and launches of each on each path, K9 and K10 on their routes and
-beside their parent kernels, K2 also on the scan route; the routes'
+bound and launches of each on each path, K9 and K10 on their routes,
+K2 also on the scan route; the routes'
 device-resident times; K1 + K3 also on (h2)'s bucket, and each kernel's
 launches there, "launches_framedesc", with (h)'s numbers under
 "framedesc"; the two-shard headline decodes' launches,
@@ -253,19 +242,6 @@ LARGE_SOURCE_FRAMES = 31  # distinct frames, repeated with new numbers
 #: the kernels' integer multiply-adds.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-#: K7's parent design, timed beside the new one on the same inputs when its
-#: source is here (a build directory, never committed): made with
-#: ``mkdir -p build/k7_parent && git show <parent commit>:claxon_tpu_torch/
-#: csrc/demux.cu > build/k7_parent/demux.cu``.
-K7_PARENT_SRC = REPO / "build" / "k7_parent" / "demux.cu"
-#: K4's parent design (one thread per range), the same way: ``mkdir -p
-#: build/k4_parent && git show <parent commit>:claxon_tpu_torch/csrc/
-#: crc.cu > build/k4_parent/crc.cu``.
-K4_PARENT_SRC = REPO / "build" / "k4_parent" / "crc.cu"
-#: K2's parent kernel source, built beside the new one when present:
-#: ``mkdir -p build/k2_parent && git show <parent commit>:claxon_tpu_torch/
-#: csrc/entropy.cu > build/k2_parent/entropy.cu``.
-K2_PARENT_SRC = REPO / "build" / "k2_parent" / "entropy.cu"
 
 
 def log(msg):
@@ -430,76 +406,36 @@ def compare_fused(tag, args, separate):
     return r
 
 
-def k4_report(tag, stream, starts, ends, r4, parent):
-    """K4 on one set of ranges: its time beside the parent kernel's on the
-    same inputs (outputs equal), in the order parent, new, new, parent,
-    and its byte bound. Returns a dict of the numbers."""
-    import torch
-
-    from claxon_tpu_torch.ops import crc
-
-    def new():
-        return crc.crc16_ranges(stream, starts, ends)
-
+def k4_report(tag, stream, starts, ends, r4):
+    """K4 on one set of ranges: its time and its byte bound. Returns a
+    dict of the numbers."""
     nb = bound(tensor_bytes(stream, starts, ends, starts))
-    rep = {"ms": r4[1], "plain_ms": r4[2], "bound_ms": nb[0],
-           "parent_ms": None}
-    old_s = "not built (no parent source)"
-    if parent is not None:
-        if not torch.equal(parent(stream, starts, ends), new()):
-            raise AssertionError(f"K4 {tag}: parent != new kernel")
-        runs = [cuda_ms(lambda: parent(stream, starts, ends), 10),
-                cuda_ms(new, 20), cuda_ms(new, 20),
-                cuda_ms(lambda: parent(stream, starts, ends), 10)]
-        rep.update(parent_ms=(runs[0] + runs[3]) / 2,
-                   ms=(runs[1] + runs[2]) / 2, runs=runs)
-        old_s = (f"{rep['parent_ms']:.4f} ms (runs parent, new, new, "
-                 f"parent: {', '.join(f'{t:.4f}' for t in runs)}), outputs "
-                 "equal")
-    log(f"(b) K4 {tag}: new {rep['ms']:.4f} ms; parent {old_s}; bound "
-        f"{nb[0]:.4f} ms ({nb[1]})")
+    rep = {"ms": r4[1], "plain_ms": r4[2], "bound_ms": nb[0]}
+    log(f"(b) K4 {tag}: {rep['ms']:.4f} ms; bound {nb[0]:.4f} ms "
+        f"({nb[1]})")
     return rep
 
 
-def k2_report(tag, args, kw, r2, parent):
-    """K2 on one bucket's inputs: its time beside the parent kernel's on
-    the same inputs (outputs equal), in the order parent, new, new,
-    parent, and its byte bound. Returns a dict of the numbers."""
-    import torch
-
+def k2_report(tag, args, kw, r2):
+    """K2 on one bucket's inputs: its time and its byte bound. Returns a
+    dict of the numbers."""
     from claxon_tpu_torch.ops import entropy
 
-    def new():
-        return entropy.decode_residual_bits_stream(*args, **kw)
-
-    nb = bound(tensor_bytes(args, new()))
-    rep = {"ms": r2[1], "plain_ms": r2[2], "bound_ms": nb[0],
-           "parent_ms": None}
-    old_s = "not built (no parent source)"
-    if parent is not None:
-        if not torch.equal(parent(*args, **kw), new()):
-            raise AssertionError(f"K2 {tag}: parent != new kernel")
-        runs = [cuda_ms(lambda: parent(*args, **kw), 10),
-                cuda_ms(new, 20), cuda_ms(new, 20),
-                cuda_ms(lambda: parent(*args, **kw), 10)]
-        rep.update(parent_ms=(runs[0] + runs[3]) / 2,
-                   ms=(runs[1] + runs[2]) / 2, runs=runs)
-        old_s = (f"{rep['parent_ms']:.4f} ms (runs parent, new, new, "
-                 f"parent: {', '.join(f'{t:.4f}' for t in runs)}), outputs "
-                 "equal")
-    log(f"(b) K2 {tag}: new {rep['ms']:.4f} ms; parent {old_s}; bound "
-        f"{nb[0]:.4f} ms ({nb[1]})")
+    nb = bound(tensor_bytes(args, entropy.decode_residual_bits_stream(
+        *args, **kw)))
+    rep = {"ms": r2[1], "plain_ms": r2[2], "bound_ms": nb[0]}
+    log(f"(b) K2 {tag}: {rep['ms']:.4f} ms; bound {nb[0]:.4f} ms "
+        f"({nb[1]})")
     return dict(rep, bucket=tag)
 
 
-def phase_b_crc(stream, parent):
+def phase_b_crc(stream):
     """K4's edge inputs on the headline upload ``stream`` (W words): one
     range over the whole upload (held to the host's crc16, which is exact,
     since the plain form steps one byte at a time), 100,000 ranges of 0-3
     bytes at every byte offset, ranges straddling every 512-byte step and
     4096-byte item boundary and of lengths around those sizes, and
-    clamped garbage (held to the plain form); every case also to the
-    parent kernel when it is built."""
+    clamped garbage (held to the plain form)."""
     import numpy as np
     import torch
 
@@ -542,10 +478,6 @@ def phase_b_crc(stream, parent):
             compare(f"K4 {label}", lambda: crc.crc16_ranges(stream, st, en),
                     lambda: crc.crc16_ranges_plain(stream, st, en), 1)
             ref = "the plain form"
-        if parent is not None:
-            if not torch.equal(parent(stream, st, en), got):
-                raise AssertionError(f"K4 {label}: parent != new kernel")
-            ref += " and the parent kernel"
         log(f"(b) K4 {label} (F={st.shape[0]}, W={stream.shape[0]}): == "
             f"{ref}")
 
@@ -569,8 +501,6 @@ def phase_b(datas4, mixed, generated):
         return o.to(torch.int16).view(torch.int32)
 
     rows, bounds, library = {}, {}, {}
-    parent = k4_parent_crc()
-    k2_parent = k2_parent_entropy()
     log("(b) K2 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
                                  "entropy.cu"))
     log("(b) K4 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
@@ -603,7 +533,7 @@ def phase_b(datas4, mixed, generated):
                 f"({r2[1]:.3f} ms vs {r2[2]:.1f} ms), K1 == plain "
                 f"({r1[1]:.3f} ms vs {r1[2]:.1f} ms)")
             rows.setdefault("K2_buckets", []).append(k2_report(
-                f"{label}[{bi}] {shape}", k2_args, kw, r2, k2_parent))
+                f"{label}[{bi}] {shape}", k2_args, kw, r2))
             # K1 + K3 fused against K1 then K3's torch ops, then K3b on
             # its output: the bucket as start_fetch() packs it, and the
             # packed words unpacked (a fallback bucket's upload at this
@@ -765,7 +695,7 @@ def phase_b(datas4, mixed, generated):
         log(f"(b) {label} K4 F={starts.shape[0]}: == plain == host crc16 "
             f"({r4[1]:.3f} ms vs {r4[2]:.1f} ms)")
         rep = k4_report(f"{label} F={starts.shape[0]} W={stream.shape[0]}",
-                        stream, starts, ends, r4, parent)
+                        stream, starts, ends, r4)
         if label == "headline":
             rows["paced"]["K4"] = cuda_ms(
                 lambda: crc.crc16_ranges(stream, starts, ends), 20,
@@ -773,11 +703,10 @@ def phase_b(datas4, mixed, generated):
             log(f"(b) headline K4 paced by the host: "
                 f"{rows['paced']['K4']:.4f} ms")
             rows["K4"] = (r4[0], rep["ms"], r4[2])
-            rows["K4_parent"] = rep
             # Output: one int32 per range, the size of starts.
             bounds["K4"] = bound(tensor_bytes(stream, starts, ends, starts))
             k4_shape = f"F={starts.shape[0]}"
-            phase_b_crc(stream, parent)
+            phase_b_crc(stream)
 
     # K2 on every bucket of the generated corpus (edge-case files).
     bp = plan_raw_bits(extract_streams_bits(generated, native), 128)
@@ -945,47 +874,23 @@ def phase_b_pack16():
 def front_report(tag, args):
     """The fused front (bswap, K5, fields and compaction in two kernels,
     ``seg_parse.demux_front``) on one group's arguments: equal to its plain
-    form and to the parent's seven operations (the bswap kernel, K5's
-    three launches and torch.cumsum, the fields and compaction kernels) on
-    every output, timed in the order parent, new, new, parent, with its
-    byte bound. Returns a dict of the numbers."""
-    import torch
-
-    from claxon_tpu_torch.ops import seg_parse, segment
+    form on every output, timed, with its byte bound. Returns a dict of
+    the numbers and the kernel's outputs."""
+    from claxon_tpu_torch.ops import seg_parse
 
     words_le, n_bytes, ends, si_bps, T, nch, cap, wcap = args
-
-    def new():
-        return seg_parse.demux_front(*args)
-
-    def parent():
-        stream = seg_parse.bswap_words(words_le)
-        pos, valid, count, win = segment.find_frame_headers(stream, n_bytes,
-                                                            cap)
-        return (stream, pos, valid, count, win) + seg_parse.parse_candidates(
-            pos, valid, win, count, ends, si_bps, T, nch, wcap)
-
-    r = compare(f"front {tag}", new,
+    r = compare(f"front {tag}", lambda: seg_parse.demux_front(*args),
                 lambda: seg_parse.demux_front_plain(*args))
-    if not all(torch.equal(a, b) for a, b in zip(flat_tensors(parent()),
-                                                 flat_tensors(new()))):
-        raise AssertionError(f"front {tag}: parent != new kernel")
-    runs = [cuda_ms(parent, 10), cuda_ms(new, 20), cuda_ms(new, 20),
-            cuda_ms(parent, 10)]
-    out = new()
+    out = seg_parse.demux_front(*args)
     nbytes = tensor_bytes(words_le, ends, si_bps, out[:3], out[4:])
     nb = bound(nbytes)
-    rep = {"group": tag, "max_abs_err": r[0], "ms": (runs[1] + runs[2]) / 2,
-           "plain_ms": r[2], "parent_ms": (runs[0] + runs[3]) / 2,
-           "runs": runs, "bound_ms": nb[0], "bound_by": nb[1],
-           "bytes": nbytes, "sync_hits": int(out[3]), "walkable": int(out[8][1])}
-    log(f"(b) front {tag}: == plain and == the parent's seven operations, "
-        f"every output; new {rep['ms']:.4f} ms, parent "
-        f"{rep['parent_ms']:.4f} ms (runs parent, new, new, parent: "
-        f"{', '.join(f'{t:.4f}' for t in runs)}); bound {nb[0]:.4f} ms "
-        f"({nb[1]}); {rep['sync_hits']} sync hits, {rep['walkable']} "
-        "walkable")
-    return rep
+    rep = {"group": tag, "max_abs_err": r[0], "ms": r[1], "plain_ms": r[2],
+           "bound_ms": nb[0], "bound_by": nb[1], "bytes": nbytes,
+           "sync_hits": int(out[3]), "walkable": int(out[8][1])}
+    log(f"(b) front {tag}: == plain, every output; {rep['ms']:.4f} ms; "
+        f"bound {nb[0]:.4f} ms ({nb[1]}); {rep['sync_hits']} sync hits, "
+        f"{rep['walkable']} walkable")
+    return rep, out
 
 
 def front_checked(label, fn):
@@ -1022,9 +927,8 @@ def front_checked(label, fn):
 
 def phase_b_seg(datas4, mixed):
     """K5-K8 against their plain forms on the segmented path's own
-    inputs: every group of the headline and mixed decodes (the fused front
-    also against the parent's seven operations), and every K8
-    dispatch."""
+    inputs: every group of the headline and mixed decodes (K5's own
+    launches too, on the front's stream), and every K8 dispatch."""
     import torch
 
     from claxon_tpu_torch import pipeline_bits, pipeline_seg
@@ -1032,8 +936,6 @@ def phase_b_seg(datas4, mixed):
                                       seg_gather, seg_parse, segment)
 
     rows, bounds = {}, {}
-    parent = k7_parent_walk()
-    k4_parent = k4_parent_crc()
     log("(b) K7 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
                                  "demux.cu"))
     log("(b) K5 + K6 " + ptxas_report(REPO / "claxon_tpu_torch" / "csrc" /
@@ -1081,11 +983,9 @@ def phase_b_seg(datas4, mixed):
                 f"F={starts.shape[0]} W={stream.shape[0]}: == plain "
                 f"({r4[1]:.3f} ms vs {r4[2]:.1f} ms)")
             rep = k4_report(f"segmented {label}[{gi}] F={starts.shape[0]} "
-                            f"W={stream.shape[0]}", stream, starts, ends, r4,
-                            k4_parent)
+                            f"W={stream.shape[0]}", stream, starts, ends, r4)
             if label == "headline" and gi == 0:
                 rows["K4_seg"] = (r4[0], rep["ms"], r4[2])
-                rows["K4_seg_parent"] = rep
                 bounds["K4_seg"] = bound(tensor_bytes(stream, starts, ends,
                                                       starts))
         for gi, group in enumerate(pending.groups):
@@ -1095,27 +995,16 @@ def phase_b_seg(datas4, mixed):
             shape = (f"W={words_le.shape[0]} cap={cap} wcap={wcap} T={T} "
                      f"nch={nch}")
             tag = f"{label}[{gi}] {shape}"
-            r6a = compare(f"K6 bswap {tag}",
-                               lambda: seg_parse.bswap_words(words_le),
-                               lambda: seg_parse.bswap_words_plain(words_le))
-            stream = seg_parse.bswap_words(words_le)
+            front, out = front_report(tag, (words_le, n_bytes, ends, si_bps,
+                                            T, nch, cap, wcap))
+            rows.setdefault("front_groups", []).append(front)
+            stream, pos, _valid, count, _win, fields, lane_of, walk_in, \
+                counts = out
             r5 = compare(
                 f"K5 {tag}",
                 lambda: segment.find_frame_headers(stream, n_bytes, cap),
                 lambda: segment.find_frame_headers_plain(stream, n_bytes,
                                                          cap))
-            pos, valid, count, win = segment.find_frame_headers(
-                stream, n_bytes, cap)
-            pargs = (pos, valid, win, count, ends, si_bps, T, nch, wcap)
-            r6b = compare(
-                f"K6 fields {tag}",
-                lambda: seg_parse.parse_candidates(*pargs),
-                lambda: seg_parse.parse_candidates_plain(*pargs))
-            fields, lane_of, walk_in, counts = \
-                seg_parse.parse_candidates(*pargs)
-            front = front_report(tag, (words_le, n_bytes, ends, si_bps, T,
-                                       nch, cap, wcap))
-            rows.setdefault("front_groups", []).append(front)
             if label == "mixed":
                 # The delta-writing K7 (the segmented delta route's) against
                 # the plain walk, every output; the values-only K7 equal to
@@ -1149,7 +1038,7 @@ def phase_b_seg(datas4, mixed):
             if clock is None:
                 clock = sm_clock_under(
                     lambda: demux.walk_frames(stream, *walk_in, T, nch))
-            k7 = k7_report(tag, stream, walk_in, T, nch, r7, parent, clock)
+            k7 = k7_report(tag, stream, walk_in, T, nch, r7, clock)
             rows.setdefault("K7_groups", []).append(dict(k7, group=tag))
             sargs = (pos, fields, lane_of, end_bits, ok, walk["n_parts"],
                      walk["sa_words"], nch)
@@ -1159,16 +1048,13 @@ def phase_b_seg(datas4, mixed):
                 lambda: seg_parse.pack_summary_plain(*sargs))
             n_walk = int(counts[1])
             values_mb = walk["values"].numel() * 4 / 1e6
-            r6 = (max(r6a[0], r6b[0], r6c[0]), r6a[1] + r6b[1] + r6c[1],
-                  r6a[2] + r6b[2] + r6c[2])
             log(f"(b) {tag}: {int(count)} sync hits, {n_walk} walked "
                 f"frames, {values_mb:.0f} MB of walk values; front == "
                 f"plain ({front['ms']:.3f} ms vs {front['plain_ms']:.1f} "
                 f"ms), summary == plain ({r6c[1]:.3f} ms vs {r6c[2]:.1f} "
                 f"ms), K7 == plain ({r7[1]:.3f} ms vs {r7[2]:.1f} ms); "
-                f"the parent's pieces == plain: K5 ({r5[1]:.3f} ms vs "
-                f"{r5[2]:.1f} ms), K6 bswap {r6a[1]:.3f}, fields "
-                f"{r6b[1]:.3f}")
+                f"K5's own launches == plain ({r5[1]:.3f} ms vs "
+                f"{r5[2]:.1f} ms)")
             if label == "headline" and gi == 0:
                 rows["seg_W"] = stream.shape[0]
                 # K5's row is the fused front; K6's, the front and the
@@ -1178,10 +1064,7 @@ def phase_b_seg(datas4, mixed):
                             K6=(max(front["max_abs_err"], r6c[0]),
                                 front["ms"] + r6c[1],
                                 front["plain_ms"] + r6c[2]),
-                            K6_summary=r6c, K7=r7,
-                            K5_K6_parent=(max(r5[0], r6a[0], r6b[0]),
-                                          r5[1] + r6a[1] + r6b[1],
-                                          r5[2] + r6a[2] + r6b[2]))
+                            K6_summary=r6c, K7=r7, K5_alone=r5)
                 rows["K7_deltas_ms"] = cuda_ms(lambda: demux.walk_frames(
                     stream, *walk_in, T, nch, True), 20)
                 log(f"(b) K7 with deltas {tag}: "
@@ -1276,41 +1159,21 @@ def phase_b_routes(datas4, mixed):
     rows, bounds = {}, {}
     csrc = REPO / "claxon_tpu_torch" / "csrc"
     log("(b) K9, K10 " + ptxas_report(csrc / "entropy_delta.cu"))
-    log("(b) K9, K10 parent " + ptxas_report(csrc / "entropy_delta_parent.cu"))
-    parents = entropy.parent_kernels()
 
     def report(key, tag, kernel, plain, args, kw, main):
-        def new():
-            return kernel(*args, **kw)
-
-        r = compare(f"{key} {tag}", new, lambda: plain(*args, **kw))
-        got = new()
+        r = compare(f"{key} {tag}", lambda: kernel(*args, **kw),
+                    lambda: plain(*args, **kw))
+        got = kernel(*args, **kw)
         nb = bound(tensor_bytes(args, got))
         # chunks: L * NC, which picks the kernels' walk or sample launch.
         rep = {"bucket": tag, "chunks": got.numel() // 32, "ms": r[1],
                "plain_ms": r[2], "bound_ms": nb[0]}
-        old_s = ""
-        if key in parents:
-            def parent():
-                return parents[key](*args, **kw)
-
-            if not torch.equal(parent(), got):
-                raise AssertionError(f"{key} {tag}: parent != new kernel")
-            runs = [cuda_ms(parent, 20), cuda_ms(new, 20), cuda_ms(new, 20),
-                    cuda_ms(parent, 20)]
-            rep.update(ms=(runs[1] + runs[2]) / 2,
-                       parent_ms=(runs[0] + runs[3]) / 2, runs=runs)
-            r = (r[0], rep["ms"], r[2])
-            old_s = (f"; parent {rep['parent_ms']:.4f} ms (runs parent, new, "
-                     f"new, parent: {', '.join(f'{t:.4f}' for t in runs)}), "
-                     "outputs equal")
-        log(f"(b) {key} {tag}: == plain ({r[1]:.4f} ms vs {r[2]:.1f} ms)"
-            f"{old_s}; bound {nb[0]:.4f} ms ({nb[1]})")
+        log(f"(b) {key} {tag}: == plain ({r[1]:.4f} ms vs {r[2]:.1f} ms); "
+            f"bound {nb[0]:.4f} ms ({nb[1]})")
         rows.setdefault(key + "_buckets", []).append(rep)
         if main:
             rows[key], bounds[key] = r, nb
             rows[key + "_shape"] = tag
-            rows[key + "_main"] = rep
 
     # K9: the host-walk delta planner's buckets, one per (T, nch, SA).
     for label, datas in (("headline", datas4), ("mixed", mixed)):
@@ -1416,11 +1279,8 @@ def phase_b_rice_crc(datas4, dims):
     held to the values that made it; crc16_device on the (F, B) byte
     matrix of the headline upload's frames, stored CRC included (every
     row 0); crc16_frames_device on that upload with the host walk's frame
-    ranges (every frame 0, and equal to K4). rice_decode and
-    crc16_frames_device are also held to their parent kernels
-    (csrc/rice_parent.cu, csrc/crc_lanes_parent.cu) on every case and
-    timed beside them, parent, new, new, parent. Returns (rows, bounds)
-    keyed by the function's name."""
+    ranges (every frame 0, and equal to K4). Returns (rows, bounds) keyed
+    by the function's name."""
     import numpy as np
     import torch
 
@@ -1432,21 +1292,11 @@ def phase_b_rice_crc(datas4, dims):
 
     csrc = REPO / "claxon_tpu_torch" / "csrc"
     log("(b) rice_decode " + ptxas_report(csrc / "rice.cu"))
-    log("(b) rice_decode parent " + ptxas_report(csrc / "rice_parent.cu"))
     log("(b) crc16_device, crc16_frames_device " +
         ptxas_report(csrc / "crc_lanes.cu"))
-    log("(b) crc16_frames_device parent " +
-        ptxas_report(csrc / "crc_lanes_parent.cu"))
-    rice_parent = rice.parent_kernel()
-    windows_parent = crc.parent_windows_kernel()
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
-
-    def same(name, got, old):
-        if not all(torch.equal(g, o) for g, o in zip(flat_tensors(got),
-                                                     flat_tensors(old))):
-            raise AssertionError(f"{name}: kernel != its parent")
 
     for call in cases.rice_calls() + cases.rice_edge_calls():
         words, sb, ks, cs, T = call["args"]
@@ -1455,8 +1305,6 @@ def phase_b_rice_crc(datas4, dims):
         name = f"rice_decode on {', '.join(call['labels'])}"
         compare(name, lambda: rice.rice_decode(*args, max_count=T),
                 lambda: rice.rice_decode_plain(*args, T), 1)
-        same(name, rice.rice_decode(*args, max_count=T),
-             rice_parent(*args, T))
     for call in cases.crc16_rows_calls():
         args = [dev(a) for a in call["args"]]
         compare(f"crc16_device on {', '.join(call['labels'])}",
@@ -1469,20 +1317,8 @@ def phase_b_rice_crc(datas4, dims):
         name = f"crc16_frames_device on {', '.join(call['labels'])}"
         compare(name, lambda: crc.crc16_frames_device(*args, n_words),
                 lambda: crc.crc16_frames_device_plain(*args, n_words), 1)
-        same(name, crc.crc16_frames_device(*args, n_words),
-             windows_parent(*args, n_words))
     log("(b) rice_decode, crc16_device and crc16_frames_device == plain on "
-        "every garbage and edge case; rice_decode and crc16_frames_device "
-        "== their parents there")
-
-    def beside_parent(name, new, old):
-        """Times new and parent on the same inputs (parent, new, new,
-        parent), their outputs equal."""
-        same(name, new(), old())
-        runs = [cuda_ms(old, 20), cuda_ms(new, 20), cuda_ms(new, 20),
-                cuda_ms(old, 20)]
-        return {"ms": (runs[1] + runs[2]) / 2,
-                "parent_ms": (runs[0] + runs[3]) / 2, "runs": runs}
+        "every garbage and edge case")
 
     rows, bounds = {}, {}
     n_parts, codes = dims["L"] * dims["P"], dims["T"] // dims["P"]
@@ -1501,35 +1337,23 @@ def phase_b_rice_crc(datas4, dims):
         raise AssertionError("rice_decode: != the values that made the "
                              "buffer")
     bounds["rice_decode"] = bound(tensor_bytes(args, out, end))
-    par = beside_parent(name, lambda: rice.rice_decode(*args,
-                                                       max_count=codes),
-                        lambda: rice_parent(*args, codes))
-    rows["rice_decode"] = (r[0], par["ms"], r[2])
+    rows["rice_decode"] = r
     # One warp alone (its 32 lanes' chains, nothing to hide them behind)
     # against the whole input: how much of the time is one lane's chain.
     one = [args[0]] + [a[:32] for a in args[1:]]
-    par_one = beside_parent(f"{name}, 32 lanes",
-                            lambda: rice.rice_decode(*one, max_count=codes),
-                            lambda: rice_parent(*one, codes))
-    rows["rice_decode_parent"] = dict(
-        par, one_warp_ms=par_one["ms"],
-        parent_one_warp_ms=par_one["parent_ms"],
-        one_warp_runs=par_one["runs"])
-    one_ms = rows["rice_decode_one_warp_ms"] = par_one["ms"]
+    one_ms = rows["rice_decode_one_warp_ms"] = cuda_ms(
+        lambda: rice.rice_decode(*one, max_count=codes), 20)
 
     def cycles(ms):
         return ms * 1e-3 * 1.98e9 / codes
 
     log(f"(b) rice_decode on {n_parts} partitions of {codes} codes (W="
-        f"{st['words'].size}, made in {gen_s:.1f} s): == plain == parent "
-        f"== the values that made the buffer; {par['ms']:.4f} ms, parent "
-        f"{par['parent_ms']:.4f} ms (runs parent, new, new, parent: "
-        f"{', '.join(f'{t:.4f}' for t in par['runs'])}); plain "
-        f"{r[2]:.1f} ms; bound {bounds['rice_decode'][0]:.4f} ms "
+        f"{st['words'].size}, made in {gen_s:.1f} s): == plain == the "
+        f"values that made the buffer; {r[1]:.4f} ms; plain {r[2]:.1f} ms; "
+        f"bound {bounds['rice_decode'][0]:.4f} ms "
         f"({bounds['rice_decode'][1]}); the first 32 lanes alone "
         f"{one_ms:.4f} ms ({cycles(one_ms):.0f} cycles per step at 1.98 "
-        f"GHz), parent {par_one['parent_ms']:.4f} ms "
-        f"({cycles(par_one['parent_ms']):.0f})")
+        f"GHz)")
     del st, out, end, args
 
     bp = plan_raw_bits(extract_streams_bits(datas4, native), 128)
@@ -1571,145 +1395,16 @@ def phase_b_rice_crc(datas4, dims):
                              "or != K4 on the same ranges")
     bounds["crc16_frames_device"] = bound(tensor_bytes(stream, starts, ends,
                                                        got))
-    par = beside_parent(
-        name, lambda: crc.crc16_frames_device(stream, starts, ends, n_words),
-        lambda: windows_parent(stream, starts, ends, n_words))
-    rows["crc16_frames_device"] = (r[0], par["ms"], r[2])
-    k4_ms = cuda_ms(lambda: crc.crc16_ranges(stream, starts, ends), 20)
-    rows["crc16_frames_device_parent"] = dict(par, k4_ms=k4_ms)
+    rows["crc16_frames_device"] = r
+    k4_ms = rows["crc16_frames_device_k4_ms"] = cuda_ms(
+        lambda: crc.crc16_ranges(stream, starts, ends), 20)
     log(f"(b) crc16_frames_device on the headline upload (W="
         f"{stream.shape[0]}, F={starts.shape[0]}, n_words={n_words}): == "
-        f"plain == parent == K4, every frame 0; {par['ms']:.4f} ms, parent "
-        f"{par['parent_ms']:.4f} ms (runs parent, new, new, parent: "
-        f"{', '.join(f'{t:.4f}' for t in par['runs'])}); K4 on the same "
+        f"plain == K4, every frame 0; {r[1]:.4f} ms; K4 on the same "
         f"ranges {k4_ms:.4f} ms; plain {r[2]:.1f} ms; bound "
         f"{bounds['crc16_frames_device'][0]:.4f} ms "
         f"({bounds['crc16_frames_device'][1]})")
     return rows, bounds
-
-
-def build_parent(label, src):
-    """The ctypes library of a parent kernel built from ``src`` with the
-    port's flags, or None when that file is absent. Its ptxas report is
-    printed."""
-    import ctypes
-
-    from claxon_tpu_torch.ops import _build
-
-    if not src.exists():
-        return None
-    so = src.with_name(f"lib{src.parent.name}.so")
-    subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o",
-                    str(so), str(src)], check=True, timeout=600,
-                   capture_output=True)
-    log(f"(b) {label} parent kernel built from {src.relative_to(REPO)}; "
-        + ptxas_report(src))
-    return ctypes.CDLL(str(so))
-
-
-@functools.lru_cache(maxsize=None)
-def k2_parent_entropy():
-    """K2's parent kernel (``K2_PARENT_SRC``), or None when that file is
-    absent; see ``k2_kernel``."""
-    return k2_kernel("K2", K2_PARENT_SRC)
-
-
-def k2_kernel(label, src):
-    """K2 built from ``src`` as a callable with decode_residual_bits_
-    stream's arguments and result; None when that file is absent."""
-    import ctypes
-
-    import torch
-
-    from claxon_tpu_torch.ops import _build
-
-    lib = build_parent(label, src)
-    if lib is None:
-        return None
-    fn = lib.cxk_entropy_stream
-    fn.argtypes = _build._SIGNATURES["cxk_entropy_stream"]
-    fn.restype = ctypes.c_int
-
-    def entropy(stream, bases, ks, ps, orders, pbits, flags, warm, lengths,
-                n_parts_max=1, sa=8):
-        L, NC = bases.shape
-        out = torch.empty((L, NC * 32), dtype=torch.int32,
-                          device=stream.device)
-        _build.check(fn(stream.data_ptr(), stream.shape[0], bases.data_ptr(),
-                        ks.data_ptr(), ks.shape[1], n_parts_max,
-                        ps.data_ptr(), orders.data_ptr(), pbits.data_ptr(),
-                        flags.data_ptr(), warm.data_ptr(), warm.shape[1],
-                        lengths.data_ptr(), out.data_ptr(), L, NC, sa,
-                        _build.stream_handle(stream.device)),
-                     f"{label} cxk_entropy_stream")
-        return out
-
-    return entropy
-
-
-@functools.lru_cache(maxsize=None)
-def k4_parent_crc():
-    """K4's parent kernel as a callable with crc16_ranges' arguments and
-    result, built from ``K4_PARENT_SRC``; None when that file is absent."""
-    import ctypes
-
-    import torch
-
-    from claxon_tpu_torch.ops import _build
-
-    lib = build_parent("K4", K4_PARENT_SRC)
-    if lib is None:
-        return None
-    fn = lib.cxk_crc16_ranges
-    P, N = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [P, N, P, P, P, N, P]
-    fn.restype = ctypes.c_int
-
-    def crc16(stream, starts, ends):
-        out = torch.empty(starts.shape, dtype=torch.int32,
-                          device=stream.device)
-        _build.check(fn(stream.data_ptr(), stream.shape[0],
-                        starts.data_ptr(), ends.data_ptr(), out.data_ptr(),
-                        starts.shape[0], _build.stream_handle(stream.device)),
-                     "parent cxk_crc16_ranges")
-        return out
-
-    return crc16
-
-
-def k7_parent_walk():
-    """K7's parent kernel as a callable with walk_frames' arguments and
-    results, built from ``K7_PARENT_SRC``; None when that file is absent."""
-    import ctypes
-
-    import torch
-
-    from claxon_tpu_torch.ops import _build, demux
-
-    lib = build_parent("K7", K7_PARENT_SRC)
-    if lib is None:
-        return None
-    fn = lib.cxk_walk_frames
-    P, N = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [P, N, P, P, P, P, N, N, N] + [P] * 16
-    fn.restype = ctypes.c_int
-
-    def walk(stream, start_bits, bs, modes, bps0, T, nch):
-        dev = stream.device
-        F = start_bits.shape[0]
-        out = {k: torch.empty(sh, dtype=torch.int32, device=dev)
-               for k, sh in demux._lane_shapes(F * nch, T).items()}
-        end_bits = torch.empty((F,), dtype=torch.int32, device=dev)
-        ok = torch.empty((F,), dtype=torch.bool, device=dev)
-        _build.check(fn(stream.data_ptr(), stream.shape[0],
-                        start_bits.data_ptr(), bs.data_ptr(), modes.data_ptr(),
-                        bps0.data_ptr(), F, T, nch,
-                        *(out[k].data_ptr() for k in demux.WALK_KEYS),
-                        end_bits.data_ptr(), ok.data_ptr(),
-                        _build.stream_handle(dev)), "parent cxk_walk_frames")
-        return out, end_bits, ok
-
-    return walk
 
 
 def ptxas_report(src):
@@ -1748,46 +1443,23 @@ def sm_clock_under(fn, calls=1500):
     return int(cur), int(mx)
 
 
-def k7_report(tag, stream, walk_in, T, nch, r7, parent, clock):
-    """K7 at one segmented group: its time beside the parent kernel's on
-    the same inputs (outputs equal), its byte bound, cycles per step (of
-    the longest frame's codes, at the SM clock read under load). Returns a
-    dict of the numbers."""
-    import torch
-
+def k7_report(tag, stream, walk_in, T, nch, r7, clock):
+    """K7 at one segmented group: its time, its byte bound, cycles per
+    step (of the longest frame's codes, at the SM clock read under load).
+    Returns a dict of the numbers."""
     from claxon_tpu_torch.ops import demux
 
-    def new():
-        return demux.walk_frames(stream, *walk_in, T, nch)
-
-    got = new()
+    got = demux.walk_frames(stream, *walk_in, T, nch)
     nb = bound(tensor_bytes(stream, walk_in, got))
     nc32 = (T + 31) // 32 * 32
     steps = nch * int(walk_in[1].clamp(0, nc32).max())
     rep = {"ms": r7[1], "bound_ms": nb[0], "steps": steps,
            "sm_clock_mhz": clock[0], "sm_clock_max_mhz": clock[1],
-           "cycles_per_step": r7[1] * 1e3 * clock[0] / max(steps, 1),
-           "parent_ms": None}
-    if parent is not None:
-        old = parent(stream, *walk_in, T, nch)
-        for a, b in zip(flat_tensors(old), flat_tensors(got)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K7 {tag}: parent != new kernel")
-        # parent, new, new, parent
-        t_old = cuda_ms(lambda: parent(stream, *walk_in, T, nch), 5)
-        t_new = cuda_ms(new, 20)
-        t_new2 = cuda_ms(new, 20)
-        t_old2 = cuda_ms(lambda: parent(stream, *walk_in, T, nch), 5)
-        rep.update(parent_ms=(t_old + t_old2) / 2, ms=(t_new + t_new2) / 2,
-                   parent_runs=[t_old, t_old2], new_runs=[t_new, t_new2])
-        rep["cycles_per_step"] = rep["ms"] * 1e3 * clock[0] / max(steps, 1)
-    old_s = ("not built (no parent source)" if rep["parent_ms"] is None
-             else f"{rep['parent_ms']:.4f} ms (runs {t_old:.4f}, "
-             f"{t_old2:.4f}; new {t_new:.4f}, {t_new2:.4f}), outputs equal")
-    log(f"(b) K7 {tag}: new {rep['ms']:.4f} ms; parent {old_s}; bound "
-        f"{nb[0]:.4f} ms ({nb[1]}); {rep['cycles_per_step']:.1f} cycles per "
-        f"step ({steps} steps in the longest frame, SM clock {clock[0]} MHz "
-        f"under load, max {clock[1]})")
+           "cycles_per_step": r7[1] * 1e3 * clock[0] / max(steps, 1)}
+    log(f"(b) K7 {tag}: {rep['ms']:.4f} ms; bound {nb[0]:.4f} ms "
+        f"({nb[1]}); {rep['cycles_per_step']:.1f} cycles per step ({steps} "
+        f"steps in the longest frame, SM clock {clock[0]} MHz under load, "
+        f"max {clock[1]})")
     return rep
 
 
@@ -1959,21 +1631,19 @@ def phase_f():
             f"{MAX_BATCH_BYTES}-byte limit, {k2} K2 launches, "
             f"{dt:.1f} s to host")
     # K4 on each run's frame ranges (the longest frames of any corpus).
-    parent = k4_parent_crc()
     for i, (stream, starts, ends) in enumerate(k4_calls):
         r4 = compare(f"K4 large stream run {i}",
                      lambda: crc.crc16_ranges(stream, starts, ends),
                      lambda: crc.crc16_ranges_plain(stream, starts, ends), 1)
         k4_report(f"large stream run {i} F={starts.shape[0]} "
-                  f"W={stream.shape[0]}", stream, starts, ends, r4, parent)
+                  f"W={stream.shape[0]}", stream, starts, ends, r4)
     if not k4_calls:
         raise AssertionError("large stream: the host walk ran no K4")
     log(f"(f) large stream: K4 == plain on the frame ranges of its "
         f"{len(k4_calls)} runs")
-    # K2 on each bucket of each run, beside its parent.
+    # K2 on each bucket of each run.
     if not k2_calls:
         raise AssertionError("large stream: the host walk ran no K2")
-    k2_parent = k2_parent_entropy()
     k2_reps = []
     for i, (args, kw) in enumerate(k2_calls):
         L, NC = args[1].shape
@@ -1983,7 +1653,7 @@ def phase_f():
                      lambda: entropy.decode_residual_bits_stream(*args, **kw),
                      lambda: entropy.decode_residual_bits_stream_plain(
                          *args, **kw), 1)
-        k2_reps.append(k2_report(tag, args, kw, r2, k2_parent))
+        k2_reps.append(k2_report(tag, args, kw, r2))
     del k2_calls
     log(f"(f) large stream: K2 == plain on its {len(k2_reps)} buckets")
     # The segmented path hands this stream to the host walk whole (past
@@ -2759,8 +2429,8 @@ def main():
 
     # (c) each path, through the public calls.
     # The fused front does K5's work and K6's bswap, fields and compaction
-    # in two kernels: it counts under both. The parent's wrappers of
-    # those pieces run on no path.
+    # in two kernels: it counts under both. K5's own launches
+    # (segment.find_frame_headers) run on no path.
     # No decode route calls these three: they run 0 times on every path.
     test_only = {"rice_decode": rice.rice_decode,
                  "crc16_device": crc.crc16_device,
@@ -2769,8 +2439,7 @@ def main():
         "K5": [seg_parse.demux_front],
         "K6": [seg_parse.demux_front, seg_parse.pack_summary],
         "K7": [demux.walk_frames], "K8": [seg_gather.gather_values],
-        "K5_K6_parent": [segment.find_frame_headers, seg_parse.bswap_words,
-                         seg_parse.parse_candidates]}
+        "K5_alone": [segment.find_frame_headers]}
     wrappers = {"K1+K3": [predict.synthesize_epilogue],
                 "K1": [predict.synthesize],
                 "K2": [entropy.decode_residual_bits_stream],
@@ -2792,8 +2461,8 @@ def main():
     def drive(path_kernels, fn):
         """Run fn with every launch count at 0; return every kernel's count
         (a kernel's count sums its wrappers), the path's kernels at least
-        1 each. K1 alone, K3's torch ops and the parent front's wrappers
-        must not run on the card; on
+        1 each. K1 alone, K3's torch ops and K5's own launches must not
+        run on the card; on
         the default routes (neither entropy variable set) K9 and K10 must
         not run either, and K7 must emit no deltas."""
         for ws in wrappers.values():
@@ -2814,8 +2483,8 @@ def main():
             if any(w.launches <= 0 for w in wrappers[k]):
                 raise AssertionError(f"{k} was not launched by the path "
                                      f"(counts {counts})")
-        if counts["K5_K6_parent"]:
-            raise AssertionError(f"the path ran the parent front's wrappers "
+        if counts["K5_alone"]:
+            raise AssertionError(f"the path ran K5's own launches "
                                  f"(counts {counts})")
         if any(counts[k] for k in test_only):
             raise AssertionError(f"the path ran rice_decode, crc16_device "
@@ -3328,14 +2997,8 @@ def main():
         if k["name"] == "K4":
             k["ms_segmented"] = rows["K4_seg"][1]
             k["bound_ms_segmented"] = bounds["K4_seg"][0]
-            for key, rep in (("", rows["K4_parent"]),
-                             ("_segmented", rows["K4_seg_parent"])):
-                k["parent_ms" + key] = rep["parent_ms"]
-                k["runs" + key] = rep.get("runs")
         if k["name"] == "K2":
-            rep = rows["K2_buckets"][0]  # the headline bucket
-            k["parent_ms"], k["runs"] = rep["parent_ms"], rep.get("runs")
-            # Every mixed and large-stream bucket: new and parent time,
+            # Every mixed and large-stream bucket: time, plain time,
             # bound.
             k["buckets"] = rows["K2_buckets"][1:] + k2_large
             # The segmented scan route's dispatches (the largest headline
@@ -3347,11 +3010,8 @@ def main():
                      ["launches"]["K2"],
                      scan_dispatches=rows["K2_scan_buckets"])
         if k["name"] in ("K9", "K10"):
-            # Beside the parent kernel (csrc/entropy_delta_parent.cu) on
-            # the same inputs; every headline and mixed bucket or dispatch.
-            main_rep = rows[k["name"] + "_main"]
+            # Every headline and mixed bucket or dispatch.
             k.update(shape=rows[k["name"] + "_shape"],
-                     parent_ms=main_rep["parent_ms"], runs=main_rep["runs"],
                      buckets=rows[k["name"] + "_buckets"])
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
@@ -3361,30 +3021,28 @@ def main():
             # unless a lane ran off the buffer); "ms" times both.
             k["kernel_launches_per_call"] = 2
             k["one_warp_ms"] = rows["rice_decode_one_warp_ms"]
-        if k["name"] in ("rice_decode", "crc16_frames_device"):
-            # Beside the parent kernel (csrc/rice_parent.cu,
-            # csrc/crc_lanes_parent.cu) on the same inputs; rice_decode's
-            # first 32 lanes alone too, crc16_frames_device beside K4.
-            k.update({key: v for key, v in
-                      rows[k["name"] + "_parent"].items() if key != "ms"})
+        if k["name"] == "crc16_frames_device":
+            # K4 on the same ranges, in the same call.
+            k["k4_ms"] = rows["crc16_frames_device_k4_ms"]
         if k["name"] in ("K5", "K6"):
             # One fused front (csrc/seg_parse.cu, demux_front: the scan
             # kernel, then the rank kernel) does K5's work and K6's
             # bswap, fields and compaction; K6 adds the summary kernel.
-            # The parent's seven operations (bswap, K5's three launches and
-            # torch.cumsum, fields, compaction) timed beside it in the
-            # same call; every headline and mixed group.
+            # Every headline and mixed group.
             front = rows["front_groups"][0]
-            k.update(front_ms=front["ms"], parent_ms=front["parent_ms"],
-                     runs=front["runs"], front_bound_ms=front["bound_ms"],
-                     groups=rows["front_groups"],
-                     parent_pieces_ms=rows["K5_K6_parent"][1])
+            k.update(front_ms=front["ms"], front_bound_ms=front["bound_ms"],
+                     groups=rows["front_groups"])
+        if k["name"] == "K5":
+            # K5's own launches (segment.find_frame_headers, on no decode
+            # route) on the headline group's stream.
+            k["k5_alone_ms"] = rows["K5_alone"][1]
+            k["k5_alone_plain_ms"] = rows["K5_alone"][2]
         if k["name"] == "K6":
             k["summary_ms"] = rows["K6_summary"][1]
         if k["name"] == "K7":
             # "launches" counts wrapper calls, each two kernel launches
-            # (walk, then values). Each segmented group: new and parent
-            # time, bound, cycles per step.
+            # (walk, then values). Each segmented group: time, bound,
+            # cycles per step.
             k["kernel_launches_per_call"] = 2
             k["groups"] = rows["K7_groups"]
             k["ms_with_deltas"] = rows["K7_deltas_ms"]

@@ -36,7 +36,8 @@
 //
 // crc16_windows_kernel. What bounds it on this card: the bytes of the
 // ranges, read once (at the headline x4 upload, 35.6 MB: 0.0107 ms at 3.35
-// TB/s). The first design (csrc/crc_lanes_parent.cu) read each whole
+// TB/s). The first design (in git history; PERF.md §6, row
+// crc16_frames_device) read each whole
 // window, about 1.6 times the frame bytes, two scalar loads a word, and
 // issued no step's loads ahead of the previous step's table work.
 // - Only the kept bytes are read. The window's byte i (0 <= i < 4 n) sits

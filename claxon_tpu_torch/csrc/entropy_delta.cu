@@ -36,7 +36,7 @@
 // as many of those a cycle as it has schedulers; so the instructions a
 // sample costs set the time once the loads are in flight.
 //
-// The parent design (csrc/entropy_delta_parent.cu, kept for timing) runs
+// The first design (in git history; PERF.md §6, rows K9 and K10) ran
 // a warp per (lane, chunk), a thread a sample: 0.274 / 0.307 ms for K9 /
 // K10 at the main-path bucket on an H100 (700 W), each warp waiting on two
 // dependent round trips for 212 bytes. Measured there on the way here: a
@@ -74,7 +74,7 @@
 //   instruction. Above kMaxStagedSA (or past kMaxStagedKs Rice
 //   parameters) the words (and parameters) are read from global memory.
 // - Sample kernels (fewer chunks): a warp a chunk, a thread a sample, as
-//   the parent, with the words copied by cp.async while the deltas and
+//   the first design, with the words copied by cp.async while the deltas and
 //   the lane's fields load, and a 32-bit division for the lane. Loading
 //   more ahead was slower at these sizes, by 1-4%: the Rice parameters
 //   held in registers (thread j: ks[j] and ks[j + 32], k by __shfl_sync)

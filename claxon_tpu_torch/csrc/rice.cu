@@ -30,7 +30,8 @@
 // steps, and the 27,648 lanes of the headline shapes are 864 warps, 6.5
 // an SM. Its bytes (the words, the lane arguments, the (L, T) output)
 // take 0.0446 ms at 3.35 TB/s at 27,648 lanes of 1,024 codes. The first
-// design (csrc/rice_parent.cu) read every code's words from global
+// design (in git history; PERF.md §6, row rice_decode) read every code's
+// words from global
 // memory, three dependent loads a code, and one warp alone took about 880
 // cycles a step (NVIDIA H100 80GB HBM3, 700 W power limit; PERF.md): the
 // loads' latency set its time.

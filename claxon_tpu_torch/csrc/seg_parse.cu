@@ -50,11 +50,6 @@
 // A single pass with a decoupled look-back (Merrill and Garland, 2016) was
 // tried first: with some 600 tiles in flight, each look-back waited on the
 // tiles before it for longer than the tile took to stream (PERF.md).
-//
-// The K6 pieces the front replaced stay as the parent design and the CUDA
-// forms of their wrappers, on no decode path: bswap (the word swap),
-// fields (one thread per K5 candidate) and compact (one block that ranks
-// the walkable candidates and writes K7's lanes and the counts).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,79 +59,8 @@
 
 namespace {
 
-constexpr int kCompactThreads = 1024;
-
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__global__ void bswap_kernel(const unsigned* __restrict__ in,
-                             unsigned* __restrict__ out, int64_t W) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < W;
-       i += (int64_t)gridDim.x * blockDim.x)
-    out[i] = __byte_perm(in[i], 0, 0x0123);
-}
-
-__global__ void fields_kernel(const int* __restrict__ positions,
-                              const unsigned char* __restrict__ valid,
-                              const int* __restrict__ win, int64_t C,
-                              const int* __restrict__ ends,
-                              const int* __restrict__ si_bps, int S, int T,
-                              int nch, int* __restrict__ fields) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  unsigned w[kWin];
-#pragma unroll
-  for (int j = 0; j < kWin; ++j) w[j] = (unsigned)win[c * kWin + j];
-  const int p = positions[c] < 0 ? 0 : positions[c];
-  header_fields(w, p, valid[c] != 0, ends, si_bps, S, T, nch,
-                fields + c * kFields);
-}
-
-__global__ void __launch_bounds__(kCompactThreads)
-compact_kernel(const int* __restrict__ positions,
-               const int* __restrict__ fields, int64_t C,
-               const int* __restrict__ count, int64_t wcap,
-               int* __restrict__ lane_of, int* __restrict__ start_bits,
-               int* __restrict__ w_bs, int* __restrict__ w_mode,
-               int* __restrict__ w_bps, int* __restrict__ counts) {
-  __shared__ int64_t base;
-  if (threadIdx.x == 0) base = 0;
-  __syncthreads();
-  for (int64_t c0 = 0; c0 < C; c0 += kCompactThreads) {
-    const int64_t c = c0 + threadIdx.x;
-    const int* f = fields + c * kFields;
-    const int wk = c < C ? f[kWalkable] : 0;
-    int total;
-    const int64_t rank =
-        base + block_excl_scan<kCompactThreads>(wk, &total);
-    if (c < C) {
-      if (wk && rank < wcap) {
-        const int p = positions[c] < 0 ? 0 : positions[c];
-        lane_of[c] = (int)rank;
-        start_bits[rank] = (p + f[kHlen]) * 8;
-        w_bs[rank] = f[kBlockSize];
-        w_mode[rank] = f[kMode];
-        w_bps[rank] = f[kBps];
-      } else {
-        lane_of[c] = -1;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) base += total;
-    __syncthreads();
-  }
-  for (int64_t l = (base < wcap ? base : wcap) + threadIdx.x; l < wcap;
-       l += kCompactThreads) {
-    start_bits[l] = 0;
-    w_bs[l] = 0;
-    w_mode[l] = 0;
-    w_bps[l] = 1;
-  }
-  if (threadIdx.x == 0) {
-    counts[0] = *count;
-    counts[1] = (int)base;
-  }
 }
 
 __global__ void summary_kernel(const int* __restrict__ positions,
@@ -667,40 +591,6 @@ unsigned blocks_for(int64_t n, int threads) {
 }
 
 }  // namespace
-
-extern "C" int cxk_seg_bswap(const int* in, int* out, int64_t W,
-                             void* cuda_stream) {
-  if (W > 0) {
-    const int threads = 256;
-    const int64_t want = (W + threads - 1) / threads;
-    bswap_kernel<<<(unsigned)(want < 8192 ? want : 8192), threads, 0,
-                   (cudaStream_t)cuda_stream>>>((const unsigned*)in,
-                                                (unsigned*)out, W);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cxk_seg_fields(const int* positions, const unsigned char* valid,
-                              const int* win, int64_t C, const int* ends,
-                              const int* si_bps, int64_t S, int64_t T,
-                              int64_t nch, int* fields, void* cuda_stream) {
-  if (C > 0)
-    fields_kernel<<<blocks_for(C, 128), 128, 0, (cudaStream_t)cuda_stream>>>(
-        positions, valid, win, C, ends, si_bps, (int)S, (int)T, (int)nch,
-        fields);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cxk_seg_compact(const int* positions, const int* fields,
-                               int64_t C, const int* count, int64_t wcap,
-                               int* lane_of, int* start_bits, int* w_bs,
-                               int* w_mode, int* w_bps, int* counts,
-                               void* cuda_stream) {
-  compact_kernel<<<1, kCompactThreads, 0, (cudaStream_t)cuda_stream>>>(
-      positions, fields, C, count, wcap, lane_of, start_bits, w_bs, w_mode,
-      w_bps, counts);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int cxk_seg_summary(const int* positions, const int* fields,
                                const int* lane_of, int64_t C,

@@ -24,7 +24,8 @@
 //
 // The decode path runs none of this: the fused front in seg_parse.cu does
 // the scan and the check in its one pass over the upload. These launches
-// stay as the front's parent design and the CUDA form of the K5 wrapper.
+// are the CUDA form of the K5 wrapper, ops/segment.find_frame_headers, the
+// counterpart of the JAX package's public find_frame_headers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

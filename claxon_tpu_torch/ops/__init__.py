@@ -16,9 +16,8 @@ PyTorch form.
 * ``segment``  -- K5 sync scan and header CRC-8 (CUDA, ``csrc/segment.cu``;
   the decode path runs it inside the fused front);
 * ``seg_parse`` -- K6 fused-demux body: the fused front (bswap, K5, header
-  fields and compaction in two kernels), the summary, and the parent
-  front's bswap and fields kernels (CUDA, ``csrc/seg_parse.cu``), and the
-  fused run;
+  fields and compaction in two kernels) and the summary (CUDA,
+  ``csrc/seg_parse.cu``), and the fused run;
 * ``demux``    -- K7 subframe walk (CUDA, ``csrc/demux.cu``);
 * ``seg_gather`` -- K8 values gather (CUDA, ``csrc/seg_gather.cu``).
 

@@ -25,10 +25,9 @@ __all__ = ["load", "check", "stream_handle"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu",
-            "entropy_delta_parent.cu", "crc.cu", "segment.cu", "seg_parse.cu",
-            "demux.cu", "seg_gather.cu", "pack16.cu", "crc_lanes.cu",
-            "crc_lanes_parent.cu", "rice.cu", "rice_parent.cu")
+_SOURCES = ("synth.cu", "entropy.cu", "entropy_delta.cu", "crc.cu",
+            "segment.cu", "seg_parse.cu", "demux.cu", "seg_gather.cu",
+            "pack16.cu", "crc_lanes.cu", "rice.cu")
 #: headers the sources include (hashed with them).
 _HEADERS = ("scan.cuh", "header.cuh", "shifts.cuh")
 _BUILD_DIR = _PKG.parent / "build" / "claxon_tpu_torch"
@@ -57,12 +56,6 @@ _SIGNATURES = {
     # warm, WM, lengths, out, L, NC, SA, stream
     "cxk_entropy_delta_stream": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P,
                                  _P, _N, _P, _P, _N, _N, _N, _P],
-    # K9's and K10's parent kernels (timing only), the same arguments
-    "cxk_entropy_delta_slots_parent": [_P, _P, _P, _N, _N, _P, _P, _P, _P,
-                                       _P, _N, _P, _N, _N, _N, _P],
-    "cxk_entropy_delta_stream_parent": [_P, _N, _P, _P, _P, _N, _N, _P, _P,
-                                        _P, _P, _P, _N, _P, _P, _N, _N, _N,
-                                        _P],
     # stream, W, starts, ends, out, F, tables, item_off, stream
     "cxk_crc16_ranges": [_P, _N, _P, _P, _P, _N, _P, _P, _P],
     # K5 -- W -> number of scan blocks; stream, W, n_bytes, blk, stream;
@@ -72,14 +65,8 @@ _SIGNATURES = {
     "cxk_sync_count": [_P, _N, _N, _P, _P],
     "cxk_sync_write": [_P, _N, _N, _P, _P, _N, _P],
     "cxk_header_check": [_P, _N, _N, _P, _P, _P, _P, _N, _P],
-    # K6 -- in, out, W, stream; positions, valid, win, C, ends, si_bps, S,
-    # T, nch, fields, stream; positions, fields, C, count, wcap, lane_of,
-    # start_bits, bs, modes, bps, counts, stream; positions, fields,
-    # lane_of, C, end_bits, walk_ok, n_parts, sa_words, nch, summary,
-    # stream
-    "cxk_seg_bswap": [_P, _P, _N, _P],
-    "cxk_seg_fields": [_P, _P, _P, _N, _P, _P, _N, _N, _N, _P, _P],
-    "cxk_seg_compact": [_P, _P, _N, _P, _N, _P, _P, _P, _P, _P, _P, _P],
+    # K6 summary -- positions, fields, lane_of, C, end_bits, walk_ok,
+    # n_parts, sa_words, nch, summary, stream
     "cxk_seg_summary": [_P, _P, _P, _N, _P, _P, _P, _P, _N, _P, _P],
     # K5 + K6 fused front -- W -> scratch ints; words_le, W, n_bytes,
     # ends, si_bps, S, T, nch, C, wcap, stream, positions, valid, win,
@@ -106,9 +93,6 @@ _SIGNATURES = {
     # rice_decode -- words, W, start_bits, params, counts, L, T, out,
     # end_bits, flag, stream
     "cxk_rice_decode": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P],
-    # the two kernels' parents (timing only), the same arguments
-    "cxk_crc16_windows_parent": [_P, _N, _P, _P, _N, _N, _P, _P, _P],
-    "cxk_rice_decode_parent": [_P, _N, _P, _P, _P, _N, _N, _P, _P, _P, _P],
 }
 
 #: entry points that return a value rather than a CUDA error code.

@@ -281,22 +281,3 @@ def crc16_frames_device(stream, starts, ends, n_words):
 crc16_device.launches = 0
 crc16_frames_device.launches = 0
 
-
-def parent_windows_kernel():
-    """``crc16_frames_device``'s parent kernel (``csrc/crc_lanes_parent.cu``,
-    the first design) as a callable ``(stream, starts, ends, n_words) ->
-    (F,) int32`` on CUDA int32 tensors. No route and no wrapper calls it,
-    and it counts no launches: ``chip_smoke.py`` times it beside the
-    kernel, and the card tests hold the two equal."""
-    def windows_parent(stream, starts, ends, n_words):
-        dev = require_cuda_int32("crc16_frames_device_parent", stream=stream,
-                                 starts=starts, ends=ends)
-        out = torch.empty((starts.shape[0],), dtype=torch.int32, device=dev)
-        _build.check(_build.load().cxk_crc16_windows_parent(
-            stream.data_ptr(), stream.shape[0], starts.data_ptr(),
-            ends.data_ptr(), starts.shape[0], int(n_words),
-            _device_tables(dev).data_ptr(), out.data_ptr(),
-            _build.stream_handle(dev)), "cxk_crc16_windows_parent")
-        return out
-
-    return windows_parent

@@ -365,9 +365,16 @@ def _check_deltas(name, deltas, dtype, shape, dev):
                          f"tensor of shape {shape} on {dev}")
 
 
-def _launch_k9(entry, slots, deltas, ks, ps, orders, pbits, vflags, warm,
-               n_parts_max, sa):
-    """K9's checks and launch through the C entry point ``entry``."""
+def decode_residual_bits(slots, deltas, ks, ps, orders, pbits, vflags, warm,
+                         n_parts_max=1, sa=None):
+    """K9 wrapper: the plain form for CPU tensors; for CUDA tensors the
+    hand-written kernel (``csrc/entropy_delta.cu``), or an exception. Same
+    arguments as :func:`decode_residual_bits_plain`; on the card slots
+    are flat (L, NC * sa) int32 and deltas (L, NC * 32) uint8."""
+    args = (slots, deltas, ks, ps, orders, pbits, vflags, warm)
+    if on_cpu(*args):
+        return decode_residual_bits_plain(*args, n_parts_max=n_parts_max,
+                                          sa=sa)
     name = "decode_residual_bits"
     dev = require_cuda_int32(name, slots=slots, ks=ks, ps=ps, orders=orders,
                              pbits=pbits, vflags=vflags, warm=warm)
@@ -379,32 +386,26 @@ def _launch_k9(entry, slots, deltas, ks, ps, orders, pbits, vflags, warm,
     _check_lanes(name, L, ks, n_parts_max, warm, (ps, orders, pbits, vflags))
     lib = _build.load()
     out = torch.empty((L, NC * 32), dtype=torch.int32, device=dev)
-    _build.check(getattr(lib, entry)(
+    _build.check(lib.cxk_entropy_delta_slots(
         slots.data_ptr(), deltas.data_ptr(), ks.data_ptr(), ks.shape[1],
         n_parts_max, ps.data_ptr(), orders.data_ptr(), pbits.data_ptr(),
         vflags.data_ptr(), warm.data_ptr(), warm.shape[1], out.data_ptr(),
-        L, NC, sa, _build.stream_handle(dev)), entry)
-    return out
-
-
-def decode_residual_bits(slots, deltas, ks, ps, orders, pbits, vflags, warm,
-                         n_parts_max=1, sa=None):
-    """K9 wrapper: the plain form for CPU tensors; for CUDA tensors the
-    hand-written kernel (``csrc/entropy_delta.cu``), or an exception. Same
-    arguments as :func:`decode_residual_bits_plain`; on the card slots
-    are flat (L, NC * sa) int32 and deltas (L, NC * 32) uint8."""
-    args = (slots, deltas, ks, ps, orders, pbits, vflags, warm)
-    if on_cpu(*args):
-        return decode_residual_bits_plain(*args, n_parts_max=n_parts_max,
-                                          sa=sa)
-    out = _launch_k9("cxk_entropy_delta_slots", *args, n_parts_max, sa)
+        L, NC, sa, _build.stream_handle(dev)), "cxk_entropy_delta_slots")
     decode_residual_bits.launches += 1
     return out
 
 
-def _launch_k10(entry, stream, bases, deltas, ks, ps, orders, pbits, flags,
-                warm, lengths, n_parts_max, sa, chunk):
-    """K10's checks and launch through the C entry point ``entry``."""
+def decode_residual_bits_stream_delta(stream, bases, deltas, ks, ps, orders,
+                                      pbits, flags, warm, lengths,
+                                      n_parts_max=1, sa=8, chunk=32):
+    """K10 wrapper: the plain form for CPU tensors; for CUDA tensors the
+    hand-written kernel (``csrc/entropy_delta.cu``), or an exception. Same
+    arguments as :func:`decode_residual_bits_stream_delta_plain`."""
+    args = (stream, bases, deltas, ks, ps, orders, pbits, flags, warm,
+            lengths)
+    if on_cpu(*args):
+        return decode_residual_bits_stream_delta_plain(
+            *args, n_parts_max=n_parts_max, sa=sa, chunk=chunk)
     name = "decode_residual_bits_stream_delta"
     dev = require_cuda_int32(name, stream=stream, bases=bases, ks=ks, ps=ps,
                              orders=orders, pbits=pbits, flags=flags,
@@ -421,28 +422,12 @@ def _launch_k10(entry, stream, bases, deltas, ks, ps, orders, pbits, flags,
                  (ps, orders, pbits, flags, lengths))
     lib = _build.load()
     out = torch.empty((L, NC * 32), dtype=torch.int32, device=dev)
-    _build.check(getattr(lib, entry)(
+    _build.check(lib.cxk_entropy_delta_stream(
         stream.data_ptr(), stream.shape[0], bases.data_ptr(),
         deltas.data_ptr(), ks.data_ptr(), ks.shape[1], n_parts_max,
         ps.data_ptr(), orders.data_ptr(), pbits.data_ptr(), flags.data_ptr(),
         warm.data_ptr(), warm.shape[1], lengths.data_ptr(), out.data_ptr(),
-        L, NC, sa, _build.stream_handle(dev)), entry)
-    return out
-
-
-def decode_residual_bits_stream_delta(stream, bases, deltas, ks, ps, orders,
-                                      pbits, flags, warm, lengths,
-                                      n_parts_max=1, sa=8, chunk=32):
-    """K10 wrapper: the plain form for CPU tensors; for CUDA tensors the
-    hand-written kernel (``csrc/entropy_delta.cu``), or an exception. Same
-    arguments as :func:`decode_residual_bits_stream_delta_plain`."""
-    args = (stream, bases, deltas, ks, ps, orders, pbits, flags, warm,
-            lengths)
-    if on_cpu(*args):
-        return decode_residual_bits_stream_delta_plain(
-            *args, n_parts_max=n_parts_max, sa=sa, chunk=chunk)
-    out = _launch_k10("cxk_entropy_delta_stream", *args, n_parts_max, sa,
-                      chunk)
+        L, NC, sa, _build.stream_handle(dev)), "cxk_entropy_delta_stream")
     decode_residual_bits_stream_delta.launches += 1
     return out
 
@@ -451,22 +436,3 @@ def decode_residual_bits_stream_delta(stream, bases, deltas, ks, ps, orders,
 decode_residual_bits.launches = 0
 decode_residual_bits_stream_delta.launches = 0
 
-
-def parent_kernels():
-    """K9's and K10's parent kernels (``csrc/entropy_delta_parent.cu``) as
-    callables with the wrappers' arguments, CUDA tensors only. No decode
-    route calls them and they count no launches: ``chip_smoke.py`` times
-    them beside the kernels above, and the card tests hold them equal."""
-    def k9(slots, deltas, ks, ps, orders, pbits, vflags, warm, n_parts_max=1,
-           sa=None):
-        return _launch_k9("cxk_entropy_delta_slots_parent", slots, deltas,
-                          ks, ps, orders, pbits, vflags, warm, n_parts_max,
-                          sa)
-
-    def k10(stream, bases, deltas, ks, ps, orders, pbits, flags, warm,
-            lengths, n_parts_max=1, sa=8, chunk=32):
-        return _launch_k10("cxk_entropy_delta_stream_parent", stream, bases,
-                           deltas, ks, ps, orders, pbits, flags, warm,
-                           lengths, n_parts_max, sa, chunk)
-
-    return {"K9": k9, "K10": k10}

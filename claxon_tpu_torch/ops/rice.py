@@ -176,26 +176,3 @@ def rice_decode(words, start_bits, params, counts, max_count=None):
 #: kernel launches through the wrapper (CUDA tensors only).
 rice_decode.launches = 0
 
-
-def parent_kernel():
-    """``rice_decode``'s parent kernel (``csrc/rice_parent.cu``, the first
-    design) as a callable ``(words, start_bits, params, counts, max_count)
-    -> (out, end_bits)`` on CUDA int32 tensors. No route and no wrapper
-    calls it, and it counts no launches: ``chip_smoke.py`` times it beside
-    the kernel, and the card tests hold the two equal."""
-    def rice_parent(words, start_bits, params, counts, max_count):
-        require_cuda_int32("rice_decode_parent", words=words,
-                           start_bits=start_bits, params=params,
-                           counts=counts)
-        L, T = start_bits.shape[0], int(max_count)
-        out = torch.empty((L, T), dtype=torch.int32, device=words.device)
-        end = torch.empty((L,), dtype=torch.int32, device=words.device)
-        flag = torch.zeros((1,), dtype=torch.int32, device=words.device)
-        _build.check(_build.load().cxk_rice_decode_parent(
-            words.data_ptr(), words.shape[0], start_bits.data_ptr(),
-            params.data_ptr(), counts.data_ptr(), L, T, out.data_ptr(),
-            end.data_ptr(), flag.data_ptr(),
-            _build.stream_handle(words.device)), "cxk_rice_decode_parent")
-        return out, end
-
-    return rice_parent

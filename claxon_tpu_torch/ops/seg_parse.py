@@ -13,21 +13,17 @@ copies the (cap, 5) summary and the two counts back (:class:`PendingDemux`:
 a non-blocking copy into pinned memory and an event). The K6 pieces:
 
 * :func:`demux_front` -- the front in two kernels that read the upload
-  once (``csrc/seg_parse.cu``); its plain form is the composition of the
-  three below;
-* :func:`bswap_words` -- the little-endian word upload to the big-endian
-  stream every other kernel indexes;
-* :func:`parse_candidates` -- the frame-header fields of every candidate
-  (decoded from K5's 16-byte window), its stream (``searchsorted(ends, p,
-  side="right")`` clamped to S - 1) and bits per sample, the walkable
-  predicate, and the compaction of the walkable candidates into ``wcap``
-  walk lanes in stream order;
+  once (``csrc/seg_parse.cu``); its plain form is the composition of
+  :func:`bswap_words_plain` (the little-endian word upload to the
+  big-endian stream every other kernel indexes), K5's
+  ``find_frame_headers_plain`` and :func:`parse_candidates_plain` (the
+  frame-header fields of every candidate, decoded from K5's 16-byte
+  window, its stream (``searchsorted(ends, p, side="right")`` clamped to
+  S - 1) and bits per sample, the walkable predicate, and the compaction
+  of the walkable candidates into ``wcap`` walk lanes in stream order);
 * :func:`pack_summary` -- each candidate's walk verdict, end, largest
   partition count and gather width back in candidate order, packed into 5
   int32 words with the JAX program's bit widths.
-
-``bswap_words``, K5's ``find_frame_headers`` and ``parse_candidates`` keep
-their kernels (the front's parent design) but run on no decode path.
 
 The capacity classes, the regrow loop and the overflow exception carry the
 JAX package's values unchanged, so both packages route the same streams.
@@ -44,8 +40,8 @@ from .segment import WIN, _leading_ones8, find_frame_headers_plain
 __all__ = ["fused_demux", "fused_demux_async", "fused_demux_run",
            "PendingDemux", "DemuxOverflow", "SUMMARY_COLS", "PACKED_WORDS",
            "S_QUANTUM", "MAX_CAP", "MAX_WALK_BYTES", "max_walk_lanes",
-           "pick_cap", "pick_wcap", "bswap_words", "bswap_words_plain",
-           "parse_candidates", "parse_candidates_plain", "pack_summary",
+           "pick_cap", "pick_wcap", "bswap_words_plain",
+           "parse_candidates_plain", "pack_summary",
            "pack_summary_plain", "demux_front", "demux_front_plain",
            "FIELDS"]
 
@@ -63,7 +59,7 @@ SUMMARY_COLS = ("pos", "valid", "walk_ok", "end_byte", "n_parts", "sa",
 #: w4=time_hi(4)|n_parts(7)|sa(9)|bps(6).
 PACKED_WORDS = 5
 
-#: per-candidate field row of :func:`parse_candidates`.
+#: per-candidate field row of :func:`parse_candidates_plain`.
 FIELDS = ("block_size", "hlen", "nch_hdr", "mode", "variable", "lo", "hi",
           "bps", "walkable")
 _F = {name: i for i, name in enumerate(FIELDS)}
@@ -159,29 +155,27 @@ def bswap_words_plain(words_le):
     return _wrap32(be)
 
 
-def bswap_words(words_le):
-    """K6 bswap wrapper: the plain form for a CPU tensor; for a CUDA tensor
-    the kernel (``csrc/seg_parse.cu``), or an exception."""
-    if on_cpu(words_le):
-        return bswap_words_plain(words_le)
-    dev = require_cuda_int32("bswap_words", words_le=words_le)
-    if words_le.dim() != 1:
-        raise ValueError("bswap_words: expected a (W,) tensor")
-    lib = _build.load()
-    out = torch.empty_like(words_le)
-    _build.check(lib.cxk_seg_bswap(words_le.data_ptr(), out.data_ptr(),
-                                   words_le.shape[0],
-                                   _build.stream_handle(dev)),
-                 "cxk_seg_bswap")
-    bswap_words.launches += 1
-    return out
-
-
 # ---- header fields + compaction --------------------------------------
 
 def parse_candidates_plain(positions, valid, win, count, ends, si_bps, T,
                            nch, wcap):
-    """The plain PyTorch form of :func:`parse_candidates`."""
+    """K6's header fields and compaction in plain PyTorch (the fused
+    front's second half).
+
+    Args:
+      positions, valid, count, win: K5's outputs ((C,) int32, (C,) bool,
+              () int32, (C, 16) int32).
+      ends:   (S,) int32 end byte of each stream of the group, ascending
+              (padding entries: the group's byte count).
+      si_bps: (S,) int32 STREAMINFO bits per sample (padding: 1).
+      T, nch: the group's block-size bucket and channel count.
+      wcap:   walk-lane capacity.
+
+    Returns:
+      (fields (C, len(FIELDS)) int32, lane_of (C,) int32 -- the walk lane
+      of each candidate or -1, (start_bits, bs, modes, bps) the (wcap,)
+      int32 walk inputs, counts (2,) int32 -- [sync hits, walkable]).
+    """
     dev = positions.device
     i64 = torch.int64
     w = win.to(i64)
@@ -249,58 +243,6 @@ def parse_candidates_plain(positions, valid, win, count, ends, si_bps, T,
     return fields, lane_of.to(torch.int32), walk_in, counts
 
 
-def parse_candidates(positions, valid, win, count, ends, si_bps, T, nch,
-                     wcap):
-    """K6 fields + compaction wrapper: the plain form for CPU tensors; for
-    CUDA tensors the kernels (``csrc/seg_parse.cu``), or an exception.
-
-    Args:
-      positions, valid, count, win: K5's outputs ((C,) int32, (C,) bool,
-              () int32, (C, 16) int32).
-      ends:   (S,) int32 end byte of each stream of the group, ascending
-              (padding entries: the group's byte count).
-      si_bps: (S,) int32 STREAMINFO bits per sample (padding: 1).
-      T, nch: the group's block-size bucket and channel count.
-      wcap:   walk-lane capacity.
-
-    Returns:
-      (fields (C, len(FIELDS)) int32, lane_of (C,) int32 -- the walk lane
-      of each candidate or -1, (start_bits, bs, modes, bps) the (wcap,)
-      int32 walk inputs, counts (2,) int32 -- [sync hits, walkable]).
-    """
-    args = (positions, valid, win, count, ends, si_bps)
-    if on_cpu(*args):
-        return parse_candidates_plain(*args, T, nch, wcap)
-    dev = require_cuda_int32("parse_candidates", positions=positions,
-                             win=win, count=count, ends=ends, si_bps=si_bps)
-    C = positions.shape[0]
-    S = ends.shape[0]
-    if valid.dtype != torch.bool or valid.shape != (C,) or \
-            win.shape != (C, 16) or si_bps.shape != (S,) or S < 1 or \
-            wcap < 1 or count.numel() != 1:
-        raise ValueError("parse_candidates: expected K5's (C,) positions "
-                         "and valid, (C, 16) win, () count and (S,) "
-                         "ends/si_bps with S >= 1")
-    lib = _build.load()
-    cs = _build.stream_handle(dev)
-    i32 = torch.int32
-    fields = torch.empty((C, len(FIELDS)), dtype=i32, device=dev)
-    lane_of = torch.empty((C,), dtype=i32, device=dev)
-    walk_in = tuple(torch.empty((wcap,), dtype=i32, device=dev)
-                    for _ in range(4))
-    counts = torch.empty((2,), dtype=i32, device=dev)
-    _build.check(lib.cxk_seg_fields(
-        positions.data_ptr(), valid.data_ptr(), win.data_ptr(), C,
-        ends.data_ptr(), si_bps.data_ptr(), S, T, nch, fields.data_ptr(),
-        cs), "cxk_seg_fields")
-    _build.check(lib.cxk_seg_compact(
-        positions.data_ptr(), fields.data_ptr(), C, count.data_ptr(), wcap,
-        lane_of.data_ptr(), *(a.data_ptr() for a in walk_in),
-        counts.data_ptr(), cs), "cxk_seg_compact")
-    parse_candidates.launches += 1
-    return fields, lane_of, walk_in, counts
-
-
 # ---- the fused front ---------------------------------------------------
 
 def demux_front_plain(words_le, n_bytes, ends, si_bps, T, nch, cap, wcap):
@@ -323,13 +265,13 @@ def demux_front(words_le, n_bytes, ends, si_bps, T, nch, cap, wcap):
     Args:
       words_le: (W,) int32 little-endian word upload.
       n_bytes:  bytes of the upload to scan.
-      ends, si_bps, T, nch, wcap: as for :func:`parse_candidates`.
+      ends, si_bps, T, nch, wcap: as for :func:`parse_candidates_plain`.
       cap:      candidate capacity C.
 
     Returns:
       (stream (W,) int32 big-endian words, then K5's positions, valid,
-      count and win, then :func:`parse_candidates`' fields, lane_of,
-      walk_in and counts), as the three wrappers return them.
+      count and win, then :func:`parse_candidates_plain`'s fields, lane_of,
+      walk_in and counts), as the three plain forms return them.
     """
     if on_cpu(words_le, ends, si_bps):
         return demux_front_plain(words_le, n_bytes, ends, si_bps, T, nch,
@@ -406,7 +348,7 @@ def pack_summary(positions, fields, lane_of, end_bits, walk_ok, n_parts,
     the kernel (``csrc/seg_parse.cu``), or an exception.
 
     Args:
-      positions, fields, lane_of: as from K5 and :func:`parse_candidates`.
+      positions, fields, lane_of: as from :func:`demux_front`.
       end_bits, walk_ok: K7's (wcap,) int32 and bool per-frame results.
       n_parts, sa_words: K7's (wcap * nch,) int32 per-lane outputs.
 
@@ -438,8 +380,6 @@ def pack_summary(positions, fields, lane_of, end_bits, walk_ok, n_parts,
 
 
 #: kernel launches through the wrappers (CUDA tensors only).
-bswap_words.launches = 0
-parse_candidates.launches = 0
 demux_front.launches = 0
 pack_summary.launches = 0
 

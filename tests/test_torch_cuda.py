@@ -294,11 +294,10 @@ def _headline_x4():
 
 
 @pytest.mark.parametrize("kernel", ["K9", "K10"])
-def test_delta_kernels_match_parent_on_headline(cuda, monkeypatch, kernel):
-    """The redesigned K9 and K10 equal their parent kernels (csrc/
-    entropy_delta_parent.cu) and their plain forms on the headline x4
-    corpus: every bucket of the host walk's delta planner (K9; L 6912 and
-    128, T 4096) and every dispatch of the segmented delta decode (K10)."""
+def test_delta_kernels_match_plain_on_headline(cuda, monkeypatch, kernel):
+    """K9 and K10 equal their plain forms on the headline x4 corpus:
+    every bucket of the host walk's delta planner (K9; L 6912 and 128, T
+    4096) and every dispatch of the segmented delta decode (K10)."""
     from claxon_tpu_torch import native as tnative
     from claxon_tpu_torch import pipeline_seg
     from claxon_tpu_torch.ops import entropy
@@ -335,11 +334,8 @@ def test_delta_kernels_match_parent_on_headline(cuda, monkeypatch, kernel):
         monkeypatch.setenv("CLAXON_TPU_SEG_ENTROPY", "delta")
         pipeline_seg.decode_streams_segmented(datas, device=cuda).sync()
     assert calls
-    parent = entropy.parent_kernels()[kernel]
     for args, kw in calls:
-        got = fn(*args, **kw)
-        assert torch.equal(got, parent(*args, **kw)), kw
-        assert torch.equal(got, plain(*args, **kw)), kw
+        assert torch.equal(fn(*args, **kw), plain(*args, **kw)), kw
     # The largest bucket or dispatch has 6912 lanes (K9's slots, K10's
     # bases).
     assert max(a[kernel == "K10"].shape[0] for a, _ in calls) == 6912
@@ -869,8 +865,9 @@ def _generated_groups(device):
 
 
 def test_fused_demux_kernels_match_plain(cuda):
-    """K6's bswap, field parse + compaction and summary kernels and the
-    fused front equal their plain forms on a real group and on noise, and
+    """The fused front (K6's bswap, K5, K6's field parse and compaction)
+    and K6's summary kernel equal their plain forms on a real group and on
+    noise, and
     the whole fused run equals the plain run on the CPU. The fused front
     also on the edge cases of its CPU model test (tests/front_cases.py:
     header copies at every offset around tile boundaries, dense sync runs
@@ -879,7 +876,6 @@ def test_fused_demux_kernels_match_plain(cuda):
     of the generated corpus."""
     from claxon_tpu_torch.ops import seg_parse
     from claxon_tpu_torch.ops.demux import walk_frames
-    from claxon_tpu_torch.ops.segment import find_frame_headers
 
     from front_cases import FRONT_CASES, front_case
 
@@ -909,24 +905,15 @@ def test_fused_demux_kernels_match_plain(cuda):
         ends_p[:len(ends)] = ends
         bps = np.full(8, 16, np.int32)
         w_t, ends_t, bps_t = (_c(a, cuda) for a in (words_le, ends_p, bps))
-        stream = seg_parse.bswap_words(w_t)
+        front = _assert_front_matches(w_t, n_bytes, ends_t, bps_t, T, nch,
+                                      512, wcap)
+        stream, pos, _valid, _count, _win, fields, lane_of = front[:7]
         assert torch.equal(stream, seg_parse.bswap_words_plain(w_t))
-        pos, valid, count, win = find_frame_headers(stream, n_bytes, 512)
-        args = (pos, valid, win, count, ends_t, bps_t, T, nch, wcap)
-        got = seg_parse.parse_candidates(*args)
-        want = seg_parse.parse_candidates_plain(*args)
-        for a, b in zip(got[:2] + got[2] + got[3:],
-                        want[:2] + want[2] + want[3:]):
-            assert torch.equal(a, b)
-        fields, lane_of, walk_in, _counts = got
-        walk, end_bits, ok = walk_frames(stream, *walk_in, T, nch)
+        walk, end_bits, ok = walk_frames(stream, *front[7:11], T, nch)
         sargs = (pos, fields, lane_of, end_bits, ok, walk["n_parts"],
                  walk["sa_words"], nch)
         assert torch.equal(seg_parse.pack_summary(*sargs),
                            seg_parse.pack_summary_plain(*sargs))
-        front = _assert_front_matches(w_t, n_bytes, ends_t, bps_t, T, nch,
-                                      512, wcap)
-        assert torch.equal(front[0], stream)
         # An upload that is not 16-byte aligned takes the kernels' word
         # loads.
         _assert_front_matches(w_t[1:], n_bytes - 4, ends_t, bps_t, T, nch,
@@ -961,7 +948,8 @@ def test_gather_kernel_matches_plain(cuda):
 def test_segmented_decode_on_the_card(cuda):
     """The segmented path on the card: bit-exact against the scalar
     decoder and the stored MD5s, through the fused front, the summary, K7
-    and K8 (the front's parent wrappers launch nothing)."""
+    and K8 (K5's own launches, segment.find_frame_headers, run 0
+    times)."""
     import claxon_tpu_torch as ct
     from claxon_tpu_torch.ops import demux, seg_gather, seg_parse, segment
 
@@ -969,13 +957,12 @@ def test_segmented_decode_on_the_card(cuda):
                                 for p in sorted(GENERATED.glob("*.flac"))]
     wrappers = (seg_parse.demux_front, seg_parse.pack_summary,
                 demux.walk_frames, seg_gather.gather_values)
-    parent = (segment.find_frame_headers, seg_parse.bswap_words,
-              seg_parse.parse_candidates)
-    before = [w.launches for w in wrappers + parent]
+    before = [w.launches for w in wrappers]
+    k5_alone = segment.find_frame_headers.launches
     dd = ct.decode_streams_device(datas, segmentation="device", device=cuda)
-    after = [w.launches for w in wrappers + parent]
-    assert all(a > b for a, b in zip(after, before[:len(wrappers)]))
-    assert after[len(wrappers):] == before[len(wrappers):]
+    after = [w.launches for w in wrappers]
+    assert all(a > b for a, b in zip(after, before))
+    assert segment.find_frame_headers.launches == k5_alone
     assert dd.segmented
     _assert_scalar_and_md5(datas, dd.to_host())
     assert_decodes_like_scalar(fuzzed_streams(), cuda, "device")
@@ -1473,12 +1460,11 @@ def _rice_edge_count():
 
 
 @pytest.mark.parametrize("i", range(_rice_edge_count()))
-def test_rice_kernel_edges_match_plain_and_parent(cuda, i):
+def test_rice_kernel_edges_match_plain(cuda, i):
     """The ring's edges (rice_crc_cases.rice_edge_calls: a zero run
     longer than a lane's ring, cursors that enter the buffer from below
     or leave it mid-partition, codes that outrun the landed words, lanes
-    that start inside a zero run): the kernel equals the plain form and
-    the parent kernel (csrc/rice_parent.cu)."""
+    that start inside a zero run): the kernel equals the plain form."""
     from claxon_tpu_torch.ops import rice
     from claxon_tpu_torch.testing import rice_crc_cases
 
@@ -1490,9 +1476,6 @@ def test_rice_kernel_edges_match_plain_and_parent(cuda, i):
     assert rice.rice_decode.launches == n + 1
     want = rice.rice_decode_plain(*args, T)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    old = rice.parent_kernel()(*args, T)
-    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
-    assert rice.rice_decode.launches == n + 1
     if "values" in call:
         v = call["values"]
         assert np.array_equal(got[0].cpu().numpy()[:v.shape[0], :v.shape[1]],
@@ -1502,11 +1485,11 @@ def test_rice_kernel_edges_match_plain_and_parent(cuda, i):
 @pytest.mark.parametrize("lanes, codes, long_share",
                          [(27648, 1024, 0.01), (100, 4097, 0.3),
                           (33, 1, 0.01)])
-def test_rice_kernel_matches_parent(cuda, lanes, codes, long_share):
+def test_rice_kernel_matches_plain(cuda, lanes, codes, long_share):
     """The headline x4 shapes and ragged ones, with the generator's long
-    unary runs at 1% and 30% of the codes: the kernel equals its parent
-    and the values that made the buffer, and the garbage calls of
-    rice_calls equal the parent too."""
+    unary runs at 1% and 30% of the codes: the kernel equals its plain
+    form and the values that made the buffer, and on the garbage calls of
+    rice_calls its plain form too."""
     from claxon_tpu_torch.ops import rice
     from claxon_tpu_torch.testing import rice_crc_cases
 
@@ -1515,13 +1498,12 @@ def test_rice_kernel_matches_parent(cuda, lanes, codes, long_share):
     calls = [(st["words"], st["start_bits"], st["params"], st["counts"],
               codes)]
     calls += [c["args"] for c in rice_crc_cases.rice_calls()]
-    parent = rice.parent_kernel()
     for words, sb, ks, cs, T in calls:
         T = max(int(cs.max()), 0) if T is None else T
         args = [_c(a, cuda) for a in (words, sb, ks, cs)]
         got = rice.rice_decode(*args, max_count=T)
-        old = parent(*args, T)
-        assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+        want = rice.rice_decode_plain(*args, T)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     out = rice.rice_decode(*[_c(st[k], cuda) for k in (
         "words", "start_bits", "params", "counts")], max_count=codes)[0]
     assert np.array_equal(out.cpu().numpy(), st["values"])
@@ -1537,14 +1519,13 @@ def _windows_edge_calls():
 
 
 @pytest.mark.parametrize("i", range(8))
-def test_crc16_windows_kernel_edges_match_plain_and_parent(cuda, i):
+def test_crc16_windows_kernel_edges_match_plain(cuda, i):
     """The word skip, the loads and the items at their edges
     (rice_crc_cases.crc16_windows_edge_calls: ends - 4 n_words wrapping,
     kept suffixes of every length mod 4 at every ends mod 4, the upload's
     edges, ranges of several 4 KB items; the seed-21 ranges at n_words 2
     and 4096), from a 16-byte-aligned stream and from one that is not
-    (its 4-byte clipped loads): the kernel equals the plain form and the
-    parent kernel (csrc/crc_lanes_parent.cu)."""
+    (its 4-byte clipped loads): the kernel equals the plain form."""
     from claxon_tpu_torch.ops import crc
 
     calls = _windows_edge_calls()
@@ -1552,14 +1533,12 @@ def test_crc16_windows_kernel_edges_match_plain_and_parent(cuda, i):
     stream, starts, ends, n_words = calls[i]["args"]
     st, en = _c(starts, cuda), _c(ends, cuda)
     padded = _c(np.concatenate([[7], stream]), cuda)
-    parent = crc.parent_windows_kernel()
     for s in (_c(stream, cuda), padded[1:]):
         n = crc.crc16_frames_device.launches
         got = crc.crc16_frames_device(s, st, en, n_words)
         assert crc.crc16_frames_device.launches == n + 1
         assert torch.equal(got, crc.crc16_frames_device_plain(s, st, en,
                                                               n_words))
-        assert torch.equal(got, parent(s, st, en, n_words))
 
 
 def test_new_wrappers_launch_or_raise(cuda):

@@ -394,8 +394,7 @@ def test_group_merge_one_upload():
     _assert_like_host(datas, dd)
 
 
-@pytest.mark.parametrize("name", ["find_frame_headers", "bswap_words",
-                                  "parse_candidates", "pack_summary",
+@pytest.mark.parametrize("name", ["find_frame_headers", "pack_summary",
                                   "walk_frames", "gather_values",
                                   "demux_front"])
 def test_wrappers_refuse_non_cpu_tensors(name):
@@ -408,11 +407,6 @@ def test_wrappers_refuse_non_cpu_tensors(name):
     calls = {
         "find_frame_headers": (segment.find_frame_headers,
                                (meta(64), 256, 8)),
-        "bswap_words": (tsp.bswap_words, (meta(64),)),
-        "parse_candidates": (tsp.parse_candidates,
-                             (meta(8), meta(8, dtype=torch.bool),
-                              meta(8, 16), meta(), meta(8), meta(8), 1024,
-                              2, 256)),
         "pack_summary": (tsp.pack_summary,
                          (meta(8), meta(8, 9), meta(8), meta(4),
                           meta(4, dtype=torch.bool), meta(8), meta(8), 2)),

@@ -21,7 +21,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
       of the headline bucket and of every mixed bucket that packs, plus
       their edge cases (the int16 boundaries, int32 extremes, one
       out-of-range value in the last column of the last lane, per-lane
-      flags, T = 2, pack -> unpack); K1 + K3 fused against its plain form
+      flags, T = 2, pack -> unpack); interleave_runs against its plain
+      form on the random lane plans of ``interleave_cases`` and timed
+      with its bound at the host cell's bucket (one CD track, (5248,
+      4096) stereo) and at a mono speech dispatch ((12544, 4096), 256
+      streams); K1 + K3 fused against its plain form
       and against K1 followed by K3's torch ops on every bucket, and timed
       against them at the headline bucket; K3 alone (torch ops, held to
       its CPU result) and the mb unpack timed alone there; K1 + K3 on the
@@ -78,17 +82,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
       device="cuda", on the host-walk path (segmentation="host", pinned
       in every call that counts or times it) and on the segmented path
       (segmentation="device"), and hold every PCM to the C++ scalar
-      decoder and the STREAMINFO MD5; the PCM comes to the host through
-      the int16 transfer (K3b pack at fetch time; the buckets that packed
-      and the bytes copied back are printed, 56,623,104 for the headline
-      bucket), and a damaged 16-bit stream whose garbage leaves int16
-      (its frame CRC repaired) must set the overflow flag and come back
-      through the int32 refetch with the scalar decoder's PCM; each
+      decoder and the STREAMINFO MD5; the PCM comes to the host landed
+      (interleave_runs a bucket into one device arena, one copy into
+      pinned memory that backs the results, no K3b pack: the buckets
+      landed and the bytes copied back are printed, the arena's for the
+      headline batch), and a damaged 16-bit stream whose garbage leaves
+      int16 (its frame CRC repaired) must come back exact, landed like
+      any other, with the scalar decoder's PCM; each
       path's kernel launch counts are reset just before its headline
       decode and read just after it (K1 alone and K3's torch ops must not
       run on the card); the fallback corpus decodes through K1 + K3
-      alone; sync(), device_buckets() and
-      lane_plans() must launch no K3b kernel; the segmented headline
+      alone; sync(), device_buckets() and lane_plans() must launch no
+      K3b kernel and no interleave_runs; the segmented headline
       decode must not fall back, and the mixed 24-bit and generated
       6-channel streams must; on every default-route run K9 and K10
       launch 0 times and K7 writes no deltas, and on every run K5's own
@@ -106,9 +111,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
       running;
   (e) time the device-resident and to-host decode of the headline batch
       on both paths, with the segmented path's host stages; split the
-      to-host tail into the pack-and-copy wait and the host scatter (the
-      program's claxon.fetch.* spans), with the int16 transfer and with
-      it switched off;
+      to-host tail into the landing-and-copy wait and the cutting of the
+      arena into views (the program's claxon.fetch.* spans);
   (f) decode one stream of at least 2^27 bytes (8 channels of 24-bit
       audio, FIXED subframes) on both paths: it walks in chunks of frames
       below the int32 limit, bit-exact against the scalar decoder and the
@@ -117,8 +121,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
       its plain form on the stream's
       whole upload, and K7 on its distinct frames, each as one 8-channel
       group;
-  (g) mux each of the 8 headline streams, and the mixed 24-bit stream
-      (whose bucket must not pack), into Ogg and into MP4 (3 frames per
+  (g) mux each of the 8 headline streams, and the mixed 24-bit stream,
+      into Ogg and into MP4 (3 frames per
       chunk) and decode them with decode_ogg_stream / decode_mp4_stream
       on the card: PCM equal to the scalar decoder's and the MD5; one
       corrupted Ogg page CRC and one short MP4 chunk must raise the
@@ -126,14 +130,15 @@ Phases, each of which raises on failure (so the script exits non-zero):
       from Ogg and from MP4, with use_native=False (the Python extractor
       and the FrameDesc route) must give the default route's PCM;
   (h) the FrameDesc route: (h1) decode_streams(mixed + generated, False)
-      through the Python extractor, bit-exact, launching K1 + K3 once a
-      bucket and K3b unpack and pack exactly where the packing rule says
-      (residuals that fit int16 with T even; frames of 16 bits or fewer),
-      and none of K2, K4, K5-K10, K1 alone or K3's torch ops; (h2)
+      through the Python extractor, bit-exact, launching K1 + K3 and
+      interleave_runs once a bucket and K3b unpack exactly where the
+      packing rule says (residuals that fit int16 with T even), and none
+      of K3b pack, K2, K4, K5-K10, K1 alone or K3's torch ops; (h2)
       headline x4 through decode_batches_device on the C++ extractor's
       FrameDescs: one bucket (6912, 4096), one launch each of K3b unpack,
-      K1 + K3 and K3b pack, bit-exact, K1 + K3 held to its plain form on
-      the bucket and timed with its bound, the extraction, the dispatch
+      K1 + K3 and interleave_runs, bit-exact, K1 + K3 held to its plain
+      form on the bucket and timed with its bound, the extraction, the
+      dispatch
       device-resident and to host timed (median of 5, with the range),
       and the bytes uploaded; (h3) decode_streams(headline[:2], True,
       device_decode_bucket), PCM equal to (h2)'s; (h4) FlacReader on the
@@ -144,7 +149,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
       card) and a mesh of two shards on the one card each decode headline
       x4 through decode_streams_sharded on the host walk and the
       segmented path (each per-lane kernel launched once a shard per
-      bucket or dispatch, the front, K7 and the summary once a group),
+      bucket or dispatch, the front, K7 and the summary once a group;
+      sharded buckets are not landed, so K3b pack runs once a shard where
+      the unsharded decode launched interleave_runs),
       then mixed and generated with segmentation "host", "device" and
       None ("auto", the cached choice reset), and mixed with
       use_native=False, every PCM equal to the unsharded decode's, the
@@ -163,15 +170,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
   (j) the sample-shipping route, CLAXON_TPU_NO_BITS=1 set only around
       it: (j1) headline x4 through decode_streams_device (the cached
       "auto" choice ignored and left as it was) is one raw bucket (6912,
-      4096) uploaded as int16 pairs, launching K3b unpack, K1 + K3 and K3b
-      pack once each per batch to host and none of K2, K4, K5-K10; K3b
+      4096) uploaded as int16 pairs, launching K3b unpack, K1 + K3 and
+      interleave_runs once each per batch to host and none of K3b pack,
+      K2, K4, K5-K10; K3b
       unpack and K1 + K3 held to their plain forms on its recorded upload
       and timed with their bounds; the C++ raw extraction and the
       dispatch, device-resident and to host, timed (median of 5, with the
       range); (j2) mixed + generated through decode_streams, each
-      kernel's launches as the FrameDesc route's packing rule predicts;
+      kernel's launches as the FrameDesc route's packing rule predicts
+      (interleave_runs once a bucket, no K3b pack);
       (j3) the first headline stream from Ogg and from MP4 (the C++
-      FrameDescs, then K3b unpack, K1 + K3 and K3b pack); (j4) headline
+      FrameDescs, then K3b unpack, K1 + K3 and interleave_runs); (j4)
+      headline
       x4 through decode_streams_sharded over two shards of the card (the
       FrameDesc step: K1 + K3 and K3b unpack once a shard, no K3b pack)
       and through the raw route over the same mesh; every PCM equal to
@@ -871,6 +881,52 @@ def phase_b_pack16():
             f"{int(lanes.sum())} lane(s) flagged")
 
 
+def phase_b_interleave():
+    """interleave_runs against its plain form (torch ops on the same card
+    tensors), tolerance 0: every random plan of ``interleave_cases``, then
+    timed at the host cell's bucket shape (one CD track, (5248, 4096)
+    stereo) and at a mono speech dispatch's ((12544, 4096), 256 streams).
+    Returns (rows, bounds) under "interleave" (the CD track) and
+    "interleave_speech"."""
+    import numpy as np
+    import torch
+
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch.ops import epilogue
+    from claxon_tpu_torch.testing.interleave_cases import (CASE_SEEDS,
+                                                           headline_case,
+                                                           plan_case)
+
+    rows, bounds = {}, {}
+    cases = [(f"seed {seed}", plan_case(seed)) for seed in CASE_SEEDS]
+    cases += [("interleave", headline_case(1, 2588, 4096, 2)),
+              ("interleave_speech", headline_case(256, 49, 4096, 1))]
+    for label, (buckets, plans, shapes) in cases:
+        offsets, total = tp.arena_offsets([np.zeros(sh) for sh in shapes])
+        arena = torch.zeros(total, dtype=torch.int32, device=DEVICE)
+        plain = torch.zeros(total, dtype=torch.int32, device=DEVICE)
+        for b, plan in zip(buckets, plans):
+            x = torch.from_numpy(b).to(DEVICE)
+            runs = tp.arena_runs(plan, offsets)
+            r = compare(f"interleave_runs {label} {b.shape}",
+                        lambda: epilogue.interleave_runs(x, runs, arena),
+                        lambda: epilogue.interleave_runs_plain(x, runs,
+                                                               plain))
+        if label.startswith("seed"):
+            continue
+        # Each landed sample read once and written once.
+        moved = 8 * sum(nf * bs * nch for _si, _o, nf, bs, nch, _l in plan)
+        rows[label], bounds[label] = r, bound(moved)
+        zeros_ms = cuda_ms(lambda: torch.zeros(total, dtype=torch.int32,
+                                               device=DEVICE), 20)
+        log(f"(b) interleave_runs {label} {b.shape}, {len(plan)} runs: "
+            f"== plain; {r[1]:.4f} ms, bound {bounds[label][0]:.4f} ms "
+            f"(bytes, {moved} moved), plain {r[2]:.3f} ms; the arena's "
+            f"torch.zeros {zeros_ms:.4f} ms")
+    log(f"(b) interleave_runs == plain on {len(CASE_SEEDS)} random plans")
+    return rows, bounds
+
+
 def front_report(tag, args):
     """The fused front (bswap, K5, fields and compaction in two kernels,
     ``seg_parse.demux_front``) on one group's arguments: equal to its plain
@@ -1486,17 +1542,16 @@ def overflow_stream():
 
 
 def fetch_stats(dd):
-    """(buckets, buckets fetched as int16 pairs, buckets refetched as
-    int32 after the overflow flag, bytes copied back) of a DeviceDecoded
-    after to_host()."""
-    packed = refetched = nbytes = 0
+    """(buckets, buckets landed, buckets fetched as int16 pairs, buckets
+    refetched as int32 after the overflow flag, bytes copied back) of a
+    DeviceDecoded after to_host()."""
+    counters = dd.trace.counters
+    packed = refetched = 0
     for d in dd.dispatches:
-        if d.packed:
-            packed += 1
-            nbytes += tensor_bytes(d.words, d.flag)
-            refetched += d.host is not None
-        nbytes += tensor_bytes(d.host)
-    return len(dd.dispatches), packed, refetched, nbytes
+        packed += d.words is not None
+        refetched += d.words is not None and d.host is not None
+    return (len(dd.dispatches), counters["fetch_landed_buckets"], packed,
+            refetched, counters["fetch_bytes"])
 
 
 def large_source():
@@ -1710,7 +1765,8 @@ def phase_g(base, wide):
                 "K2": entropy.decode_residual_bits_stream,
                 "K4": crc.crc16_ranges,
                 "K3b_pack": epilogue.pack_int16_pairs,
-                "K3b_unpack": epilogue.unpack_int16_pairs}
+                "K3b_unpack": epilogue.unpack_int16_pairs,
+                "interleave": epilogue.interleave_runs}
     first = None
     for i, flac in enumerate(list(base) + [wide]):
         si, want = native.decode_stream_scalar(flac)
@@ -1732,10 +1788,9 @@ def phase_g(base, wide):
             if pcm_md5(dec.pcm, si.bits_per_sample) != si.md5sum:
                 raise AssertionError(f"(g) stream {i} from {name}: MD5 "
                                      "mismatch")
-            packs = si.bits_per_sample <= 16
-            if (counts["K3b_pack"] > 0) != packs or counts["K1"] or not all(
-                    counts[k] > 0
-                    for k in ("K1+K3", "K2", "K4", "K3b_unpack")):
+            if counts["K3b_pack"] or counts["K1"] or not all(
+                    counts[k] > 0 for k in ("K1+K3", "K2", "K4",
+                                            "K3b_unpack", "interleave")):
                 raise AssertionError(f"(g) stream {i} from {name}: "
                                      f"launches {counts}")
             if first is None:
@@ -1863,27 +1918,31 @@ def phase_h(drive, datas4, mixed, generated):
         datas, False, device=DEVICE))
     h1_ms = (time.perf_counter() - t0) * 1e3
     check_decoded("(h1) mixed + generated, use_native=False", datas, res)
-    want = {"K1+K3": n, "K3b_unpack": unpacks, "K3b_pack": packs}
+    # Every bucket lands: no K3b pack, one interleave_runs a bucket.
+    want = {"K1+K3": n, "K3b_unpack": unpacks, "K3b_pack": 0,
+            "interleave": n}
     if any(counts[k] for k in absent) or any(
             counts[k] != v for k, v in want.items()):
         raise AssertionError(f"(h1) launches {counts}, expected {want} and "
                              f"none of {absent}")
     log(f"(h1) decode_streams(mixed + generated, False): {len(datas)} "
         f"streams, {n} buckets ({unpacks} uploaded as int16 pairs, {packs} "
-        f"fetched as int16 pairs) in {h1_ms:.1f} ms (Python extractor "
+        f"of 16-bit audio, all landed) in {h1_ms:.1f} ms (Python extractor "
         f"included); launches {counts}")
     out["h1"] = {"streams": len(datas), "buckets": n, "launches": counts,
                  "ms": h1_ms}
 
     # (h2) the FrameDesc dispatch at full width, fed by the C++ extractor.
     batches = [native.extract_stream(d) for d in datas4]
-    dd, counts = drive(("K1+K3", "K3b_unpack", "K3b_pack"), lambda: fetched(
-        tp.decode_batches_device(batches, device=DEVICE)))
+    dd, counts = drive(("K1+K3", "K3b_unpack", "interleave"),
+                       lambda: fetched(tp.decode_batches_device(
+                           batches, device=DEVICE)))
     # One bucket: at the full size (6912, 4096).
     shape = tp.bucket_shape(2 * len(dd.frames), 4096)
+    fetch = ("K1+K3", "K3b_unpack", "K3b_pack", "interleave")
     if [tuple(d.out_full.shape) for d in dd.dispatches] != [shape] \
-            or [counts[k] for k in ("K1+K3", "K3b_unpack", "K3b_pack")] \
-            != [1, 1, 1] or any(counts[k] for k in absent):
+            or [counts[k] for k in fetch] != [1, 1, 0, 1] \
+            or any(counts[k] for k in absent):
         raise AssertionError(f"(h2) buckets {len(dd.dispatches)} of "
                              f"{dd.dispatches[0].out_full.shape}, launches "
                              f"{counts}")
@@ -1958,13 +2017,14 @@ def phase_h(drive, datas4, mixed, generated):
 
 
 #: The JAX package's other entropy routes: (variable, value,
-#: segmentation, the kernels the headline decode must launch).
+#: segmentation, the kernels the headline decode must launch besides the
+#: fetch's: interleave_runs on one card, K3b pack over shards).
 ENTROPY_ROUTES = (("CLAXON_TPU_ENTROPY", "delta", "host",
-                   ("K9", "K1+K3", "K3b_pack")),
+                   ("K9", "K1+K3")),
                   ("CLAXON_TPU_SEG_ENTROPY", "delta", "device",
-                   ("K5", "K6", "K7", "K10", "K1+K3", "K4", "K3b_pack")),
+                   ("K5", "K6", "K7", "K10", "K1+K3", "K4")),
                   ("CLAXON_TPU_SEG_ENTROPY", "scan", "device",
-                   ("K5", "K6", "K7", "K2", "K1+K3", "K4", "K3b_pack")))
+                   ("K5", "K6", "K7", "K2", "K1+K3", "K4")))
 
 
 def phase_i(drive, datas4, mixed, generated, base, host_launches,
@@ -2003,6 +2063,16 @@ def phase_i(drive, datas4, mixed, generated, base, host_launches,
     per_lane = ("K1+K3", "K2", "K4", "K8", "K9", "K10", "K3b_pack",
                 "K3b_unpack")
     group = ("K5", "K6", "K7")
+
+    def sharded_launches(ref, n, kernels):
+        """The launches over ``n`` shards from the unsharded decode's
+        ``ref``: a per-lane kernel once a shard, a group kernel once.
+        Sharded buckets are not landed: K3b pack runs once a shard where
+        the unsharded decode landed a bucket, interleave_runs never."""
+        want = {k: ref[k] * (n if k in per_lane else 1) for k in kernels}
+        want.update(K3b_pack=ref["interleave"] * n, interleave=0)
+        return want
+
     meshes = {"one": make_mesh(),
               "two": make_mesh(devices=[f"{DEVICE}:0"] * 2)}
     if meshes["one"].size != 1 or meshes["two"].size != 2:
@@ -2032,8 +2102,7 @@ def phase_i(drive, datas4, mixed, generated, base, host_launches,
                 datas4, mesh, segmentation=path))
             held(f"headline x{HEADLINE_REPLICAS}, {path}, {name} shard(s)",
                  datas4, res, want4)
-            want = {k: ref[k] * (n if k in per_lane else 1)
-                    for k in per_lane + group}
+            want = sharded_launches(ref, n, per_lane + group)
             if {k: counts[k] for k in want} != want:
                 raise AssertionError(f"(i) {path}, {n} shard(s): launches "
                                      f"{counts}, expected {want}")
@@ -2066,8 +2135,9 @@ def phase_i(drive, datas4, mixed, generated, base, host_launches,
         ref = routes[route]["launches"]
         os.environ[var] = value
         try:
-            res, counts = drive(kernels, lambda: decode_streams_sharded(
-                datas4, two, segmentation=path))
+            res, counts = drive(kernels + ("K3b_pack",),
+                                lambda: decode_streams_sharded(
+                                    datas4, two, segmentation=path))
             held(f"headline x{HEADLINE_REPLICAS}, {route}, two shard(s)",
                  datas4, res, want4)
             held(f"mixed, {route}, two shard(s)", mixed,
@@ -2075,8 +2145,8 @@ def phase_i(drive, datas4, mixed, generated, base, host_launches,
                  unsharded(mixed, path))
         finally:
             del os.environ[var]
-        want = {k: ref[k] * (two.size if k in per_lane else 1)
-                for k in per_lane + group + ("K7_with_deltas",)}
+        want = sharded_launches(ref, two.size,
+                                per_lane + group + ("K7_with_deltas",))
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"(i) {route}, two shards: launches "
                                  f"{counts}, expected {want}")
@@ -2193,7 +2263,8 @@ def phase_j(drive, datas4, mixed, generated, base):
     """(j) The sample-shipping route, ``CLAXON_TPU_NO_BITS=1`` (set only
     around this phase): (j1) headline x4 through decode_streams_device is
     one raw bucket (6912, 4096) uploaded as int16 pairs, one launch each
-    of K3b unpack, K1 + K3 and K3b pack per batch to host and none of K2,
+    of K3b unpack, K1 + K3 and interleave_runs per batch to host and none
+    of K3b pack, K2,
     K4, K5-K10; K3b unpack and K1 + K3 held to their plain forms on its
     upload and timed; the C++ raw extraction, the dispatch and the two
     through decode_streams_device in one window timed (median of 5, with
@@ -2243,13 +2314,14 @@ def phase_j(drive, datas4, mixed, generated, base):
     pb._decode_sample_shards = recorded
     try:
         # (j1) headline x4: one raw bucket.
-        dd, counts = drive(("K1+K3", "K3b_unpack", "K3b_pack"),
+        dd, counts = drive(("K1+K3", "K3b_unpack", "interleave"),
                            lambda: fetched(ct.decode_streams_device(
                                datas4, device=DEVICE)))
         check_decoded(f"(j1) headline x{HEADLINE_REPLICAS}, "
                       "CLAXON_TPU_NO_BITS", datas4, dd.results)
         expect(f"headline x{HEADLINE_REPLICAS}", counts,
-               {"K1+K3": 1, "K3b_unpack": 1, "K3b_pack": 1})
+               {"K1+K3": 1, "K3b_unpack": 1, "K3b_pack": 0,
+                "interleave": 1})
         (d,) = dd.dispatches
         ((arrays, in_packed),) = uploads
         shape = tuple(d.out_full.shape)
@@ -2320,7 +2392,8 @@ def phase_j(drive, datas4, mixed, generated, base):
         check_decoded("(j2) mixed + generated, CLAXON_TPU_NO_BITS", datas,
                       res)
         expect("mixed + generated", counts,
-               {"K1+K3": n, "K3b_unpack": unpacks, "K3b_pack": packs})
+               {"K1+K3": n, "K3b_unpack": unpacks, "K3b_pack": 0,
+                "interleave": n})
 
         # (j3) the containers: the C++ FrameDescs, the FrameDesc route.
         for fmt, fn, mux in (("ogg", ct.decode_ogg_stream, mux_ogg_flac),
@@ -2333,7 +2406,8 @@ def phase_j(drive, datas4, mixed, generated, base):
             check_decoded(f"(j3) headline[0] from {fmt}, CLAXON_TPU_NO_BITS",
                           base[:1], [res])
             expect(f"{fmt} headline[0]", counts,
-                   {"K1+K3": 1, "K3b_unpack": 1, "K3b_pack": 1})
+                   {"K1+K3": 1, "K3b_unpack": 1, "K3b_pack": 0,
+                    "interleave": 1})
 
         # (j4) two shards of the card: the sharded call's FrameDesc step
         # (its shards come back as int32, no K3b pack), and the raw route.
@@ -2343,7 +2417,8 @@ def phase_j(drive, datas4, mixed, generated, base):
         check_decoded(f"(j4) headline x{HEADLINE_REPLICAS}, "
                       "decode_streams_sharded, two shards", datas4, res)
         expect("decode_streams_sharded, two shards", counts,
-               {"K1+K3": 2, "K3b_unpack": 2, "K3b_pack": 0})
+               {"K1+K3": 2, "K3b_unpack": 2, "K3b_pack": 0,
+                "interleave": 0})
         dd, counts = drive(("K1+K3", "K3b_unpack", "K3b_pack"),
                            lambda: fetched(ct.decode_streams_device(
                                datas4, lane_quantum=lane_quantum(two),
@@ -2351,7 +2426,8 @@ def phase_j(drive, datas4, mixed, generated, base):
         check_decoded(f"(j4) headline x{HEADLINE_REPLICAS}, raw route, two "
                       "shards", datas4, dd.results)
         expect("raw route, two shards", counts,
-               {"K1+K3": 2, "K3b_unpack": 2, "K3b_pack": 2})
+               {"K1+K3": 2, "K3b_unpack": 2, "K3b_pack": 2,
+                "interleave": 0})
     finally:
         pb._decode_sample_shards = shards
         del os.environ["CLAXON_TPU_NO_BITS"]
@@ -2410,6 +2486,9 @@ def main():
     fallback = fallback_corpus()
     phase_b_fallback(fallback)
     phase_b_pack16()
+    il_rows, il_bounds = phase_b_interleave()
+    rows.update(il_rows)
+    bounds.update(il_bounds)
     seg_rows, seg_bounds = phase_b_seg(datas4, mixed)
     phase_b_front(base[0], fallback)
     rows.update(seg_rows)
@@ -2447,7 +2526,8 @@ def main():
                 "K10": [entropy.decode_residual_bits_stream_delta],
                 "K4": [crc.crc16_ranges],
                 "K3b_pack": [epilogue.pack_int16_pairs],
-                "K3b_unpack": [epilogue.unpack_int16_pairs], **seg_wrappers,
+                "K3b_unpack": [epilogue.unpack_int16_pairs],
+                "interleave": [epilogue.interleave_runs], **seg_wrappers,
                 **{k: [w] for k, w in test_only.items()}}
     # K3's torch ops are the fused kernel's plain form: count their calls
     # on card tensors (there must be none on a decode path).
@@ -2508,23 +2588,24 @@ def main():
         return dd
 
     def to_host_checked(label, datas, dd):
-        """to_host() through the int16 transfer, checked against the
-        scalar decoder; prints what packed and the bytes copied back. A
-        bucket must pack exactly when all its streams are 16-bit or
-        narrower, and none may need the int32 refetch."""
+        """to_host() through the landing, checked against the scalar
+        decoder; prints the buckets landed and the bytes copied back.
+        Every bucket must land (none fetched as int16 pairs), every
+        result's PCM be a view of the one pinned arena, and the bytes be
+        the arena's and the CRC copies'."""
         res = dd.to_host()
         check_decoded(label, datas, res)
-        n, packed, refetched, nbytes = fetch_stats(dd)
-        log(f"(c) {label}: {packed} of {n} buckets came back as int16 "
-            f"pairs, {refetched} refetched as int32, {nbytes} bytes copied "
-            "back")
-        want = [all(res[run[0]].streaminfo.bits_per_sample <= 16
-                    for run in plan) for plan in dd.lane_plans()]
-        if refetched or [d.packed for d in dd.dispatches] != want:
-            raise AssertionError(f"{label}: packed "
-                                 f"{[d.packed for d in dd.dispatches]}, "
-                                 f"expected {want}; {refetched} refetched")
-        return nbytes
+        n, landed, packed, _refetched, nbytes = fetch_stats(dd)
+        arena = dd._landed[0]
+        log(f"(c) {label}: {landed} of {n} buckets landed, {packed} came "
+            f"back as int16 pairs, {nbytes} bytes copied back (the arena "
+            f"{tensor_bytes(arena)})")
+        if landed != n or packed or not arena.is_pinned() or not all(
+                np.shares_memory(r.pcm, arena.numpy()) for r in res) \
+                or nbytes != tensor_bytes(arena, dd._crc_host or []):
+            raise AssertionError(f"{label}: {landed} of {n} buckets "
+                                 f"landed, {packed} packed, {nbytes} bytes")
+        return tensor_bytes(arena)
 
     def phase_auto():
         """The default route: segmentation=None with CLAXON_TPU_SEGMENTATION
@@ -2572,9 +2653,9 @@ def main():
             finally:
                 del os.environ["CLAXON_TPU_SEGMENTATION"]
 
-        path_k = {"host": ("K1+K3", "K2", "K4", "K3b_pack"),
+        path_k = {"host": ("K1+K3", "K2", "K4", "interleave"),
                   "device": ("K1+K3", "K4", "K5", "K6", "K7", "K8",
-                             "K3b_pack")}
+                             "interleave")}
         res, counts = pinned("host")
         check_decoded(f"headline x{HEADLINE_REPLICAS}, pipelined in batches "
                       "of 8 on the host walk", datas4, res)
@@ -2602,7 +2683,7 @@ def main():
     auto, pipe_launches, depth_ms = phase_auto()
 
     dd, launches = drive(
-        ("K1+K3", "K2", "K4", "K3b_pack", "K3b_unpack"),
+        ("K1+K3", "K2", "K4", "interleave", "K3b_unpack"),
         lambda: fetched(ct.decode_streams_device(datas4, segmentation="host",
                                                  device=DEVICE)))
     host_launches = dict(launches)
@@ -2612,10 +2693,12 @@ def main():
     back = to_host_checked(f"headline x{HEADLINE_REPLICAS}, to host", datas4,
                            dd)
     L, T = dd.dispatches[0].out_full.shape
-    # At the full size the bucket is (6912, 4096): 56,623,104 bytes.
-    if back != L * T * 2 + 4 or T != 4096:
+    # The arena: every stream's PCM, each padded to 4 words.
+    want_bytes = 4 * sum((r.pcm.size + 3) // 4 * 4 for r in res)
+    if back != want_bytes or T != 4096 or launches["K3b_pack"]:
         raise AssertionError(f"headline bucket {(L, T)}: {back} bytes "
-                             f"copied back, expected {L * T * 2} + the flag")
+                             f"landed, expected {want_bytes}; launches "
+                             f"{launches}")
     log(f"(c) K1+K3 on the main bucket ({main_shape}): "
         f"{rows['K1+K3'][1]:.4f} ms, bound {bounds['K1+K3'][0]:.4f} ms "
         f"({bounds['K1+K3'][1]}), {launches['K1+K3']} launch(es) in the "
@@ -2625,7 +2708,7 @@ def main():
     check_decoded(f"headline x{HEADLINE_REPLICAS}, decode_streams (the "
                   "default route)", datas4,
                   ct.decode_streams(datas4, device=DEVICE))
-    # The mixed corpus packs every bucket but the 24-bit stream's.
+    # The mixed corpus lands every bucket, the 24-bit stream's too.
     to_host_checked("mixed", mixed,
                     ct.decode_streams_device(mixed, segmentation="host",
                                              device=DEVICE))
@@ -2645,6 +2728,7 @@ def main():
                   [ct.decode_stream(d, True, device=DEVICE)
                    for d in generated])
     epilogue.pack_int16_pairs.launches = 0
+    epilogue.interleave_runs.launches = 0
     dd = ct.decode_streams_device(datas4, segmentation="host",
                                   device=DEVICE).sync()
     buckets = dd.device_buckets()
@@ -2653,10 +2737,12 @@ def main():
                and b[2].dtype == torch.int32 for b in buckets):
         raise AssertionError("device_buckets() are not int32 tensors on "
                              "the card")
-    if epilogue.pack_int16_pairs.launches:
-        raise AssertionError("the device-resident path launched K3b pack")
+    if epilogue.pack_int16_pairs.launches or \
+            epilogue.interleave_runs.launches:
+        raise AssertionError("the device-resident path launched K3b pack "
+                             "or interleave_runs")
     log("(c) sync(), device_buckets() and lane_plans() launched no K3b "
-        "pack")
+        "pack and no interleave_runs")
     check_decoded(f"headline x{HEADLINE_REPLICAS}, device-resident", datas4,
                   dd.to_host())
 
@@ -2665,7 +2751,7 @@ def main():
                                         device=DEVICE)
 
     dd, seg_launches = drive(
-        ("K1+K3", "K4", "K5", "K6", "K7", "K8", "K3b_pack"),
+        ("K1+K3", "K4", "K5", "K6", "K7", "K8", "interleave"),
         lambda: fetched(seg_decode(datas4)))
     launches.update({k: seg_launches[k] for k in seg_wrappers})
     log(f"(c) segmented path, launches in the headline decode to host: "
@@ -2676,10 +2762,12 @@ def main():
                              "path")
     to_host_checked(f"headline x{HEADLINE_REPLICAS}, segmented", datas4, dd)
     epilogue.pack_int16_pairs.launches = 0
+    epilogue.interleave_runs.launches = 0
     seg_decode(datas4).sync().device_buckets()
-    if epilogue.pack_int16_pairs.launches:
+    if epilogue.pack_int16_pairs.launches or \
+            epilogue.interleave_runs.launches:
         raise AssertionError("the segmented device-resident path launched "
-                             "K3b pack")
+                             "K3b pack or interleave_runs")
     for label, datas, want_fb in (
             ("mixed", mixed, [MIXED_SPECS.index(MIXED_24BIT)]),
             ("generated", generated,
@@ -2718,7 +2806,8 @@ def main():
 
             os.environ[var] = value
             try:
-                dd, counts = drive(path, lambda: fetched(decode(datas4)))
+                dd, counts = drive(path + ("interleave",),
+                                   lambda: fetched(decode(datas4)))
                 to_host_checked(f"headline x{HEADLINE_REPLICAS}, {route}",
                                 datas4, dd)
                 if seg == "host":
@@ -2772,15 +2861,14 @@ def main():
         if not np.array_equal(out[1].pcm, want):
             raise AssertionError(f"overflow stream, {path} path: PCM != "
                                  "scalar decoder")
-        n, packed, refetched, nbytes = fetch_stats(dd)
-        flags = [int(d.flag) for d in dd.dispatches if d.packed]
-        if packed != n or refetched != 1 or sum(flags) != 1:
-            raise AssertionError(f"overflow stream, {path} path: flags "
-                                 f"{flags}, {refetched} refetched")
+        n, landed, packed, _refetched, _nbytes = fetch_stats(dd)
+        if landed != n or packed:
+            raise AssertionError(f"overflow stream, {path} path: {landed} "
+                                 f"of {n} buckets landed, {packed} packed")
         log(f"(c) overflow stream, {path} path: {n_out} samples outside "
             f"int16 (max |x| {int(np.abs(want.astype(np.int64)).max())}); "
-            f"flags {flags}, 1 bucket refetched as int32, PCM == scalar "
-            "decoder")
+            f"{landed} of {n} buckets landed as int32, no flag, PCM == "
+            "scalar decoder")
 
     # (d) a corrupted stored frame CRC is refused, by K4 alone.
     bad = corrupt_first_frame_crc(base[0])
@@ -2858,35 +2946,31 @@ def main():
             f"to-host {ms / host_s:.2f} Ms/s ({host_s * 1e3:.1f} ms; best "
             f"{ms / host_min:.2f} Ms/s)")
     # The to-host tail, split by the program's spans: after sync() (the
-    # buckets are on the card), claxon.fetch.start (K3b pack, the copies
-    # into pinned memory queued) and claxon.fetch.wait (the wait for
-    # them), then claxon.fetch.scatter (the strided scatter into
-    # per-stream PCM); then the same with the int16 transfer switched off
-    # on the dispatches. The bytes are the program's fetch_bytes.
+    # buckets are on the card), claxon.fetch.start (the arena, the
+    # interleave_runs launches, the copy into pinned memory queued) and
+    # claxon.fetch.wait (the wait for it), then claxon.fetch.scatter
+    # (cutting the arena into per-stream views). The bytes are the
+    # program's fetch_bytes.
     split = {}
     for path in ("host", "device"):
-        for mode in ("int16", "int32"):
-            waits, scatters = [], []
-            for _ in range(TIMED_RUNS):
-                dd = ct.decode_streams_device(datas4, segmentation=path,
-                                              device=DEVICE).sync()
-                if mode == "int32":
-                    for d in dd.dispatches:
-                        d.packed = False
-                dd.to_host()
-                rec = dd.trace
-                waits.append(rec.seconds("claxon.fetch.start")
-                             + rec.seconds("claxon.fetch.wait"))
-                scatters.append(rec.seconds("claxon.fetch.scatter"))
-            split[path, mode] = (statistics.median(waits) * 1e3,
-                                 statistics.median(scatters) * 1e3,
-                                 rec.counters["fetch_bytes"])
-            w, sc, nb = split[path, mode]
-            log(f"(e)   {path:6s} to-host tail, {mode} transfer ({nb} "
-                f"bytes): pack + copy wait {w:.1f} ms (min "
-                f"{min(waits) * 1e3:.1f}, max {max(waits) * 1e3:.1f}), "
-                f"scatter {sc:.1f} ms (min {min(scatters) * 1e3:.1f}, max "
-                f"{max(scatters) * 1e3:.1f}), median of {TIMED_RUNS}")
+        waits, scatters = [], []
+        for _ in range(TIMED_RUNS):
+            dd = ct.decode_streams_device(datas4, segmentation=path,
+                                          device=DEVICE).sync()
+            dd.to_host()
+            rec = dd.trace
+            waits.append(rec.seconds("claxon.fetch.start")
+                         + rec.seconds("claxon.fetch.wait"))
+            scatters.append(rec.seconds("claxon.fetch.scatter"))
+        split[path] = (statistics.median(waits) * 1e3,
+                       statistics.median(scatters) * 1e3,
+                       rec.counters["fetch_bytes"])
+        w, sc, nb = split[path]
+        log(f"(e)   {path:6s} to-host tail ({nb} bytes landed): landing + "
+            f"copy wait {w:.1f} ms (min {min(waits) * 1e3:.1f}, max "
+            f"{max(waits) * 1e3:.1f}), views {sc:.1f} ms (min "
+            f"{min(scatters) * 1e3:.1f}, max {max(scatters) * 1e3:.1f}), "
+            f"median of {TIMED_RUNS}")
     del dd, rec
     walk_s, _ = timed(lambda: extract_streams_bits(datas4, native))
     braws = extract_streams_bits(datas4, native)
@@ -2949,6 +3033,9 @@ def main():
                             "claxon_tpu/ops/epilogue.py:78"),
                "K3b_unpack": ("claxon_tpu_torch/csrc/pack16.cu",
                               "claxon_tpu/ops/epilogue.py:101"),
+               "interleave": ("claxon_tpu_torch/csrc/pack16.cu",
+                              "none (the JAX package scatters on the host, "
+                              "claxon_tpu/pipeline.py to_host)"),
                "rice_decode": ("claxon_tpu_torch/csrc/rice.cu",
                                "claxon_tpu/ops/rice.py:126"),
                "crc16_device": ("claxon_tpu_torch/csrc/crc_lanes.cu",
@@ -3015,6 +3102,11 @@ def main():
                      buckets=rows[k["name"] + "_buckets"])
         if k["name"] == "K3b_unpack":
             k["ms_mb_tail"] = rows["unpack_mb_tail_ms"]
+        if k["name"] == "interleave":
+            # The CD track's bucket above; a mono speech dispatch here.
+            speech = rows["interleave_speech"]
+            k.update(ms_speech=speech[1], plain_ms_speech=speech[2],
+                     bound_ms_speech=bounds["interleave_speech"][0])
         if k["name"] == "rice_decode":
             # "launches" counts wrapper calls, each two kernel launches
             # (every lane alone, then the exact pass that returns at once
@@ -3061,9 +3153,8 @@ def main():
     for k in kernels + torch_ops:
         if k["name"] in rows["paced"]:
             k["ms_paced"] = rows["paced"][k["name"]]
-    to_host_tail = [{"path": path, "transfer": mode, "wait_ms": w,
-                     "scatter_ms": sc, "bytes": nb}
-                    for (path, mode), (w, sc, nb) in split.items()]
+    to_host_tail = [{"path": path, "wait_ms": w, "scatter_ms": sc,
+                     "bytes": nb} for path, (w, sc, nb) in split.items()]
     log(f"total {time.perf_counter() - t_start:.0f} s after the corpora "
         "were encoded")
     print(json.dumps({"kernels": kernels, "off_path_kernels": off_path,

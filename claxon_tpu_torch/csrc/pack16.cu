@@ -22,6 +22,37 @@
 // zeroed on the launch stream before the kernel.
 //
 // Both data pointers must be 16-byte aligned (the wrapper checks).
+//
+// interleave_runs: one bucket's lanes laid out as per-stream interleaved
+// PCM in an arena on the card.
+//
+// Replaces no TPU kernel: the JAX package scatters each bucket's lanes
+// into per-stream PCM on the host (claxon_tpu/pipeline.py,
+// DeviceDecoded.to_host). It was added to take that host pass out of
+// the port's to_host(): the card writes every stream's (samples,
+// channels) int32 PCM in its final layout, and one device-to-host copy
+// lands the arena in pinned memory that backs the results.
+//
+//   runs (R, 6) int64, one row a lane-plan run: (dst, nf, bs, nch, lane0,
+//   frame0); for f < nf, s < bs, c < nch
+//     arena[dst + (f * bs + s) * nch + c] = bucket[lane0 + f * nch + c, s],
+//   frame0 being the run's first frame in the launch's frame order (the
+//   running sum of nf). After the rows, each frame's run (n_frames
+//   int64), so a block finds its run with one load.
+//
+// What bounds it: device-memory bandwidth. It reads each landed sample
+// once and writes it once (a CD track, 85 MB each way: about 0.05 ms at
+// 3.35 TB/s). A binary search over the runs, a chain of dependent loads
+// in every block, held a mono batch of 512 runs to half the bound; the
+// per-frame run index replaces it. Block (g, y) takes samples [1024 y, 1024 y + 1024) of frame
+// g. Each thread reads 4 consecutive samples of each channel's lane (one
+// 16-byte load a channel, neighbouring threads on neighbouring addresses)
+// and writes them interleaved as nch 16-byte stores (two for stereo, one
+// for mono). Where T, the frame's first word or bs * nch is not a multiple
+// of 4, and for a frame's last bs % 4 samples, a scalar path writes one
+// word a thread, consecutive threads on consecutive words. The bucket and
+// the arena must be 16-byte aligned (the wrapper checks); the wrapper
+// checks every run against both shapes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +114,69 @@ __global__ void unpack_kernel(const int* __restrict__ words, int64_t n,
   }
 }
 
+constexpr int kRunCols = 6;
+constexpr int kChunk = kThreads * 4;  // samples of one frame a block
+
+// Samples s .. s + 3 of NCH lanes (row stride T) -> 4 * NCH words at
+// dst + s * NCH, as NCH 16-byte stores.
+template <int NCH>
+__device__ __forceinline__ void interleave4(const int* __restrict__ src,
+                                            int64_t T, int* __restrict__ dst,
+                                            int64_t s) {
+  int4 v[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+    v[c] = *reinterpret_cast<const int4*>(src + c * T + s);
+  int w[4 * NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    w[c] = v[c].x;
+    w[NCH + c] = v[c].y;
+    w[2 * NCH + c] = v[c].z;
+    w[3 * NCH + c] = v[c].w;
+  }
+  int4* out = reinterpret_cast<int4*>(dst + s * NCH);
+#pragma unroll
+  for (int j = 0; j < NCH; ++j)
+    out[j] = make_int4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+}
+
+__global__ void interleave_kernel(const int* __restrict__ bucket, int64_t T,
+                                  const int64_t* __restrict__ runs, int64_t R,
+                                  int* __restrict__ arena) {
+  const int64_t g = blockIdx.x;
+  const int64_t* row = runs + runs[R * kRunCols + g] * kRunCols;
+  const int64_t bs = row[2], nch = row[3];
+  const int64_t s0 = (int64_t)blockIdx.y * kChunk;
+  if (s0 >= bs) return;
+  const int64_t f = g - row[5];
+  const int64_t s1 = bs < s0 + kChunk ? bs : s0 + kChunk;
+  const int* src = bucket + (row[4] + f * nch) * T;
+  const int64_t d0 = row[0] + f * bs * nch;
+  int* dst = arena + d0;
+  int64_t tail = s0;  // first sample the scalar path writes
+  if (T % 4 == 0 && d0 % 4 == 0 && nch <= 8) {
+    tail = s0 + (s1 - s0) / 4 * 4;
+    const int64_t s = s0 + 4 * (int64_t)threadIdx.x;
+    if (s < tail) {
+      switch (nch) {
+        case 1: interleave4<1>(src, T, dst, s); break;
+        case 2: interleave4<2>(src, T, dst, s); break;
+        case 3: interleave4<3>(src, T, dst, s); break;
+        case 4: interleave4<4>(src, T, dst, s); break;
+        case 5: interleave4<5>(src, T, dst, s); break;
+        case 6: interleave4<6>(src, T, dst, s); break;
+        case 7: interleave4<7>(src, T, dst, s); break;
+        default: interleave4<8>(src, T, dst, s); break;
+      }
+    }
+  }
+  for (int64_t o = tail * nch + threadIdx.x; o < s1 * nch; o += kThreads) {
+    const int64_t s = o / nch;
+    dst[o] = src[(o - s * nch) * T + s];
+  }
+}
+
 }  // namespace
 
 // x (L, T) int32 -> words (L, T/2) int32; flag: 1 int32, or L with
@@ -126,6 +220,25 @@ extern "C" int cxk_unpack_int16_pairs(const int* words, int64_t n_words,
       unpack_kernel<2><<<grid, kThreads, 0, stream>>>(words, n, out);
     else
       unpack_kernel<1><<<grid, kThreads, 0, stream>>>(words, n, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// bucket (L, T) int32; runs (R, 6) int64 rows (dst, nf, bs, nch, lane0,
+// frame0), frame0 the running sum of nf, then n_frames int64, each
+// frame's row; n_frames = the sum of nf; max_bs = the largest bs; arena
+// int32, written in place.
+extern "C" int cxk_interleave_runs(const int* bucket, int64_t T,
+                                   const int64_t* runs, int64_t R,
+                                   int64_t n_frames, int64_t max_bs,
+                                   int* arena, void* cuda_stream) {
+  if (R > 0 && n_frames > 0 && max_bs > 0) {
+    const int64_t chunks = (max_bs + kChunk - 1) / kChunk;
+    if (n_frames > 0x7FFFFFFF || chunks > 65535)
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)n_frames, (unsigned)chunks);
+    interleave_kernel<<<grid, kThreads, 0, (cudaStream_t)cuda_stream>>>(
+        bucket, T, runs, R, arena);
   }
   return (int)cudaGetLastError();
 }

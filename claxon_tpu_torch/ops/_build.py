@@ -85,6 +85,9 @@ _SIGNATURES = {
     # stream
     "cxk_pack_int16_pairs": [_P, _N, _N, _N, _P, _P, _P],
     "cxk_unpack_int16_pairs": [_P, _N, _P, _P],
+    # interleave_runs -- bucket, T, runs, R, n_frames, max_bs, arena,
+    # stream
+    "cxk_interleave_runs": [_P, _N, _P, _N, _N, _N, _P, _P],
     # crc16_device -- data, L, B, lengths, tables, out, stream;
     # crc16_frames_device -- stream, S, starts, ends, F, n_words, tables,
     # out, stream

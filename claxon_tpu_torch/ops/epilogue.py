@@ -11,6 +11,11 @@ is two CUDA kernels (``csrc/pack16.cu``), each beside its plain form:
 16-bit audio crosses the host link at half width, word w of a lane
 holding sample 2w in its low half and sample 2w+1 in its high half,
 which a little-endian host reads as int16 pairs with a zero-copy view.
+``interleave_runs`` (``csrc/pack16.cu``, beside its plain form) has no
+counterpart in the JAX package, which scatters on the host: it lays a
+bucket's lanes out as per-stream interleaved PCM in a device arena,
+which ``DeviceDecoded.start_fetch`` copies to pinned host memory in one
+piece.
 
 K3 semantics (claxon ``src/subframe.rs``, ``src/frame.rs``):
 
@@ -27,6 +32,7 @@ of lanes (2p, 2p+1) -- 0 independent, 1 left/side, 2 right/side, 3
 mid/side (``claxon_tpu.extract.MODE_CODES``).
 """
 
+import numpy as np
 import torch
 
 from . import _build
@@ -34,6 +40,7 @@ from ._checks import on_cpu, require_cuda_int32
 
 __all__ = ["apply_epilogue", "pack_int16_pairs", "pack_int16_pairs_plain",
            "unpack_int16_pairs", "unpack_int16_pairs_plain",
+           "interleave_runs", "interleave_runs_plain",
            "MODE_LEFT_SIDE", "MODE_RIGHT_SIDE", "MODE_MID_SIDE"]
 
 MODE_LEFT_SIDE = 1
@@ -136,6 +143,67 @@ def unpack_int16_pairs(w):
     return out
 
 
+def _run_table(runs, bucket, arena):
+    """``runs`` as an (R, 5) int64 array of (dst, nf, bs, nch, lane0),
+    checked to lie inside the (L, T) ``bucket`` and the flat ``arena``."""
+    runs = np.asarray(runs, dtype=np.int64).reshape(-1, 5)
+    L, T = bucket.shape
+    dst, nf, bs, nch, lane0 = runs.T
+    if ((runs < 0).any() or (nch < 1).any() or (bs > T).any()
+            or (lane0 + nf * nch > L).any()
+            or (dst + nf * bs * nch > arena.numel()).any()):
+        raise ValueError("interleave_runs: a run lies outside the bucket "
+                         f"{(L, T)} or the arena ({arena.numel()} words)")
+    return runs
+
+
+def interleave_runs_plain(bucket, runs, arena):
+    """The plain PyTorch form of :func:`interleave_runs`."""
+    for dst, nf, bs, nch, lane0 in _run_table(runs, bucket, arena).tolist():
+        lanes = bucket[lane0:lane0 + nf * nch, :bs].reshape(nf, nch, bs)
+        arena[dst:dst + nf * bs * nch] = lanes.transpose(1, 2).reshape(-1)
+    return arena
+
+
+def interleave_runs(bucket, runs, arena):
+    """Lay the (L, T) int32 ``bucket``'s lane runs out in ``arena``, a flat
+    int32 tensor on its device, in place, and return it. ``runs`` holds
+    rows ``(dst, n_frames, block_size, n_channels, first_lane)``: for f <
+    n_frames, s < block_size and c < n_channels, ``arena[dst + (f *
+    block_size + s) * n_channels + c] = bucket[first_lane + f * n_channels
+    + c, s]`` (a lane-plan run of ``DeviceDecoded.lane_plans()``, its
+    stream's PCM starting at ``dst - out0 * n_channels``). Words no run
+    names keep their value. A run outside the bucket or the arena raises.
+
+    The plain form for CPU tensors; for CUDA tensors the kernel
+    (``csrc/pack16.cu``), its run table uploaded from pinned memory
+    without blocking, or an exception."""
+    if bucket.dim() != 2 or arena.dim() != 1:
+        raise ValueError("interleave_runs: expected an (L, T) bucket and a "
+                         f"flat arena, got {tuple(bucket.shape)} and "
+                         f"{tuple(arena.shape)}")
+    if on_cpu(bucket, arena):
+        return interleave_runs_plain(bucket, runs, arena)
+    dev = require_cuda_int32("interleave_runs", bucket=bucket, arena=arena)
+    _require_aligned("interleave_runs", bucket=bucket, arena=arena)
+    runs = _run_table(runs, bucket, arena)
+    nf, bs = runs[:, 1], runs[:, 2]
+    # The kernel's table: each run with its first frame, then each
+    # frame's run.
+    table = torch.from_numpy(np.concatenate([
+        np.concatenate([runs, (np.cumsum(nf) - nf)[:, None]], 1).ravel(),
+        np.repeat(np.arange(len(runs), dtype=np.int64), nf)]))
+    table = table.pin_memory().to(dev, non_blocking=True)
+    lib = _build.load()
+    _build.check(lib.cxk_interleave_runs(
+        bucket.data_ptr(), bucket.shape[1], table.data_ptr(), len(runs),
+        int(nf.sum()), int(bs.max(initial=0)), arena.data_ptr(),
+        _build.stream_handle(dev)), "cxk_interleave_runs")
+    interleave_runs.launches += 1
+    return arena
+
+
 #: kernel launches through each wrapper (CUDA tensors only).
 pack_int16_pairs.launches = 0
 unpack_int16_pairs.launches = 0
+interleave_runs.launches = 0

@@ -13,10 +13,12 @@ card finds the frames and walks the subframes itself instead
 ``CLAXON_TPU_SEGMENTATION`` or else ``"auto"``: the first batch that
 engages the device demux times both paths and the faster one is kept for
 the process. The result, :class:`DeviceDecoded`, keeps the decoded
-PCM on the device bucket by bucket; ``to_host()`` fetches it (16-bit
-buckets as int16 pairs, K3b) and scatters it into per-stream interleaved
-PCM. Each batch's host stages are spans of its record, ``dd.trace``
-(``trace``).
+PCM on the device bucket by bucket; ``to_host()`` fetches it as
+per-stream interleaved PCM: on a CUDA device the card lays every stream
+out in one arena (``interleave_runs``) that lands in pinned host memory
+by one copy, elsewhere the host scatters each bucket (16-bit buckets
+fetched as int16 pairs, K3b). Each batch's host stages are spans of its
+record, ``dd.trace`` (``trace``).
 
 ``use_native=False`` takes the JAX package's FrameDesc route instead: the
 Python extractor (``extract``, the reference-fidelity parse, frame CRC-16
@@ -83,9 +85,12 @@ class DecodedStream:
     """Decoded PCM plus stream metadata.
 
     ``pcm`` may be a view of an allocation shared with the other streams
-    of its segmented group (:func:`zeroed_pcm`): it keeps that whole
-    allocation alive until every view of it is dropped, so a caller that
-    keeps one stream of a large batch holds its group's PCM."""
+    of its batch (after ``to_host()`` on a CUDA device: the pinned host
+    arena the card's PCM landed in) or of its segmented group
+    (:func:`zeroed_pcm`): it keeps that whole allocation alive until
+    every view of it is dropped, so a caller that keeps one stream of a
+    large batch holds the batch's or the group's PCM, page-locked in the
+    first case."""
     streaminfo: object
     #: (total_samples, channels) int32, channels interleaved on axis 1.
     pcm: np.ndarray
@@ -111,6 +116,49 @@ def zeroed_pcm(shapes):
     return views
 
 
+def arena_offsets(pcms):
+    """Each stream's first word in one flat arena of every ``pcms`` array
+    (None: no stream, no words), at a multiple of 4 so the kernel's
+    16-byte stores line up, and the arena's size in words."""
+    offsets, o = [], 0
+    for p in pcms:
+        offsets.append(o)
+        if p is not None:
+            o += (p.size + 3) // 4 * 4
+    return offsets, o
+
+
+def arena_runs(plan, offsets):
+    """A bucket's lane plan as ``interleave_runs``' (R, 5) table: (the
+    run's first word in the arena, n_frames, block_size, n_channels,
+    first_lane)."""
+    return np.array([(offsets[si] + out0 * nch, nf, bs, nch, lane0)
+                     for si, out0, nf, bs, nch, lane0 in plan],
+                    dtype=np.int64).reshape(-1, 5)
+
+
+def land_buckets(buckets, plans, pcms):
+    """Lay the one-tensor ``buckets`` (on one device) out as every stream's
+    PCM in one zero-filled arena on that device, ``interleave_runs`` a
+    bucket; returns (arena, offsets), the flat int32 arena and each
+    stream's first word in it (:func:`arena_offsets`). Words no run
+    lands in stay zero."""
+    from .ops.epilogue import interleave_runs
+
+    offsets, total = arena_offsets(pcms)
+    arena = torch.zeros(total, dtype=torch.int32, device=buckets[0].device)
+    for bucket, plan in zip(buckets, plans):
+        interleave_runs(bucket, arena_runs(plan, offsets), arena)
+    return arena, offsets
+
+
+def arena_views(flat, offsets, pcms):
+    """One C-contiguous view of the numpy vector ``flat`` per stream, of
+    its ``pcms`` array's shape, at its offset (None stays None)."""
+    return [None if p is None else flat[o:o + p.size].reshape(p.shape)
+            for p, o in zip(pcms, offsets)]
+
+
 @dataclass
 class _BucketDispatch:
     """One bucket's decoded PCM on the device (and its host copies), or,
@@ -118,8 +166,8 @@ class _BucketDispatch:
     n_ch: int
     out_full: torch.Tensor      # (L, T) int32 on the device; None when
     #                             the bucket is split into shards
-    #: the bucket is fetched as int16 pairs (16-bit audio; the JAX
-    #: package's rule, set by the planners).
+    #: the bucket is fetched as int16 pairs where it is not landed
+    #: (16-bit audio; the JAX package's rule, set by the planners).
     packed: bool = False
     words: torch.Tensor = None  # packed: (L, T // 2) int32 host copy
     flag: torch.Tensor = None   # packed: () int32 host overflow flag
@@ -156,18 +204,24 @@ class DeviceDecoded:
 
     ``device_buckets()`` hands a consumer the (L, T) int32 buckets where
     they lie, and ``lane_plans()`` says which stream, frame and channel
-    each lane holds. ``to_host()`` builds the per-stream PCM: a bucket of
-    16-bit audio crosses the host link as int16 pairs (half the bytes),
-    and as int32 when its overflow flag fired, which only an invalid
-    stream's garbage can cause. The JAX package packs inside each bucket's
-    device program; the port packs in ``start_fetch()``, so a consumer that
-    reads ``device_buckets()`` and never fetches pays neither the launch
-    nor the (L, T // 2) buffer. On the bits paths frame CRC-16
-    verification runs on the device, and its verdict surfaces only through
-    ``verify_crc()``, which ``sync()`` and ``to_host()`` call: a consumer
-    reading buckets directly calls ``sync()`` before trusting them
-    (``block_until_ready()`` waits without the verdict). The FrameDesc
-    route's extractors check every frame on the host.
+    each lane holds. ``to_host()`` builds the per-stream PCM. A bucket of
+    one tensor on a CUDA device is landed: in ``start_fetch()`` the card
+    lays it out as its streams' interleaved PCM in one zero-filled device
+    arena (``interleave_runs``), and one copy brings the arena to pinned
+    host memory, whose views become the results' ``pcm`` (the host
+    touches no sample). Any other bucket (on the CPU, or split into
+    shards) is scattered on the host: 16-bit audio crosses the host link
+    as int16 pairs (half the bytes), and as int32 when its overflow flag
+    fired, which only an invalid stream's garbage can cause. The JAX
+    package packs inside each bucket's device program; the port packs in
+    ``start_fetch()``, so a consumer that reads ``device_buckets()`` and
+    never fetches pays neither the launch nor the (L, T // 2) buffer. On
+    the bits paths frame CRC-16 verification runs on the device, and its
+    verdict surfaces only through ``verify_crc()``, which ``sync()`` and
+    ``to_host()`` call: a consumer reading buckets directly calls
+    ``sync()`` before trusting them (``block_until_ready()`` waits without
+    the verdict). The FrameDesc route's extractors check every frame on
+    the host.
     """
 
     def __init__(self, results, dispatches, plans, pcms):
@@ -199,6 +253,12 @@ class DeviceDecoded:
         #: after start_fetch(), a CUDA event after the host copies per
         #: CUDA device the copies came from.
         self._fetched = None
+        #: after start_fetch() on a CUDA device: (the pinned int32 arena
+        #: the landed buckets' PCM is copied into, each stream's offset
+        #: in it, the landed dispatches); else None.
+        self._landed = None
+        #: to_host() has built the results' PCM.
+        self._on_host = False
 
     def block_until_ready(self):
         """Wait for every bucket's kernels; unlike ``sync()``, give no CRC
@@ -236,13 +296,23 @@ class DeviceDecoded:
                 fmt_err("frame CRC mismatch")
         self.crc_check = None
 
+    def _landable(self):
+        """The dispatches ``start_fetch()`` lands: those of one tensor on
+        the CUDA device of the first such one."""
+        cuda = [d for d in self.dispatches
+                if d.shards is None and d.out_full.is_cuda]
+        return [d for d in cuda
+                if d.out_full.device == cuda[0].out_full.device]
+
     def start_fetch(self):
         """Start the device-to-host copies of every bucket (into pinned
         memory, without waiting), so they overlap host work done before
-        ``to_host()``: a packed bucket's int16 pairs and overflow flag (K3b
-        pack runs here, on the current stream of the bucket's device;
-        per lane for a shard, as the JAX package packs under a mesh),
-        another bucket's int32 samples. Idempotent."""
+        ``to_host()``. The landed buckets (see the class) are laid out in
+        a zero-filled device arena (``interleave_runs`` a bucket, on the
+        current stream of their device) and the arena copied whole; of
+        every other bucket, a packed one's int16 pairs and overflow flag
+        (K3b pack runs here; per lane for a shard, as the JAX package
+        packs under a mesh), another's int32 samples. Idempotent."""
         from .ops.epilogue import pack_int16_pairs
         from .parallel.mesh import device_guard
 
@@ -261,7 +331,21 @@ class DeviceDecoded:
             return host
 
         with rec.span("claxon.fetch.start"):
+            landed = self._landable()
+            ids = {id(d) for d in landed}
+            if landed:
+                with device_guard(landed[0].out_full.device):
+                    arena, offsets = land_buckets(
+                        [d.out_full for d in landed],
+                        [p for d, p in zip(self.dispatches, self._plans)
+                         if id(d) in ids], self._pcms)
+                    self._landed = (fetch(arena), offsets, ids)
+            rec.count("fetch_landed_buckets", len(landed))
+            rec.count("fetch_scattered_buckets",
+                      len(self.dispatches) - len(landed))
             for d in self.dispatches:
+                if id(d) in ids:
+                    continue
                 for leaf in d.leaves():
                     if not leaf.packed:
                         leaf.host = fetch(leaf.out_full)
@@ -310,38 +394,57 @@ class DeviceDecoded:
         return [list(p) for p in self._plans]
 
     def to_host(self):
-        """Per-stream DecodedStreams with their PCM filled in."""
+        """Per-stream DecodedStreams with their PCM filled in: on a CUDA
+        device views of the pinned arena the landed buckets were copied
+        into (the other buckets scattered into them), else the host
+        scatter into each stream's own array. A second call gives the
+        same arrays and copies nothing."""
         rec = self.trace
         self.start_fetch()
         with rec.span("claxon.fetch.wait"):
             self._wait_fetched()
         with rec.span("claxon.fetch.scatter"):
-            for d, plan in zip(self.dispatches, self._plans):
-                outs = []
-                for leaf in d.leaves():
-                    if leaf.packed and not bool(leaf.flag.any()):
-                        # (L, T // 2) int32 -> (L, T) int16, a
-                        # little-endian view.
-                        outs.append(leaf.words.numpy().view(np.int16))
-                        continue
-                    if leaf.host is None:
-                        # Rare: an invalid stream's garbage.
-                        leaf.host = leaf.out_full.cpu()
-                    outs.append(leaf.host.numpy())
-                # A bucket's shards in lane order make its lanes again.
-                out = outs[0] if len(outs) == 1 else np.concatenate(outs)
-                for si_idx, out0, nf, bs, n_ch, lane0 in plan:
-                    pcm = self._pcms[si_idx]
-                    # One strided copy per (run, channel): frames of a run
-                    # are stream-consecutive, so their output rows are
-                    # too.
-                    for ci in range(n_ch):
-                        pcm[out0:out0 + nf * bs, ci] = \
-                            out[lane0 + ci:lane0 + nf * n_ch:n_ch,
-                                :bs].reshape(-1)
+            if not self._on_host:
+                self._scatter()
+                self._on_host = True
         with rec.span("claxon.fetch.crc"):
             self.verify_crc()
         return self.results
+
+    def _scatter(self):
+        """Cut the landed arena into the streams' PCM, then scatter every
+        other bucket into it on the host."""
+        landed = ()
+        if self._landed is not None:
+            host, offsets, landed = self._landed
+            views = arena_views(host.numpy(), offsets, self._pcms)
+            for i, view in enumerate(views):
+                if view is not None:
+                    self._pcms[i] = self.results[i].pcm = view
+        for d, plan in zip(self.dispatches, self._plans):
+            if id(d) in landed:
+                continue
+            outs = []
+            for leaf in d.leaves():
+                if leaf.packed and not bool(leaf.flag.any()):
+                    # (L, T // 2) int32 -> (L, T) int16, a little-endian
+                    # view.
+                    outs.append(leaf.words.numpy().view(np.int16))
+                    continue
+                if leaf.host is None:
+                    # Rare: an invalid stream's garbage.
+                    leaf.host = leaf.out_full.cpu()
+                outs.append(leaf.host.numpy())
+            # A bucket's shards in lane order make its lanes again.
+            out = outs[0] if len(outs) == 1 else np.concatenate(outs)
+            for si_idx, out0, nf, bs, n_ch, lane0 in plan:
+                pcm = self._pcms[si_idx]
+                # One strided copy per (run, channel): frames of a run are
+                # stream-consecutive, so their output rows are too.
+                for ci in range(n_ch):
+                    pcm[out0:out0 + nf * bs, ci] = \
+                        out[lane0 + ci:lane0 + nf * n_ch:n_ch,
+                            :bs].reshape(-1)
 
 
 def _native():
@@ -481,7 +584,8 @@ def _dispatch_bucket(frames, frame_idx, n_ch, t_bucket, lane_quantum,
     each shard's device over ``mesh``): K3b unpack when the residuals went
     up as int16 pairs (:func:`_pack_input`), then K1 + K3. Returns (the
     bucket's dispatch, bytes uploaded). K3b pack runs later, in
-    ``DeviceDecoded.start_fetch``, when ``packed`` is set."""
+    ``DeviceDecoded.start_fetch``, when ``packed`` is set and the bucket
+    is not landed."""
     from .parallel.mesh import Mesh
     from .pipeline_bits import _decode_sample_shards
 
@@ -608,10 +712,10 @@ def decode_raw_batches_device(raws, lane_quantum=_L_QUANTUM, device="cuda",
     first-seen order, and consecutive frames of one stream with one block
     size make one lane run, copied in bulk. Per bucket the samples go up
     as int16 pairs when they fit (K3b unpack on the card), then K1 + K3;
-    a bucket of frames of 16 bits or fewer is fetched as int16 pairs (K3b
-    pack in ``start_fetch()``). With a ``mesh`` (``lane_quantum`` then
-    ``parallel.lane_quantum(mesh)``) every bucket splits into its lane
-    shards. Every bucket is queued before any result is awaited."""
+    a bucket of frames of 16 bits or fewer that is not landed is fetched
+    as int16 pairs (K3b pack in ``start_fetch()``). With a ``mesh``
+    (``lane_quantum`` then ``parallel.lane_quantum(mesh)``) every bucket
+    splits into its lane shards. Every bucket is queued before any result is awaited."""
     from .ops.predict import ORDER_MAX
     from .parallel.mesh import Mesh
     from .pipeline_bits import _decode_sample_shards

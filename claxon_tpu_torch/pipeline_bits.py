@@ -24,7 +24,8 @@ bytes as the JAX package's, which a test holds it to; the one difference
 is that a delta bucket's slots start zeroed (the JAX planner leaves the
 words no chunk fills uninitialised), so the upload is deterministic.
 Each bucket also carries ``out_packed``, the JAX package's rule for
-fetching it as int16 pairs (``DeviceDecoded.start_fetch`` packs then).
+fetching it as int16 pairs (``DeviceDecoded.start_fetch`` packs then,
+where it does not land the bucket: on the CPU and over shards).
 
 With a mesh (``parallel``) every bucket's lanes split into the mesh's
 shards: the stream upload goes once to each distinct device, each shard

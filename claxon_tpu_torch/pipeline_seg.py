@@ -661,7 +661,8 @@ def finish_segmented(pending):
                                 P, SA, dev)
                         outs.append(out)
                         upload_bytes += nbytes
-                    # 16-bit audio fetches as int16 pairs (start_fetch packs).
+                    # 16-bit audio fetches as int16 pairs where start_fetch
+                    # does not land the bucket (it packs then).
                     out_packed = (_LITTLE_ENDIAN and Tb % 2 == 0
                                   and int(cols["bps"][sub].max()) <= 16)
                     dispatches.append(_shard_dispatch(nch, outs, out_packed,

@@ -47,11 +47,15 @@ Spans, all named ``claxon.*``:
 ``claxon.walk.plan``                   ``pipeline_bits.plan_raw_bits``
 ``claxon.walk.dispatch``               the host walk's uploads and launches
 ``claxon.sync.wait``, ``.crc``         ``sync()``: the kernels, the verdict
-``claxon.fetch.start``                 ``start_fetch()``: K3b pack, pinned
-                                       buffers, the copies queued
+``claxon.fetch.start``                 ``start_fetch()``: the landing
+                                       (arena, ``interleave_runs``), K3b
+                                       pack, pinned buffers, the copies
+                                       queued
 ``claxon.fetch.wait``                  ``to_host()`` waiting for the copies
-``claxon.fetch.scatter``               ``to_host()``'s strided copies into
-                                       per-stream PCM
+``claxon.fetch.scatter``               ``to_host()`` cutting the landed
+                                       arena into per-stream views, and
+                                       the strided copies of any other
+                                       bucket into per-stream PCM
 ``claxon.fetch.crc``                   ``to_host()``'s CRC verdict
 ``claxon.build``                       loading the kernel library (building
                                        it first if needed), in
@@ -66,15 +70,20 @@ Counters: ``upload_group_bytes``, the segmented path's group words
 uploaded in ``claxon.seg.upload``; ``upload_staged``, the groups staged
 in a CUDA device's pinned buffer, and ``upload_stage_grow``, those of
 them that first grew it (none on the CPU); ``fetch_bytes``, the
-device-to-host bytes ``start_fetch()`` queued; ``seg_streams``, the
-streams the segmented path queued on the device demux (after the streams
-it sent to the host walk before the demux), ``seg_frames``, the frames it
-chained, and ``seg_fallback_streams``, the streams it sent to the host
-walk, before the demux, on a chain break or with a group whose sync
-candidates overflowed (0 when none); ``seg_pcm_allocs``, the PCM
-allocations it made for its chained streams (one per group that chained
-a stream: ``seg_streams / seg_pcm_allocs`` streams share each), and
-``seg_pcm_bytes``, their bytes (samples x channels x 4).
+device-to-host bytes ``start_fetch()`` queued; ``fetch_landed_buckets``,
+the buckets it laid out on the card (``interleave_runs``) and copied as
+one arena, and ``fetch_scattered_buckets``, those that take
+``to_host()``'s host scatter (on the CPU, or split into shards): the
+landing's engagement share is landed / (landed + scattered);
+``seg_streams``, the streams the segmented path queued on the device
+demux (after the streams it sent to the host walk before the demux),
+``seg_frames``, the frames it chained, and ``seg_fallback_streams``,
+the streams it sent to the host walk, before the demux, on a chain
+break or with a group whose sync candidates overflowed (0 when none);
+``seg_pcm_allocs``, the PCM allocations it made for its chained streams
+(one per group that chained a stream: ``seg_streams / seg_pcm_allocs``
+streams share each), and ``seg_pcm_bytes``, their bytes (samples x
+channels x 4).
 (``DeviceDecoded.upload_bytes`` stays the batch's whole host-to-device
 count.)
 

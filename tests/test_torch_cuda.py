@@ -594,37 +594,104 @@ def test_pack16_wrappers_refuse_misaligned_views(cuda):
 
 
 def test_to_host_on_the_card_packs_and_refetches(cuda):
-    """On the card the 16-bit buckets come back as int16 pairs through
-    the pack kernel; device_buckets(), lane_plans() and sync() launch
-    none; a bucket whose values leave int16 sets the flag and comes back
-    as int32."""
+    """On the card every bucket is landed: ``to_host()`` launches
+    ``interleave_runs`` once a bucket and K3b pack never;
+    device_buckets(), lane_plans() and sync() launch neither; every
+    result's PCM is a C-contiguous view of one pinned host tensor, equal
+    to the scalar decoder's. A bucket whose values leave int16 comes back
+    exact, with no flag and no refetch."""
     import claxon_tpu_torch as ct
     from claxon_tpu_torch.ops import epilogue
     from claxon_tpu_torch.pipeline import (DecodedStream, DeviceDecoded,
                                            _BucketDispatch)
 
     datas = _small_streams()
-    n0 = epilogue.pack_int16_pairs.launches
+    n0 = (epilogue.interleave_runs.launches,
+          epilogue.pack_int16_pairs.launches)
     dd = ct.decode_streams_device(datas, device=cuda).sync()
     dd.device_buckets()
     dd.lane_plans()
-    assert epilogue.pack_int16_pairs.launches == n0
+    assert (epilogue.interleave_runs.launches,
+            epilogue.pack_int16_pairs.launches) == n0
     out = dd.to_host()
-    assert epilogue.pack_int16_pairs.launches == n0 + len(dd.dispatches)
-    assert all(d.packed and d.words.is_pinned() and int(d.flag) == 0
+    assert epilogue.interleave_runs.launches == n0[0] + len(dd.dispatches)
+    assert epilogue.pack_int16_pairs.launches == n0[1]
+    assert all(d.words is None and d.flag is None and d.host is None
                for d in dd.dispatches)
+    host = dd._landed[0]
+    assert host.is_pinned() and host.dtype == torch.int32
     for data, dec in zip(datas, out):
+        assert dec.pcm.flags.c_contiguous
+        assert np.shares_memory(dec.pcm, host.numpy())
         assert np.array_equal(dec.pcm, native.decode_stream_scalar(data)[1])
+    assert dd.to_host()[0].pcm is out[0].pcm
 
     vals = np.arange(8 * 64, dtype=np.int32).reshape(8, 64) * 300 - 70000
-    pcm = np.zeros((3 * 50, 2), np.int32)
+    pcm = np.zeros((3 * 50 + 7, 2), np.int32)
     d = _BucketDispatch(2, _c(vals, cuda), True)
     dd = DeviceDecoded([DecodedStream(None, pcm, [0, 50, 100], [50] * 3)],
                        [d], [[(0, 0, 3, 50, 2, 0)]], [pcm])
     got = dd.to_host()[0].pcm
-    assert int(d.flag) == 1
-    assert np.array_equal(got[:50, 0], vals[0, :50])
-    assert np.array_equal(got[100:, 1], vals[5, :50])
+    assert d.flag is None and d.host is None
+    assert np.array_equal(got[:150].reshape(3, 50, 2),
+                          vals[:6, :50].reshape(3, 2, 50).transpose(0, 2, 1))
+    assert not got[150:].any()  # no run lands there
+    assert dd.trace.counters["fetch_landed_buckets"] == 1
+
+
+def test_interleave_runs_matches_plain(cuda):
+    """The kernel against its plain form, exactly: every random plan of
+    ``interleave_cases`` (mono, stereo, six channels, tail frames, odd
+    block sizes and T = 65535, which take the scalar path, padding lanes
+    of garbage, frames that land nowhere), and a CD track and a mono
+    speech batch at their decode shapes."""
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch.ops import epilogue
+    from claxon_tpu_torch.testing.interleave_cases import (CASE_SEEDS,
+                                                           headline_case,
+                                                           plan_case)
+
+    cases = [plan_case(seed) for seed in CASE_SEEDS]
+    cases += [headline_case(1, 2588, 4096, 2), headline_case(64, 49, 4096, 1),
+              headline_case(3, 5, 1023, 2, T=1024)]
+    for buckets, plans, shapes in cases:
+        offsets, total = tp.arena_offsets([np.zeros(s) for s in shapes])
+        got = torch.zeros(total, dtype=torch.int32, device=cuda)
+        want = torch.zeros(total, dtype=torch.int32)
+        n = epilogue.interleave_runs.launches
+        for b, plan in zip(buckets, plans):
+            runs = tp.arena_runs(plan, offsets)
+            epilogue.interleave_runs(_c(b, cuda), runs, got)
+            epilogue.interleave_runs_plain(torch.from_numpy(b), runs, want)
+        assert epilogue.interleave_runs.launches == n + len(buckets)
+        assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="outside"):
+        epilogue.interleave_runs(_c(np.zeros((4, 64)), cuda),
+                                 [(0, 1, 64, 2, 3)], got)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        epilogue.interleave_runs(_c(np.zeros((4, 64)), cuda),
+                                 [(0, 1, 64, 1, 0)], got[1:])
+    torch.cuda.synchronize()
+
+
+def test_same_size_calls_reuse_pinned_memory(cuda, capsys):
+    """Two same-size decodes to host, the first's results dropped before
+    the second: both bit-exact. The second's arena is logged: the caching
+    host allocator hands back the first's block once its views are
+    gone."""
+    import claxon_tpu_torch as ct
+
+    datas = _headline_x4()[:1]
+    ptrs = []
+    for _ in range(2):
+        dd = ct.decode_streams_device(datas, device=cuda)
+        _assert_scalar_and_md5(datas, dd.to_host())
+        ptrs.append(dd._landed[0].data_ptr())
+        del dd
+    with capsys.disabled():
+        print(f"\npinned arenas of two same-size calls: {ptrs[0]:#x}, "
+              f"{ptrs[1]:#x} (same block: {ptrs[0] == ptrs[1]})")
+    torch.cuda.synchronize()
 
 
 def fuzzed_streams(n=24, seed=7):
@@ -1563,7 +1630,8 @@ def test_framedesc_route_headline_bucket_matches_plain(cuda):
     native.extract_stream and decode_batches_device is one bucket (L 6912,
     T 4096) whose residuals go up as int16 pairs. K3b unpack, then K1 + K3,
     one launch each, equal to their plain forms on the same upload; the
-    int16 fetch (one K3b pack launch) gives the scalar decoder's PCM."""
+    landed fetch (one interleave_runs launch, no K3b pack) gives the
+    scalar decoder's PCM."""
     from claxon_tpu_torch import native as tnative
     from claxon_tpu_torch import pipeline as tp
     from claxon_tpu_torch.ops import epilogue, predict
@@ -1589,9 +1657,10 @@ def test_framedesc_route_headline_bucket_matches_plain(cuda):
                                   pair_modes)]
     plain = predict.synthesize_epilogue_plain(unpacked, *args)
     assert torch.equal(d.out_full, plain)
+    n = epilogue.interleave_runs.launches
     out = dd.to_host()
-    assert epilogue.pack_int16_pairs.launches == before[2] + 1
-    assert int(d.flag) == 0
+    assert epilogue.pack_int16_pairs.launches == before[2]
+    assert epilogue.interleave_runs.launches == n + 1 and d.flag is None
     _assert_scalar_and_md5(datas, out)
     torch.cuda.synchronize()
 
@@ -1599,8 +1668,9 @@ def test_framedesc_route_headline_bucket_matches_plain(cuda):
 def test_framedesc_route_24bit_bucket_does_not_pack(cuda):
     """use_native=False on the generated corpus, on the card: every bucket
     packs its output exactly when all its frames are 16-bit or narrower
-    (the 24-bit and 20-bit streams' buckets do not, and launch no K3b
-    pack), and the PCM is the scalar decoder's."""
+    (the 24-bit and 20-bit streams' buckets do not); every bucket is
+    landed, one ``interleave_runs`` launch each and no K3b pack, and the
+    PCM is the scalar decoder's."""
     import claxon_tpu_torch as ct
     from claxon_tpu_torch.ops import epilogue
 
@@ -1610,9 +1680,12 @@ def test_framedesc_route_24bit_bucket_does_not_pack(cuda):
             for d in dd.dispatches]
     assert [d.packed for d in dd.dispatches] == want
     assert not all(want) and any(want)
-    n = epilogue.pack_int16_pairs.launches
+    n = (epilogue.pack_int16_pairs.launches,
+         epilogue.interleave_runs.launches)
     _assert_scalar_and_md5(datas, dd.to_host())
-    assert epilogue.pack_int16_pairs.launches == n + sum(want)
+    assert (epilogue.pack_int16_pairs.launches,
+            epilogue.interleave_runs.launches) == \
+        (n[0], n[1] + len(dd.dispatches))
     torch.cuda.synchronize()
 
 
@@ -1660,9 +1733,14 @@ def test_two_shards_on_one_card(cuda, segmentation):
     assert torch.equal(torch.cat(shards), whole)
     assert sum(n for _v, n in dd.crc_check) == \
         sum(n for _v, n in one.crc_check)
-    n = epilogue.pack_int16_pairs.launches
+    n = (epilogue.pack_int16_pairs.launches,
+         epilogue.interleave_runs.launches)
     _assert_scalar_and_md5(datas, dd.to_host())
-    assert epilogue.pack_int16_pairs.launches == n + 2
+    # Sharded buckets keep the host scatter: K3b pack a shard.
+    assert (epilogue.pack_int16_pairs.launches,
+            epilogue.interleave_runs.launches) == (n[0] + 2, n[1])
+    assert dd.trace.counters["fetch_scattered_buckets"] == 1
+    assert dd.trace.counters["fetch_landed_buckets"] == 0
     torch.cuda.synchronize()
 
 
@@ -1670,8 +1748,8 @@ def test_sample_shipping_route_on_the_card(cuda, monkeypatch):
     """CLAXON_TPU_NO_BITS on the card: headline x4 is one raw bucket (L
     6912, T 4096) uploaded as int16 pairs; K3b unpack and K1 + K3 launch
     once each, equal to their plain forms on the same upload, and no
-    entropy, CRC or segmented kernel runs; the int16 fetch (one K3b pack)
-    gives the scalar decoder's PCM. The generated corpus, two headline
+    entropy, CRC or segmented kernel runs; the landed fetch (one
+    interleave_runs launch, no K3b pack) gives the scalar decoder's PCM. The generated corpus, two headline
     streams over two shards of the card, and the Ogg and MP4 calls decode
     bit-exactly too."""
     import claxon_tpu_torch as ct
@@ -1710,9 +1788,12 @@ def test_sample_shipping_route_on_the_card(cuda, monkeypatch):
         _c(a, cuda) for a in arrays[1:])
     assert torch.equal(d.out_full, predict.synthesize_epilogue_plain(
         unpacked, coefs, shifts, orders, lengths, wasted, pair_modes))
-    n = epilogue.pack_int16_pairs.launches
+    n = (epilogue.pack_int16_pairs.launches,
+         epilogue.interleave_runs.launches)
     _assert_scalar_and_md5(datas, dd.to_host())
-    assert epilogue.pack_int16_pairs.launches == n + 1 and int(d.flag) == 0
+    assert (epilogue.pack_int16_pairs.launches,
+            epilogue.interleave_runs.launches) == (n[0], n[1] + 1)
+    assert d.flag is None
     generated = [p.read_bytes() for p in sorted(GENERATED.glob("*.flac"))]
     _assert_scalar_and_md5(generated, ct.decode_streams(generated,
                                                         device=cuda))

@@ -248,7 +248,8 @@ def cuda():
 def test_trace_on_the_card(cuda):
     """On the card: the profiler shows every span as a host range and no
     ``claxon.*`` event on the device timeline; ``fetch_bytes`` is every
-    host copy ``start_fetch()`` made; ``claxon.build`` was recorded."""
+    host copy ``start_fetch()`` made (the landed arena and the CRCs), and
+    every bucket was landed; ``claxon.build`` was recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     datas = [_enc(44100, 19, block_size=4096), _enc(30000, 20)]
@@ -271,8 +272,11 @@ def test_trace_on_the_card(cuda):
                           if n != "claxon.seg.between")
     copies = [t for d in dd.dispatches for leaf in d.leaves()
               for t in (leaf.words, leaf.flag, leaf.host) if t is not None]
-    copies += dd._crc_host or []
+    assert copies == []  # every bucket landed: the arena, then the CRCs
+    copies = [dd._landed[0]] + (dd._crc_host or [])
     assert dd.trace.counters["fetch_bytes"] == sum(
         t.numel() * t.element_size() for t in copies)
+    assert dd.trace.counters["fetch_landed_buckets"] == len(dd.dispatches)
+    assert dd.trace.counters["fetch_scattered_buckets"] == 0
     assert dd.trace.counters["upload_group_bytes"] > 0
     assert "claxon.build" in [s[0] for s in trace.process.spans]

@@ -1030,9 +1030,17 @@ def _decode_walked(braws, owners, sizes, n_streams, lane_quantum, device,
     positions into one plan's upload, so the units are planned as runs
     below ``MAX_BATCH_BYTES`` and the runs' results merge, a stream's
     chunks concatenating back into its one result. The planning and
-    dispatch spans go to ``rec`` (None: a new record for each run)."""
+    dispatch spans and the counters ``walk_streams``, ``walk_units``,
+    ``walk_frames``, ``walk_bytes`` (and each run's ``walk_runs``) go to
+    ``rec`` (None: a new record)."""
     from . import pipeline_bits
 
+    if rec is None:
+        rec = trace.Trace()
+    rec.count("walk_streams", n_streams)
+    rec.count("walk_units", len(braws))
+    rec.count("walk_frames", sum(len(bb.bframes) for _si, bb in braws))
+    rec.count("walk_bytes", sum(len(bb.payload) for _si, bb in braws))
     parts = [([owners[u] for u in run], pipeline_bits.decode_raw_bits_device(
         [braws[u] for u in run], lane_quantum, device=device, mode=mode,
         mesh=mesh, rec=rec))

@@ -609,12 +609,14 @@ def decode_raw_bits_device(braws, lane_quantum, device="cuda",
     its own, and K4's frames split the same way (``crc_check`` holds a
     pair per shard). Planning and dispatch are the spans
     ``claxon.walk.plan`` and ``claxon.walk.dispatch`` of ``rec``, the
-    batch's record (None: a new one), which the result keeps."""
+    batch's record (None: a new one), which the result keeps; the call
+    adds 1 to its counter ``walk_runs``."""
     from .parallel.mesh import Mesh, device_guard, replicate, shard_ranges
     from .pipeline import DeviceDecoded, _shard_dispatch
 
     if rec is None:
         rec = trace.Trace()
+    rec.count("walk_runs", 1)
     sharded = mesh is not None
     if not sharded:
         mesh = Mesh((torch.device(device),))

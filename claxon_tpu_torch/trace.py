@@ -83,7 +83,15 @@ break or with a group whose sync candidates overflowed (0 when none);
 ``seg_pcm_allocs``, the PCM allocations it made for its chained streams
 (one per group that chained a stream: ``seg_streams / seg_pcm_allocs``
 streams share each), and ``seg_pcm_bytes``, their bytes (samples x
-channels x 4).
+channels x 4); on the host walk (``pipeline._decode_walked``; a
+segmented batch's fallback streams add theirs) ``walk_streams``, the
+streams walked, ``walk_units``, the walk units (a whole stream, or one
+chunk of frames of a stream of ``MAX_BATCH_BYTES`` or more),
+``walk_frames`` and ``walk_bytes``, the frames and the frame-section
+bytes the C++ core walked (``walk_bytes`` over the seconds of
+``claxon.walk.extract`` is the walk's rate), and ``walk_runs``, the
+runs of units planned and uploaded apart
+(``pipeline_bits.decode_raw_bits_device`` calls).
 (``DeviceDecoded.upload_bytes`` stays the batch's whole host-to-device
 count.)
 

@@ -1203,6 +1203,51 @@ def test_speech_batch_shares_one_pcm_allocation_on_the_card(cuda,
     torch.cuda.synchronize()
 
 
+def test_surround_track_past_the_batch_limit_on_the_card(cuda, monkeypatch):
+    """One 5.1 hi-res track at the benchmark configuration's widths (six
+    independent channels, 24 bits, 96 kHz, block 4096, LPC order 12,
+    RICE2), 2,500 frames of a 16-frame pool and past 2^27 bytes, through
+    the default route: the host walk in chunks, each run planned and
+    uploaded apart, bit-exact against the plain reference's PCM of the
+    pool and the stored MD5, with the walk counters of the track."""
+    import claxon_tpu_torch as ct
+    from claxon_tpu_torch import pipeline as tp
+    from claxon_tpu_torch import pipeline_bits as tpb
+    from claxon_tpu_torch.native.binding import _read_metadata
+    from claxon_tpu_torch.testing import pcm_md5
+    from flacbench.gen import assemble, pool
+    from flacbench.harness import Bench
+    from flacbench.reference import check
+
+    config = dict(Bench().config("surround51-flac8"), pool_frames=16,
+                  pool_segment_frames=8)
+    frames = pool.Pool(pool.build_pool(config, workers=1), config)
+    order = np.random.default_rng(51).integers(0, 16, 2500)
+    track = assemble.assemble_track(frames, order)
+    data = track.data
+    assert len(data) > tpb.MAX_BATCH_BYTES
+    si, pos = _read_metadata(data)
+    monkeypatch.delenv("CLAXON_TPU_SEGMENTATION", raising=False)
+    monkeypatch.setattr(tp, "_SEG_AUTO", {})
+    dd = ct.decode_streams_device([data], device=cuda)
+    assert not dd.seg_engaged
+    counters = dd.trace.counters
+    plans = [s for s in dd.trace.spans if s[0] == "claxon.walk.plan"]
+    units = -(-2500 // ((tpb.MAX_BATCH_BYTES - 5) // si.max_frame_size))
+    assert (counters["walk_streams"], counters["walk_units"],
+            counters["walk_frames"], counters["walk_bytes"]) == \
+        (1, units, 2500, len(data) - pos)
+    assert units > 1 and 1 < counters["walk_runs"] == len(plans) <= units
+    dd.sync()
+    assert check.compare_device(dd, [track], frames) == {
+        "mismatched_samples": 0, "uncovered_samples": 0,
+        "overlapping_samples": 0}
+    (got,) = dd.to_host()
+    assert np.array_equal(got.pcm, check.expected(frames, track))
+    assert pcm_md5(got.pcm, 24) == bytes(si.md5sum)
+    torch.cuda.synchronize()
+
+
 def test_front_regrows_on_the_card(cuda, monkeypatch):
     """test_torch_seg_pipeline.py::test_capacity_overflow_regrows on the
     card: capacities of 8 re-dispatch the fused demux with larger classes,
